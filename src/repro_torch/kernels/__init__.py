@@ -1,0 +1,13 @@
+"""Hand-written Hopper kernels of the port, each beside its plain PyTorch
+version (taken for tensors on the CPU):
+
+* bit-plane pack        (bitplane.py,    csrc/bitplane_pack.cu)
+* LZ4 match prep        (lz4.py,         csrc/lz4_prep.cu)
+* decode attention      (decode_attn.py, csrc/decode_attn.cu)
+
+``build.py`` compiles them with ``nvcc`` at first use and counts launches.
+"""
+
+from . import bitplane, build, decode_attn, lz4
+
+__all__ = ["bitplane", "build", "decode_attn", "lz4"]
