@@ -6,7 +6,9 @@ queue and sanitizer:
 
 * hosts speak **typed requests** — :class:`WriteReq` / :class:`ReadReq`
   name a key, a payload kind (``tensor`` or ``kv`` stream), a precision
-  view and an optional block range;
+  view and an optional block range; :class:`GatherReq` (the PNM read
+  mode) names candidate pages and a query digest, and the device ships
+  back only the top-k pages;
 * the device answers with **per-request receipts** — :class:`Receipt`
   carries the DRAM / link / index traffic and a first-order latency for
   exactly that request; :class:`DeviceStats` is the running aggregate;
@@ -16,20 +18,20 @@ queue and sanitizer:
 
 The store lives on a ``device``: on the card, a write batch's encode slab
 is packed by the bit-plane kernel and matched by the LZ4 pipeline there
-(``kernels.bitplane`` / ``kernels.lz4``), and only the byte-level emit
-and the read path's decode run on the host, in numpy, as in the
-reference.  Payload bytes, flags, receipts (latency included) and ledger
-rows are identical to the reference's for the same request sequence.
+(``kernels.bitplane`` / ``kernels.lz4``), and a gather's candidates are
+scored there (``kernels.pnm_score``); the byte-level emit and the read
+path's decode run on the host, in numpy, as in the reference.  Payload
+bytes, flags, receipts (latency included) and ledger rows are identical
+to the reference's for the same request sequence.
 
 Asynchronous submission: ``submit_async`` posts writes immediately and
 queues reads in a bounded in-flight window; queued reads execute as
 coalesced groups on window overflow, ``Ticket.wait`` / ``drain``, or a
-write-after-read fence, and their receipts carry queue delay from a
-device-global busy clock (:meth:`LinkModel.schedule`).  Program order is
-kept per key, so async execution is byte-identical to sync.
-
-Not ported yet: the PNM gather (``GatherReq``) and device fleets
-(``shards > 1``); both raise ``NotImplementedError``.
+write-after-read fence over every key a queued request touches, and
+their receipts carry queue delay from a device-global busy clock
+(:meth:`LinkModel.schedule`).  Program order is kept per key, so async
+execution is byte-identical to sync.  ``make_device(shards > 1)`` builds
+a fleet (``core.sharding.ShardedTierStore``).
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ from ..kernels import bitplane as kbitplane
 from . import codec as codecs
 from .bitplane import BF16_BITS, BLOCK_ELEMS, iter_blocks, unpack_planes_subset
 from .kv_transform import KVBlockMeta, kv_forward_batch, kv_inverse_batch
-from .precision import EXP_BITS, FULL, PrecisionView, reconstruct_u16
+from .precision import EXP_BITS, FULL, SCORE, PrecisionView, reconstruct_u16
 
 INDEX_ENTRY_BYTES = 64  # paper §III-D: one compact entry per 4 KB block
 
@@ -104,16 +106,56 @@ class ReadReq:
     tag: str = ""
 
 
+@dataclasses.dataclass(frozen=True)
 class GatherReq:
-    """The PNM top-k gather of the reference — not ported yet."""
+    """Device-side top-k gather descriptor (the PNM read mode).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "GatherReq (PNM gather) is not ported yet: ROADMAP.md Queue 1 "
-            "item 8, PNM")
+    The host names the candidate ``keys`` (spilled KV pages resident on
+    the device), a flat ``(channels,)`` float32 query ``digest`` and a
+    winner count ``k``.  The device scores every candidate on the
+    ``score_view`` plane subset (sign + exponent planes by default) and
+    returns full-precision data for only the top-k pages.  ``views``
+    optionally pins a per-key winner fetch view (position-aligned with
+    ``keys``; ``FULL`` when omitted), so a gather at ``k >= len(keys)``
+    is byte-identical to :class:`ReadReq` submissions at those views.
+    Ties on equal scores break by candidate position.
+    """
+
+    keys: Tuple[str, ...]
+    digest: np.ndarray
+    k: int
+    kind: str = KV
+    views: Optional[Tuple[PrecisionView, ...]] = None
+    score_view: PrecisionView = SCORE
+    tag: str = ""
+
+    @property
+    def key(self) -> str:
+        """First candidate key (routing and labels by ``request.key``)."""
+        return self.keys[0] if self.keys else ""
 
 
-Request = Union[WriteReq, ReadReq]
+Request = Union[WriteReq, ReadReq, GatherReq]
+
+
+def _req_keys(req: Request) -> frozenset:
+    """Every device key one request touches (hazard-fence granularity)."""
+    if isinstance(req, GatherReq):
+        return frozenset(req.keys)
+    return frozenset((req.key,))
+
+
+@dataclasses.dataclass
+class GatherResult:
+    """Winner set of one executed :class:`GatherReq`: ``scores`` for
+    every candidate in ``keys`` order (f32); ``keys`` / ``indices`` /
+    ``data`` for the winners in descending-score order, ``data`` holding
+    the bytes a plain read of that key at its winner view returns."""
+
+    keys: List[str]
+    indices: List[int]
+    scores: np.ndarray
+    data: List[np.ndarray]
 
 
 @dataclasses.dataclass
@@ -143,6 +185,7 @@ class Receipt:
     device_compute_s: float = 0.0  # device-side PNM time (gathers only)
     device_id: int = 0
     data: Optional[np.ndarray] = None
+    gather: Optional[GatherResult] = None   # winner set (gathers only)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,6 +200,7 @@ class LinkModel:
     ddr_bw: float = 256e9         # device-side DDR
     link_bw: float = 512e9        # CXL.mem per direction
     base_s: float = 1e-6          # fixed request overhead
+    pnm_ops_s: float = 2e12       # near-memory scoring throughput (elem/s)
 
     @classmethod
     def for_design(cls, design: str, comp_ratio: float = 1.5,
@@ -169,6 +213,12 @@ class LinkModel:
     def latency(self, dram_bytes: int, link_bytes: int) -> float:
         return self.base_s + max(dram_bytes / self.ddr_bw,
                                  link_bytes / self.link_bw)
+
+    def device_compute(self, elems: int) -> float:
+        """Modelled time the device's near-memory unit spends scoring
+        ``elems`` candidate elements for one gather (a third resource
+        beside the DDR and link pipes: it extends delivery only)."""
+        return elems / self.pnm_ops_s
 
     def schedule(
         self, traffic: Sequence[Tuple[int, int]],
@@ -809,8 +859,43 @@ class TierStore:
                         and not self._kv_staging.get(req.key)
                         and req.key not in written):
                     raise KeyError(req.key)
+            elif isinstance(req, GatherReq):
+                self._validate_gather(req, written)
             else:
                 raise TypeError(f"not a tier request: {req!r}")
+
+    def _validate_gather(self, req: GatherReq, written: Set[str]):
+        if req.kind not in (TENSOR, KV):
+            raise ValueError(f"unknown request kind {req.kind!r}")
+        if req.k < 0:
+            raise ValueError(f"gather k must be >= 0, got {req.k}")
+        digest = np.asarray(req.digest)
+        if digest.ndim != 1 or digest.size == 0:
+            raise ValueError("gather digest must be a flat (channels,) vector")
+        if req.views is not None and len(req.views) != len(req.keys):
+            raise ValueError(f"gather views ({len(req.views)}) must align "
+                             f"with keys ({len(req.keys)})")
+        kv_exp = req.kind == KV and self.layout.kv_transform
+        for view in (req.score_view,) + tuple(req.views or ()):
+            if kv_exp and view.r_e != EXP_BITS:
+                raise ValueError(
+                    "KV views must keep the full (delta) exponent"
+                )
+        for key in req.keys:
+            if (key not in self._tensors
+                    and not self._kv_staging.get(key)
+                    and key not in written):
+                raise KeyError(key)
+            c = self._kv_channels.get(key)
+            if c is not None and c != digest.size:
+                raise ValueError(f"gather digest has {digest.size} channels "
+                                 f"but {key!r} stores {c}")
+
+    def validate(self, requests: Sequence[Request]):
+        """The checks :meth:`submit` runs before touching device state; a
+        fleet pre-flights every shard's sub-batch through this, so a
+        malformed fleet batch rejects before any shard commits."""
+        self._validate(requests)
 
     # -- sanctioned accounting helpers ---------------------------------------
     def _apply_receipt(self, rec: Receipt):
@@ -867,10 +952,11 @@ class TierStore:
         self._validate(requests)
         writes = [r for r in requests if isinstance(r, WriteReq)]
         if writes:
-            # write-after-read fence: queued reads of a written key must
-            # not observe data from their future
+            # write-after-read fence: queued reads (and gathers, over any
+            # of their candidates) of a written key must not observe data
+            # from their future
             hot = frozenset(w.key for w in writes)
-            if any(t.request.key in hot for t in self._queue):
+            if any(hot & _req_keys(t.request) for t in self._queue):
                 self._flush_queue(len(self._queue), wait=False)
         tickets: Dict[int, Ticket] = {}
         if writes:
@@ -1084,19 +1170,107 @@ class TierStore:
         self._encode_commit(slab)
 
     # -- read path -----------------------------------------------------------
-    def _do_reads(self, reqs: Sequence[ReadReq]) -> List[Receipt]:
-        """Gather every requested block, tally per-request traffic, decode
-        per view-group; receipts apply in a finally so a failure
-        mid-batch cannot desync stats."""
-        recs = [Receipt(key=r.key, op="read", kind=r.kind, tag=r.tag)
+    def _do_reads(self, reqs: Sequence[Request]) -> List[Receipt]:
+        """Plain reads first, as one batch (every requested block
+        gathered, traffic tallied per request, decoded per view-group),
+        then gathers in listed order; receipts apply in a finally so a
+        failure mid-batch cannot desync stats."""
+        recs = [Receipt(key=r.key,
+                        op="gather" if isinstance(r, GatherReq) else "read",
+                        kind=r.kind, tag=r.tag)
                 for r in reqs]
         try:
-            self._gather_and_decode(reqs, recs)
+            read_ix = [i for i, r in enumerate(reqs)
+                       if not isinstance(r, GatherReq)]
+            if read_ix:
+                self._gather_and_decode([reqs[i] for i in read_ix],
+                                        [recs[i] for i in read_ix])
+            for req, rec in zip(reqs, recs):
+                if isinstance(req, GatherReq):
+                    self._do_gather(req, rec)
             return recs
         finally:
             for rec in recs:
                 self._apply_receipt(rec)
-            self._sanitize_boundary({r.key for r in reqs})
+            touched: Set[str] = set()
+            for r in reqs:
+                touched |= _req_keys(r)
+            self._sanitize_boundary(touched)
+
+    def _fetch_keys(self, rec: Receipt, kind: str, keys: Sequence[str],
+                    views: Sequence[PrecisionView]) -> List[np.ndarray]:
+        """Plane-aligned fetch and host decode of whole keys at ``views``,
+        tallied into ``rec`` — the per-block walk of
+        :meth:`_gather_and_decode`."""
+        per_key: List[List[Tuple[_Block, PrecisionView]]] = []
+        for key, view in zip(keys, views):
+            blocks = self._tensors.get(key, [])
+            eff = [(b, view if b.view is None
+                    else _intersect_views(view, b.view)) for b in blocks]
+            for i, (b, v) in enumerate(eff):
+                self._touch_index(rec, key, i)
+                _add(rec, dram_bytes_read=sum(
+                    len(b.payloads[p])
+                    for p in self.layout.fetched_payloads(b, v)))
+            per_key.append(eff)
+        groups: Dict[PrecisionView, List[_Block]] = {}
+        for eff in per_key:
+            for b, v in eff:
+                groups.setdefault(v, []).append(b)
+        decoded = {v: iter(self.layout.decode_batch(blocks, v, self.codec))
+                   for v, blocks in groups.items()}
+        return [self._assemble(ReadReq(key, kind=kind, view=FULL),
+                               [next(decoded[v]) for _, v in eff])
+                for key, eff in zip(keys, per_key)]
+
+    def _do_gather(self, req: GatherReq, rec: Receipt):
+        """One PNM gather: decode every candidate at ``score_view`` on the
+        host, score the pages on the tier's device (``kernels.pnm_score``),
+        then fetch the top-k winners at their views.
+
+        The scoring pass reads only the score view's planes from DRAM
+        (plus index touches) and ships 4 B per candidate over the link;
+        winners are fetched like plain reads.  ``device_compute_s`` is the
+        modelled :meth:`LinkModel.device_compute` time over the scored
+        elements, as in the reference, not a measured time."""
+        from ..kernels.pnm_score import page_scores_u16, topk_select
+
+        if req.kind == KV:
+            for key in req.keys:
+                if self._kv_staging.get(key):
+                    # implicit flush, accounted to this gather
+                    self._commit_kv_window(rec, key)
+        candidates = self._fetch_keys(rec, req.kind, req.keys,
+                                      [req.score_view] * len(req.keys))
+        scores = page_scores_u16(
+            candidates, np.asarray(req.digest, dtype=np.float32), self.device)
+        _add(rec, link_bytes_out=4 * len(req.keys),
+             device_compute_s=self.link_model.device_compute(
+                 sum(int(c.size) for c in candidates)))
+
+        winner_ix = topk_select(scores, req.k)
+        winner_views = [req.views[i] if req.views is not None else FULL
+                        for i in winner_ix]
+        winner_keys = [req.keys[i] for i in winner_ix]
+        data = self._fetch_keys(rec, req.kind, winner_keys, winner_views)
+        if self.layout.plane_aligned:
+            # truncated blocks clamp the view: ship each block's bits
+            for key, view in zip(winner_keys, winner_views):
+                for b in self._tensors.get(key, []):
+                    v = view if b.view is None else _intersect_views(view,
+                                                                     b.view)
+                    n = b.valid_elems
+                    if b.kv_meta is not None:
+                        n = b.kv_meta.n_tokens * b.kv_meta.n_channels
+                    _add(rec, link_bytes_out=n * v.bits // 8)
+        else:
+            _add(rec, link_bytes_out=sum(a.size for a in data)
+                 * BF16_BITS // 8)
+        lat = self.link_model.latency(rec.dram_bytes_read,
+                                      rec.link_bytes_out) + rec.device_compute_s
+        _put(rec, service_s=lat, latency_s=lat, gather=GatherResult(
+            keys=winner_keys, indices=list(winner_ix), scores=scores,
+            data=data))
 
     def _gather_and_decode(self, reqs: Sequence[ReadReq],
                            recs: List[Receipt]):
@@ -1370,16 +1544,20 @@ DEVICE_KINDS = {"plain": PlainDevice, "gcomp": GCompDevice, "trace": TraceDevice
 
 
 def make_device(kind: str, shards: Optional[int] = None,
+                placement: Optional[str] = None,
                 device: Union[str, torch.device, None] = None,
                 **kw) -> TierStore:
     """Build a named tier device whose kernels run on ``device`` (default:
-    the card).  ``shards`` (or the ``TRACE_SHARDS`` env var) above 1
-    asks for a fleet, which is not ported yet."""
+    the card), or a fleet of them.  ``shards`` above 1 returns a
+    :class:`repro_torch.core.sharding.ShardedTierStore` of ``shards``
+    devices of this kind, all on ``device``, placed by ``placement``
+    (default ``hash-stripe``); ``shards=None`` defers to the
+    ``TRACE_SHARDS`` env var."""
     if shards is None:
         raw = os.environ.get("TRACE_SHARDS", "").strip()
         shards = int(raw) if raw else 1
     if shards > 1:
-        raise NotImplementedError(
-            "sharded tier fleets (shards > 1) are not ported yet: "
-            "ROADMAP.md Queue 1 item 9, Fleets")
+        from .sharding import ShardedTierStore
+        return ShardedTierStore(shards, kind, placement=placement,
+                                device=device, **kw)
     return DEVICE_KINDS[kind](device=device, **kw)

@@ -23,7 +23,7 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("bitplane_pack", "lz4_prep", "decode_attn")
+SOURCES = ("bitplane_pack", "lz4_prep", "decode_attn", "pnm_score")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -34,6 +34,7 @@ SIGNATURES = {
     "lz4_prep": ("lz4_prep", (_P, _P, _P, _P, _L, _I, _P)),
     "decode_attn": ("decode_attn", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                     _F, _I, _I, _P)),
+    "pnm_score": ("pnm_score", (_P, _P, _P, _P, _I, _I, _I, _I, _P)),
 }
 
 # Launches per kernel: each wrapper adds one where it launches its kernel

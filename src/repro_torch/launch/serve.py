@@ -6,9 +6,18 @@ request on its own key namespace of one shared tier device and retired
 when done.  Reports tier traffic, the KV compression ratio, the implied
 tok/s ceiling and the wall-clock rate.
 
+``--pnm-topk K`` turns spill readback into a device-side top-K gather per
+KV kind per boundary (K covering the spill reads back exactly what the
+classic path does); ``--importance attention`` ranks pages by
+accumulated attention mass instead of commit recency; ``--shards N``
+(with ``--placement P``) serves against a fleet of N tier devices.
+
 Usage (on a machine with an NVIDIA GPU):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --prompt-len 512 --tokens 64 --requests 3
+  PYTHONPATH=src python -m repro_torch.launch.serve --prompt-len 512 \\
+      --tokens 64 --requests 1 --pnm-topk 16 --importance attention \\
+      --shards 4 --placement hash-stripe
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --cpu \\
       --prompt-len 64 --tokens 8 --hbm-kv-budget 16384
 """
@@ -18,6 +27,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -37,6 +48,7 @@ class ServeReport:
     wall_s: float               # prefill + decode of every request
     spilled_pages: int          # summed over requests
     readback_pages: int         # spilled pages read back into the cache
+    gathered_pages: int         # winner pages the PNM gathers shipped
     kv_logical_bytes: int
     kv_stored_bytes: int        # tier payload + HBM pages, summed
     tier_dram_read: int
@@ -64,15 +76,20 @@ def serve(
     page_tokens: int = 64,
     lossless_only: bool = False,
     async_io: bool = True,
+    pnm_topk: Optional[int] = None,
+    importance: str = "recency",
+    shards: Optional[int] = None,
+    placement: Optional[str] = None,
     seed: int = 0,
     torch_device=None,
     params=None,
     verbose: bool = True,
 ) -> ServeReport:
     """Serve ``requests`` random prompts of ``prompt_len`` tokens, ``n_tokens``
-    new tokens each.  ``device`` names the tier kind; ``torch_device`` is
-    where the model and kernels run (default: the card).  ``params``
-    overrides the seeded random init."""
+    new tokens each.  ``device`` names the tier kind (``shards`` > 1: a
+    fleet of them under ``placement``); ``torch_device`` is where the
+    model and kernels run (default: the card).  ``params`` overrides the
+    seeded random init."""
     dev = devices.resolve(torch_device)
     cfg = ARCHS[arch]
     if smoke:
@@ -80,17 +97,19 @@ def serve(
     if params is None:
         params = init_params(cfg, seed=seed, device=dev)
     policy = LOSSLESS_POLICY if lossless_only else PAPER_POLICY
-    tier = make_device(device, device=dev)
+    tier = make_device(device, shards=shards, placement=placement,
+                       device=dev)
     rng = np.random.default_rng(seed)
     toks, wall = [], 0.0
-    spilled = readback = logical = stored = 0
+    spilled = readback = gathered = logical = stored = 0
     ceiling = 0.0
     for r in range(requests):
         eng = ServeEngine(
             cfg, params, max_seq=prompt_len + n_tokens + page_tokens,
             batch=batch, page_tokens=page_tokens, hbm_kv_budget=hbm_kv_budget,
             device_kind=tier, policy=policy, key_prefix=f"r{r}.",
-            async_io=async_io, device=dev,
+            async_io=async_io, pnm_topk=pnm_topk, importance=importance,
+            device=dev,
         )
         prompt = rng.integers(0, cfg.vocab, (batch, prompt_len)).astype(np.int32)
         if dev.type == "cuda":
@@ -103,6 +122,7 @@ def serve(
         s = eng.stats()
         spilled += s.spilled_pages
         readback += eng.pool.pages_read
+        gathered += eng.pool.pages_gathered
         logical += s.kv_logical_bytes
         stored += s.tier_dram_stored + s.hbm_page_bytes
         ceiling = eng.throughput_ceiling()
@@ -111,6 +131,7 @@ def serve(
     rep = ServeReport(
         tokens=toks, generated_tokens=requests * batch * n_tokens, wall_s=wall,
         spilled_pages=spilled, readback_pages=readback,
+        gathered_pages=gathered,
         kv_logical_bytes=logical, kv_stored_bytes=stored,
         tier_dram_read=d.dram_bytes_read, tier_link_out=d.link_bytes_out,
         tok_s_ceiling=ceiling,
@@ -120,8 +141,16 @@ def serve(
               f"d_model={cfg.d_model} tier={device} on {dev} "
               f"async_io={async_io}: {requests} requests x {batch} x "
               f"({prompt_len} prompt + {n_tokens} new) tokens")
+        if pnm_topk is not None:
+            print(f"[serve] PNM read mode: top-{pnm_topk} gather per KV "
+                  f"kind per boundary, importance={importance}")
+        if getattr(tier, "n_shards", 1) > 1:
+            print(f"[serve] fleet: {tier.n_shards} tier devices, placement "
+                  f"{tier.placement.name}, skew {tier.fleet_skew():.3f}x "
+                  "max/mean moved bytes")
         print(f"[serve] spilled pages {rep.spilled_pages}, read back "
-              f"{rep.readback_pages}; KV {rep.kv_logical_bytes} B logical "
+              f"{rep.readback_pages}, gathered {rep.gathered_pages}; KV "
+              f"{rep.kv_logical_bytes} B logical "
               f"stored in {rep.kv_stored_bytes} B "
               f"(ratio {rep.kv_compression_ratio:.3f}x)")
         print(f"[serve] tier DRAM read {rep.tier_dram_read} B, link out "
@@ -152,12 +181,29 @@ def main():
     ap.add_argument("--sync-io", action="store_true",
                     help="serialize spill readback (disable the async queue)")
     ap.add_argument("--lossless-only", action="store_true")
+    ap.add_argument("--pnm-topk", type=int, default=None,
+                    help="PNM read mode: a device-side top-K gather per KV "
+                         "kind replaces full spill readback (K >= spilled "
+                         "pages reads back exactly what the classic path "
+                         "does); default off")
+    ap.add_argument("--importance", default="recency",
+                    choices=["recency", "attention"],
+                    help="page-importance signal: commit recency, or "
+                         "attention mass accumulated every boundary")
+    ap.add_argument("--shards", type=int, default=0,
+                    help="serve against a fleet of N tier devices; 0 defers "
+                         "to the TRACE_SHARDS env var, 1 pins one device")
+    ap.add_argument("--placement", default=None,
+                    choices=["hash-stripe", "namespace"],
+                    help="fleet placement policy (with --shards > 1)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     serve(arch=args.arch, smoke=args.smoke, device=args.device,
           prompt_len=args.prompt_len, n_tokens=args.tokens, batch=args.batch,
           requests=args.requests, hbm_kv_budget=args.hbm_kv_budget,
           lossless_only=args.lossless_only, async_io=not args.sync_io,
+          pnm_topk=args.pnm_topk, importance=args.importance,
+          shards=args.shards or None, placement=args.placement,
           seed=args.seed, torch_device="cpu" if args.cpu else None)
 
 

@@ -18,15 +18,23 @@ at one commit boundary and drained at the next, so they are in flight
 across the decode steps between.  Tier reads are byte-identical either
 way; under a lossless policy generation is identical to ``async_io=False``.
 
-Not ported yet (``ROADMAP.md`` Queue 1): multi-stream engines, the
-continuous-batching scheduler, the PNM gather (``pnm_topk``) and
-attention-mass importance.
+PNM read mode (``pnm_topk``): a boundary's spill readback becomes one
+device-side top-k gather per KV kind against the query digest (the mean
+of the last committed window's rows); losers keep their HBM values in
+the cache, and ``pnm_topk`` covering the spill reads back exactly what
+classic readback does.  ``importance="attention"`` ranks pages by the
+digest-proxy attention mass accumulated at every boundary instead of
+commit recency.  The digest and the masses are computed on the engine's
+device; only the ``(C,)`` digest and one mass per window reach the host.
+
+Not ported yet (``ROADMAP.md`` Queue 1): multi-stream engines and the
+continuous-batching scheduler.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -92,14 +100,10 @@ class ServeEngine:
         device: Union[str, torch.device, None] = None,
     ):
         assert not cfg.is_encoder_only, "serving needs a decoder"
-        if pnm_topk is not None:
-            raise NotImplementedError(
-                "pnm_topk (PNM gather) is not ported yet: ROADMAP.md Queue 1 "
-                "item 8, PNM")
-        if importance != "recency":
-            raise NotImplementedError(
-                f"importance={importance!r} is not ported yet: ROADMAP.md "
-                "Queue 1 item 8, PNM")
+        if importance not in ("recency", "attention"):
+            raise ValueError(f"unknown importance mode {importance!r}")
+        if pnm_topk is not None and pnm_topk < 0:
+            raise ValueError("pnm_topk must be >= 0 (or None to disable)")
         self.device = devices.resolve(device)
         emb = params["embed"]
         if emb.device != self.device:
@@ -111,6 +115,9 @@ class ServeEngine:
         self.max_seq = max_seq
         self.page_tokens = page_tokens
         self.async_io = async_io
+        self.pnm_topk = pnm_topk
+        self.importance = importance
+        self._imp_acc: Dict[str, float] = {}    # accumulated attention mass
         self.pool = KVPagePool(
             device_kind, page_tokens, hbm_kv_budget, policy,
             key_prefix=key_prefix, device=self.device,
@@ -118,6 +125,7 @@ class ServeEngine:
         self.cache = init_cache(cfg, batch, max_seq, device=self.device)
         self.pos = 0
         self._inflight: List[Tuple[_Page, Ticket]] = []
+        self._inflight_gathers: List[Tuple[List[_Page], Ticket]] = []
 
     # -- helpers ---------------------------------------------------------------
     def _commit_pages(self, lo: int, hi: int):
@@ -140,6 +148,8 @@ class ServeEngine:
                     batch_pages.append((layer, kind, start,
                                         tok.view(np.uint16), float(start)))
         if batch_pages:
+            if self.importance == "attention":
+                batch_pages = self._apply_attention_importance(batch_pages)
             self.pool.append_pages(batch_pages)
         self._issue_readback()
 
@@ -150,6 +160,9 @@ class ServeEngine:
         events, self.pool.spill_events = self.pool.spill_events, []
         if not events:
             return
+        if self.pnm_topk is not None:
+            self._issue_gather(events)
+            return
         if self.async_io:
             self._inflight.extend(
                 zip(events, self.pool.read_pages_async(events))
@@ -157,14 +170,96 @@ class ServeEngine:
         else:
             self._apply_readback(events, self.pool.read_pages(events))
 
+    def _issue_gather(self, events: Sequence[_Page]):
+        """PNM read mode: one device-side top-k gather per KV kind over
+        this boundary's evictions, against the kind's query digest; only
+        the ``pnm_topk`` winners are read back into the cache."""
+        by_kind: Dict[str, List[_Page]] = {}
+        for p in events:
+            by_kind.setdefault(p.kind, []).append(p)
+        for kind, pages in by_kind.items():
+            digest = self._digest(kind).cpu().numpy()
+            if self.async_io:
+                cands, ticket = self.pool.gather_topk_async(
+                    digest, self.pnm_topk, pages)
+                if ticket is not None:
+                    self._inflight_gathers.append((cands, ticket))
+            else:
+                self._apply_readback(*self.pool.gather_topk(
+                    digest, self.pnm_topk, pages))
+
     def flush_io(self):
-        """Drain in-flight readback tickets and fold them into the cache."""
-        if not self._inflight:
-            return
+        """Drain in-flight readback and gather tickets and fold them into
+        the cache."""
         inflight, self._inflight = self._inflight, []
-        pages = [p for p, _ in inflight]
-        data = self.pool.drain_reads([t for _, t in inflight])
-        self._apply_readback(pages, data)
+        gathers, self._inflight_gathers = self._inflight_gathers, []
+        if inflight:
+            pages = [p for p, _ in inflight]
+            data = self.pool.drain_reads([t for _, t in inflight])
+            self._apply_readback(pages, data)
+        for cands, ticket in gathers:
+            self._apply_readback(*self.pool.drain_gather(cands, ticket))
+
+    def _digest(self, kind: str) -> torch.Tensor:
+        """f32 mean of the last committed window's rows of ``kind``, over
+        every layer and batch row, on the engine's device — the stand-in
+        for the current query direction."""
+        buf = self.cache["layers"][kind]               # (L, B, S, KV, hd)
+        channels = buf.shape[3] * buf.shape[4]
+        win = buf[:, :, max(0, self.pos - self.page_tokens):self.pos]
+        if win.numel() == 0:
+            return torch.zeros(channels, dtype=torch.float32,
+                               device=buf.device)
+        return win.float().reshape(-1, channels).mean(dim=0)
+
+    def _attention_masses(self) -> Dict[Tuple[int, int], float]:
+        """Digest-proxy attention mass per committed K window, keyed by
+        ``(layer, start)``: every committed row's ``<row, digest>`` is
+        softmaxed across the layer's whole committed context (all batch
+        rows together), and a window's mass is the sum of its rows'
+        probabilities.  Computed on the engine's device; one float per
+        window goes to the host."""
+        page = self.page_tokens
+        paged = (self.pos // page) * page
+        if paged <= 0:
+            return {}
+        buf = self.cache["layers"]["k"]
+        L, B = buf.shape[:2]
+        rows = buf[:, :, :paged].float().reshape(L, B * paged, -1)
+        dots = rows @ self._digest("k")                # (L, B * paged)
+        p = torch.exp(dots - dots.amax(dim=1, keepdim=True))
+        p = p / p.sum(dim=1, keepdim=True)
+        win = p.reshape(L, B, paged // page, page).sum(dim=(1, 3))
+        win = win.cpu().numpy()
+        return {(layer, w * page): float(win[layer, w])
+                for layer in range(L) for w in range(paged // page)}
+
+    def _apply_attention_importance(self, batch_pages: List[tuple]
+                                    ) -> List[tuple]:
+        """Fold this boundary's attention masses into the per-key running
+        totals, re-rank the pool's live pages by them, and admit the
+        fresh pages at their accumulated mass instead of recency.  V pages
+        take their K twin's mass."""
+        masses = self._attention_masses()
+        if not masses:
+            return batch_pages
+        for p in self.pool.iter_pages():
+            m = masses.get((p.layer, p.start))
+            if m is not None:
+                self._imp_acc[p.key] = self._imp_acc.get(p.key, 0.0) + m
+        known = {p.key for p in self.pool.iter_pages()}
+        scores = {k: v for k, v in self._imp_acc.items() if k in known}
+        if scores:
+            self.pool.update_importance(scores)
+        out = []
+        for layer, kind, start, u16, imp in batch_pages:
+            key = f"{self.pool.key_prefix}L{layer}.{kind}.{start}"
+            m = masses.get((layer, start))
+            if m is not None:
+                self._imp_acc[key] = self._imp_acc.get(key, 0.0) + m
+                imp = self._imp_acc[key]
+            out.append((layer, kind, start, u16, imp))
+        return out
 
     def _apply_readback(self, pages: Sequence[_Page],
                         data: Sequence[np.ndarray]):

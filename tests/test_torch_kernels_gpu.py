@@ -16,7 +16,9 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import ARCHS, smoke_config  # noqa: E402
 from repro_torch.core import precision  # noqa: E402
 from repro_torch.core import tier  # noqa: E402
-from repro_torch.kernels import bitplane, build, decode_attn, lz4  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    bitplane, build, decode_attn, lz4, pnm_score,
+)
 from repro_torch.models.model import init_params  # noqa: E402
 from repro_torch.runtime import LOSSLESS_POLICY, ServeEngine  # noqa: E402
 
@@ -92,6 +94,86 @@ def test_decode_attention_kernel_matches_plain(card, kv, B, H, KV, hd, S,
         decode_attn.decode_attention(q, k, v, S + 1)
 
 
+def _scores_equal(a, b):
+    """Bitwise equal, NaN matching NaN (payloads may differ)."""
+    a, b = a.cpu(), b.cpu()
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))) and \
+        bool(torch.equal(a[~nan], b[~nan]))
+
+
+@pytest.mark.parametrize("P,T,C", [(64, 64, 128), (24, 64, 128), (5, 16, 64),
+                                   (3, 7, 40), (2, 3, 1024), (1, 1, 1)])
+def test_pnm_score_kernel_matches_plain(card, P, T, C):
+    """Bit-equal to the plain version (same summation order), with ragged
+    valid counts, an empty page, NaN and inf rows."""
+    rng = np.random.default_rng(P * T + C)
+    x = (rng.standard_normal((P, T, C)) * 0.7).astype(np.float32)
+    u = (x.view(np.uint32) >> 16).astype(np.uint16)
+    valid = rng.integers(0, T + 1, P).astype(np.int32)
+    valid[0] = 0
+    if P > 2:
+        valid[1:3] = T
+        u[1, 0, 0] = 0x7FC0                      # NaN in a valid row
+        u[2, T - 1, C - 1] = 0x7F80              # +inf in a valid row
+    pages = torch.from_numpy(u.view(np.int16)).to(card)
+    digest = torch.from_numpy(rng.standard_normal(C).astype(np.float32)).to(
+        card)
+    v = torch.from_numpy(valid).to(card)
+    before = build.LAUNCHES["pnm_score"]
+    got = pnm_score.page_scores(pages, v, digest)
+    assert build.LAUNCHES["pnm_score"] == before + 1
+    want = pnm_score.page_scores_plain(pages, v, digest)
+    assert _scores_equal(got, want)
+    assert float(got[0]) == float("-inf")
+    if P > 2:
+        assert bool(torch.isnan(got[1]))
+
+
+def test_pnm_score_batch_independent_and_ties(card):
+    """A page scores bitwise the same alone and inside a larger, other-
+    padded batch; byte-identical pages score equal."""
+    rng = np.random.default_rng(3)
+    pages = [(rng.standard_normal((t, 128)).astype(np.float32).view(np.uint32)
+              >> 16).astype(np.uint16) for t in (64, 9, 64, 1)]
+    pages.append(pages[0].copy())
+    digest = rng.standard_normal(128).astype(np.float32)
+    batch = pnm_score.page_scores_u16(pages, digest, card)
+    big = pnm_score.page_scores_u16(pages[::-1] + [np.zeros((300, 128),
+                                                            np.uint16)],
+                                    digest, card)[:-1][::-1]
+    alone = np.array([pnm_score.page_scores_u16([p], digest, card)[0]
+                      for p in pages])
+    cpu = pnm_score.page_scores_u16(pages, digest, "cpu")
+    for other in (big, alone, cpu):
+        assert other.tobytes() == batch.tobytes()
+    assert batch[0] == batch[4]
+
+
+def test_pnm_gather_on_card_identical_to_cpu(card):
+    rng = np.random.default_rng(5)
+    pages = [((rng.standard_normal((64, 128)) * 0.5).astype(np.float32)
+              .view(np.uint32) >> 16).astype(np.uint16) for _ in range(24)]
+    keys = tuple(f"p{i}" for i in range(24))
+    digest = rng.standard_normal(128).astype(np.float32)
+    recs = {}
+    for dev in (card, "cpu"):
+        t = tier.make_device("trace", device=dev)
+        t.submit([tier.WriteReq(k, p, kind=tier.KV)
+                  for k, p in zip(keys, pages)])
+        recs[str(dev)] = t.submit([tier.GatherReq(keys, digest, k=k)
+                                   for k in (0, 5, 24)])
+    for a, b in zip(recs[str(card)], recs["cpu"], strict=True):
+        skip = ("data", "gather")
+        assert {k: v for k, v in vars(a).items() if k not in skip} == \
+            {k: v for k, v in vars(b).items() if k not in skip}
+        assert a.gather.scores.tobytes() == b.gather.scores.tobytes()
+        assert (a.gather.keys, a.gather.indices) == \
+            (b.gather.keys, b.gather.indices)
+        for x, y in zip(a.gather.data, b.gather.data, strict=True):
+            np.testing.assert_array_equal(x, y)
+
+
 def test_tier_on_card_identical_to_cpu(card):
     rng = np.random.default_rng(4)
     pages = [((rng.standard_normal((64, 128)) * 0.5).astype(np.float32)
@@ -112,15 +194,21 @@ def test_tier_on_card_identical_to_cpu(card):
 
 
 def test_engine_on_card_runs_every_kernel(card):
+    """Classic readback and the PNM path (attention importance, 2 shards)
+    on the card: together they launch every kernel."""
     cfg = smoke_config(ARCHS["qwen2-0.5b"])
     params = init_params(cfg, seed=0, device=card)
     build.reset_launches()
-    eng = ServeEngine(cfg, params, max_seq=96, page_tokens=16,
-                      hbm_kv_budget=1 << 12, policy=LOSSLESS_POLICY,
-                      device=card)
     prompt = (np.arange(48, dtype=np.int32).reshape(1, 48) * 3) % cfg.vocab
-    toks = eng.generate(prompt, 12)
-    assert toks.shape == (1, 12) and toks.max() < cfg.vocab
-    assert eng.stats().spilled_pages > 0
+    for pnm in ({}, dict(pnm_topk=2, importance="attention",
+                         device_kind=tier.make_device("trace", shards=2,
+                                                      device=card))):
+        eng = ServeEngine(cfg, params, max_seq=96, page_tokens=16,
+                          hbm_kv_budget=1 << 12, policy=LOSSLESS_POLICY,
+                          device=card, **pnm)
+        toks = eng.generate(prompt, 12)
+        assert toks.shape == (1, 12) and toks.max() < cfg.vocab
+        assert eng.stats().spilled_pages > 0
+    assert eng.pool.pages_gathered > 0
     assert all(build.LAUNCHES[name] > 0 for name in build.SOURCES), \
         build.LAUNCHES

@@ -170,5 +170,3 @@ def test_cuda_engine_without_card_raises(models):
         TServe(tcfg, tparams, **ENGINE)          # the card is the default
     with pytest.raises(RuntimeError, match="CUDA"):
         TPool("trace")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TServe(tcfg, tparams, device="cpu", pnm_topk=2, **ENGINE)

@@ -159,13 +159,6 @@ def test_truncate_delete_refcount_and_sanitizer_identical():
     assert tnum == rnum and tnum[0] > 0
 
 
-def test_unported_modes_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttier.GatherReq(keys=("a",), digest=np.zeros(4), k=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttier.make_device("trace", shards=2, device="cpu")
-
-
 def test_cuda_device_without_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a card is present")
