@@ -9,24 +9,32 @@ Phases (any failure exits non-zero and prints no result line):
 1. build every CUDA kernel of the serving path from ``src/repro_torch/csrc``
    (one ``nvcc`` per source, started together);
 2. hold each kernel against its plain PyTorch version on the card at the
-   shapes the main path gives it — pack, prep and page scoring bit-equal
+   shapes the main path gives it — pack, prep, page scoring, the KV
+   exponent-delta forward and inverse and the bit-plane unpack bit-equal
    (page scoring also on ragged, empty, NaN and inf pages, on duplicate
-   pages and on one page alone and inside a larger batch), decode
-   attention within f32 tolerance for bf16 and fp8 caches — and time
-   kernel, plain version and (for attention) PyTorch's
-   ``scaled_dot_product_attention``;
-3. check the card's tier encode and PNM gather against the CPU's on the
-   same KV pages (receipts, scores, winners and bytes identical) and the
-   card's model against the CPU's on a small input;
-4. serve 3 requests (512 prompt + 64 new tokens) through full-width
+   pages and on one page alone and inside a larger batch; the KV and
+   unpack kernels at every view the tier reads with, on histogram ties,
+   Inf, NaN, carries and saturation, and an arbitrary beta round trip),
+   decode attention and the elastic matmul within f32 tolerance — and
+   time kernel, plain version and the one PyTorch call computing the
+   same function where there is one;
+3. drive the kernel API (``repro_torch.kernels.ops``), the only path
+   that reaches the elastic matmul, with the launch counts set to 0 just
+   before and read just after;
+4. check the card's tier against the CPU's on the same KV pages: writes,
+   readback at every view (policy views, the score view, a truncated
+   block's intersection, a partial window, a tensor) and PNM gathers
+   (receipts, scores, winners and bytes identical), and the card's model
+   against the CPU's on a small input;
+5. serve 3 requests (512 prompt + 64 new tokens) through full-width
    qwen2-0.5b with random weights, KV spilling to a ``trace`` tier, with
    the kernel launch counts set to 0 just before and read just after;
-5. the PNM path at full width, one request per case, launch counts read
+6. the PNM path at full width, one request per case, launch counts read
    per case: (a) classic readback, (b) a gather covering every candidate
    (tokens identical to a), (c) top-16 gathers with attention importance
    (fewer link bytes than a), (d) c on a 4-shard fleet (tokens identical
    to c);
-6. profile one more classic request (host split from cProfile, device
+7. profile one more classic request (host split from cProfile, device
    busy time from ``torch.profiler``) and one PNM request (cProfile).
 
 Prints the card's name and power limit, a ``kernels`` JSON line, and as
@@ -45,12 +53,23 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_S = 3.35e12        # H100 SXM device memory rate
 F32_FLOPS_S = 67e12          # H100 SXM f32 rate outside the tensor cores
+BF16_FLOPS_S = 989e12        # H100 SXM dense bf16 tensor-core rate
 ATOL, RTOL = 2e-5, 1e-5      # f32 summation-order tolerance (attention)
+# Elastic matmul: bf16 x bf16 products are exact in f32, so kernel and
+# plain version (a full-f32 cuBLAS product, TF32 off) differ only in the
+# order of the f32 sum over K: the reference's own test tolerance.
+MM_ATOL = MM_RTOL = 1e-5
 # Page scoring: kernel and plain version sum each dot in the same order
 # and round each product once, so they agree bit for bit (tolerance 0).
+# The KV transform and the unpack are integer bit work: tolerance 0.
 
 # Main-path shapes: full-width qwen2-0.5b, 64-token pages, 512 + 64 tokens.
 SLAB_ELEMS = 128 * 1024      # BitplaneLayout.ENCODE_SLAB_ELEMS
+DECODE_ELEMS = 64 * 1024     # BitplaneLayout.SLAB_ELEMS: one decode slab
+FLUSH_WINDOWS = 128          # KV windows of the prefill flush: 128 of
+                             # the 384 prompt pages spill (PERF.md §4)
+WINDOW = 64                  # kv_window (tokens) = the page
+D_MODEL, D_FF = 896, 4864    # the MLP up-projection of qwen2-0.5b
 HEADS, KV_HEADS, HEAD_DIM = 14, 2, 64
 MAX_SEQ, VALID_LEN = 512 + 64 + 64, 576
 PAGES, PAGE_ROWS = 64, 64    # gather candidates per KV kind at prefill
@@ -121,9 +140,11 @@ def timed(torch, fn) -> dict:
             "ms_from": "events" if dev is None else "profiler"}
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple:
+def bound_ms(nbytes: float, flops: float, peak: float = F32_FLOPS_S) -> tuple:
+    """The least time for the work: bytes over the memory rate or
+    operations over ``peak``, whichever is larger, and which."""
     t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = flops / F32_FLOPS_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -194,6 +215,228 @@ def check_pnm_score(torch, k_pnm, results):
         plain_ms=timed(torch, lambda: k_pnm.page_scores_plain(
             pages, full, digest))["ms"],
         bound_ms=b, bound_by=by, library_ms=None)
+
+
+def kv_windows(torch, B: int, n: int, seed: int) -> "torch.Tensor":
+    """(B, n, CHANNELS) bf16 patterns shaped like a layer's K or V pages
+    (per-channel scales), with the edges the KV kernels treat apart:
+    histogram ties (window 0, channel 0: two exponents equally often),
+    +-Inf, NaN whose payload lies only in low mantissa planes, a value
+    whose MAN4 round carries into the exponent and one that saturates at
+    Inf."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    f = rng.standard_normal((B, n, CHANNELS)) * np.exp(
+        rng.uniform(-3, 3, CHANNELS))
+    u = (f.astype(np.float32).view(np.uint32) >> 16).astype(np.uint16)
+    flat = u.reshape(-1)
+    for k, pat in enumerate((0x7F81, 0xFF80, 0x7F80, 0x407F, 0x7F7F,
+                             0xFFC1)):
+        flat[k::97 - 4 * k] = pat
+    if n >= 2:
+        u[0, : n // 2, 0] = 0x3F80
+        u[0, n // 2 : 2 * (n // 2), 0] = 0x4000
+    return torch.from_numpy(u.view(np.int16)).cuda()
+
+
+def read_views():
+    """Every view the tier reads KV with: the policy views, the PNM score
+    view and a truncated block's intersection (a MAN4 block read at
+    r_m 2, d_m 4 is served at cut11)."""
+    from repro_torch.core import precision as prec
+
+    return [prec.FULL, prec.MAN4, prec.MAN2, prec.MAN0, prec.SCORE,
+            prec.PrecisionView(r_m=2, d_m=3, name="cut11")]
+
+
+def check_kv_and_unpack(torch, k_bitplane, k_kv, results):
+    """The write path's forward on one prefill flush and on partial
+    windows, then the read path on one decode slab: unpack with every
+    fetched bit kept and inverse + round, at every view."""
+    import numpy as np
+
+    # -- forward: one prefill flush, partial windows, ties, given beta -------
+    x = kv_windows(torch, FLUSH_WINDOWS, WINDOW, 3)
+    for win in (x, kv_windows(torch, 3, 37, 4), kv_windows(torch, 1, 17, 5)):
+        got, beta = k_kv.kv_forward(win)
+        want, want_beta = k_kv.kv_forward_plain(win)
+        torch.cuda.synchronize()
+        if not (torch.equal(beta, want_beta) and torch.equal(got, want)):
+            raise AssertionError(f"kv_delta_fwd {tuple(win.shape)} differs "
+                                 "from its plain version")
+        if int(beta[0, 0]) != 127:
+            raise AssertionError(f"histogram tie went to {int(beta[0, 0])}, "
+                                 "not the smaller exponent 127")
+    arb = torch.from_numpy(np.random.default_rng(6).integers(
+        0, 256, (FLUSH_WINDOWS, CHANNELS), dtype=np.uint8)).cuda()
+    cm_arb, _ = k_kv.kv_forward(x, arb)
+    if not (torch.equal(cm_arb, k_kv.kv_forward_plain(x, arb)[0])
+            and torch.equal(k_kv.kv_inverse(cm_arb, arb), x)):
+        raise AssertionError("kv_delta arbitrary-beta round trip failed")
+    elems = FLUSH_WINDOWS * WINDOW * CHANNELS
+    b, by = bound_ms(4 * elems + FLUSH_WINDOWS * CHANNELS, 12 * elems)
+    results["kv_delta_fwd"] = dict(
+        name="kv_delta_fwd", route="cuda", source="src/repro_torch/csrc/kv_delta.cu",
+        replaces="src/repro/kernels/kv_delta.py:28", max_abs_err=0.0,
+        **timed(torch, lambda: k_kv.kv_forward(x)),
+        plain_ms=timed(torch, lambda: k_kv.kv_forward_plain(x))["ms"],
+        bound_ms=b, bound_by=by, library_ms=None)
+
+    # -- read path on one decode slab: 8 windows, packed as the tier packs ---
+    nwin = DECODE_ELEMS // (WINDOW * CHANNELS)
+    win = x[:nwin].contiguous()
+    cm, beta = k_kv.kv_forward(win)
+    planes = k_bitplane.pack_planes_u16(cm.reshape(-1))       # (16, 8192)
+    nbytes = planes.shape[1]
+    for view in read_views():
+        ids = view.fetched_planes()
+        rows = planes[list(ids)].contiguous()
+        for rnd in (None, view):
+            got = k_bitplane.unpack_planes(rows, ids, rnd)
+            want = k_bitplane.unpack_planes_plain(
+                rows, ids, k_bitplane.view_round_params(rnd))
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"bitplane_unpack ({view.name}, round "
+                                     f"{rnd is not None}) differs")
+        raw = k_bitplane.unpack_planes(rows, ids).view(nwin, CHANNELS, WINDOW)
+        tok = k_kv.kv_inverse(raw, beta, view)
+        want = k_kv.kv_inverse_plain(raw, beta, view)
+        torch.cuda.synchronize()
+        if not torch.equal(tok, want):
+            raise AssertionError(f"kv_delta_inv ({view.name}) differs")
+        if view.is_full and not torch.equal(tok, win):
+            raise AssertionError("full-view readback is not lossless")
+    man4 = read_views()[1]
+    ids = man4.fetched_planes()
+    rows = planes[list(ids)].contiguous()
+    raw = k_bitplane.unpack_planes(rows, ids).view(nwin, CHANNELS, WINDOW)
+    b, by = bound_ms(len(ids) * nbytes + 16 * nbytes,
+                     3 * len(ids) * 8 * nbytes)
+    results["bitplane_unpack"] = dict(
+        name="bitplane_unpack", route="cuda",
+        source="src/repro_torch/csrc/bitplane_unpack.cu",
+        replaces="src/repro/kernels/bitplane.py:51", max_abs_err=0.0,
+        **timed(torch, lambda: k_bitplane.unpack_planes(rows, ids)),
+        plain_ms=timed(torch, lambda: k_bitplane.unpack_planes_plain(
+            rows, ids))["ms"],
+        bound_ms=b, bound_by=by, library_ms=None)
+    b, by = bound_ms(4 * DECODE_ELEMS + nwin * CHANNELS, 20 * DECODE_ELEMS)
+    results["kv_delta_inv"] = dict(
+        name="kv_delta_inv", route="cuda", source="src/repro_torch/csrc/kv_delta.cu",
+        replaces="src/repro/kernels/kv_delta.py:40", max_abs_err=0.0,
+        **timed(torch, lambda: k_kv.kv_inverse(raw, beta, man4)),
+        plain_ms=timed(torch, lambda: k_kv.kv_inverse_plain(raw, beta,
+                                                            man4))["ms"],
+        bound_ms=b, bound_by=by, library_ms=None)
+
+
+def check_elastic_matmul(torch, k_bitplane, k_mm, ops, results):
+    """x (M, 896) against qwen2-0.5b's (896, 4864) MLP up-projection in
+    K-packed planes, M in {1, 16}, at r_m 7, 4 and 0."""
+    import numpy as np
+
+    rng = np.random.default_rng(8)
+    w = torch.from_numpy((rng.standard_normal((D_MODEL, D_FF)) * 0.02)
+                         .astype(np.float32)).cuda().to(torch.bfloat16)
+    planes = k_mm.pack_weights_kmajor(w)
+    errs, extra = [], []
+    for M in (1, 16):
+        x = torch.from_numpy(rng.standard_normal((M, D_MODEL)).astype(
+            np.float32)).cuda().to(torch.bfloat16)
+        for r_m, d_m in ((7, 0), (4, 1), (0, 1)):
+            ids = ops.fetch_planes(8, r_m, d_m)
+            fetched = planes[ids].contiguous()
+            rnd = k_bitplane.round_params(8, r_m, d_m)
+            got = k_mm.elastic_matmul_planes(x, fetched, ids, rnd)
+            want = k_mm.elastic_matmul_plain(x, fetched, ids, rnd)
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            if not bool((err <= MM_ATOL + MM_RTOL * want.abs()).all()):
+                raise AssertionError(
+                    f"elastic_matmul (M={M}, r_m={r_m}) max error "
+                    f"{float(err.max())} beyond atol {MM_ATOL} rtol {MM_RTOL}")
+            errs.append(float(err.max()))
+            if (r_m, d_m) == (7, 0):
+                dense = x.float() @ w.float()
+                if not bool(((got - dense).abs()
+                             <= MM_ATOL + MM_RTOL * dense.abs()).all()):
+                    raise AssertionError("full-view elastic_matmul is not "
+                                         "the dense product")
+            t = timed(torch, lambda: k_mm.elastic_matmul_planes(
+                x, fetched, ids, rnd))
+            nbytes = 2 * M * D_MODEL + len(ids) * D_MODEL // 8 * D_FF \
+                + 4 * M * D_FF
+            b, by = bound_ms(nbytes, 2 * M * D_MODEL * D_FF, BF16_FLOPS_S)
+            extra.append(f"M={M} r_m={r_m}: {t['ms'] * 1e3:.2f} us (bound "
+                         f"{b * 1e3:.3f} us by {by})")
+            if (M, r_m) == (1, 7):
+                row = dict(
+                    name="elastic_matmul", route="cuda",
+                    source="src/repro_torch/csrc/elastic_matmul.cu",
+                    replaces="src/repro/kernels/elastic_matmul.py:31", **t,
+                    plain_ms=timed(torch, lambda: k_mm.elastic_matmul_plain(
+                        x, fetched, ids, rnd))["ms"],
+                    bound_ms=b, bound_by=by,
+                    library_ms=timed(torch, lambda: torch.matmul(x, w))["ms"])
+    row["max_abs_err"] = max(errs)
+    results["elastic_matmul"] = row
+    print("[kernel] elastic_matmul at the MLP up-projection: "
+          + "; ".join(extra), flush=True)
+
+
+def kernel_api_path(torch, build, ops, k_mm):
+    """The kernel API, the only path that reaches the elastic matmul (no
+    serving path consumes it): each public function once at the main
+    path's shapes, launch counts set to 0 just before and read just
+    after.  Returns the launches."""
+    import numpy as np
+
+    rng = np.random.default_rng(9)
+    w = torch.from_numpy((rng.standard_normal((D_MODEL, D_FF)) * 0.02)
+                         .astype(np.float32)).cuda().to(torch.bfloat16)
+    planes = k_mm.pack_weights_kmajor(w)
+    xs = [torch.from_numpy(rng.standard_normal((M, D_MODEL)).astype(
+        np.float32)).cuda().to(torch.bfloat16) for M in (1, 16)]
+    win = kv_windows(torch, 1, WINDOW, 10)[0]
+    beta = torch.from_numpy(rng.integers(0, 256, CHANNELS).astype(
+        np.uint8)).cuda()
+    q = torch.from_numpy(rng.standard_normal((1, HEADS, HEAD_DIM)).astype(
+        np.float32)).cuda().to(torch.bfloat16)
+    kv = torch.from_numpy(rng.standard_normal(
+        (1, MAX_SEQ, KV_HEADS, HEAD_DIM)).astype(np.float32)).cuda().to(
+        torch.bfloat16)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    stack = ops.bitplane_pack(win)
+    full = ops.elastic_unpack(stack)
+    man4 = ops.elastic_unpack(stack, 8, 4, 1)
+    cm = ops.kv_transform(win, beta)
+    back = ops.kv_transform_inv(cm, beta)
+    outs = {(x.shape[0], r_m): ops.elastic_matmul(x, planes, r_m, d_m)
+            for x in xs for r_m, d_m in ((7, 0), (4, 1), (0, 1))}
+    att = ops.decode_attention(q, kv, kv, VALID_LEN)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    if not (torch.equal(full, win) and torch.equal(back, win)):
+        raise AssertionError("kernel API round trips are not lossless")
+    if man4.shape != win.shape or att.shape != (1, HEADS, HEAD_DIM) \
+            or not bool(torch.isfinite(att).all()):
+        raise AssertionError("kernel API outputs have the wrong shape")
+    for (M, r_m), out in outs.items():
+        dense = xs[M != 1].float() @ w.float()
+        rel = float((out - dense).norm() / dense.norm())
+        if out.shape != (M, D_FF) or (r_m == 7 and rel > 1e-5) \
+                or not rel < 0.35:
+            raise AssertionError(f"kernel API elastic_matmul M={M} r_m={r_m}"
+                                 f": relative error {rel}")
+    print(f"[api] kernels.ops at the main path's shapes; launches "
+          f"{launches}; elastic_matmul is launched by this kernel API path "
+          "only (no serving path consumes it)", flush=True)
+    if launches["elastic_matmul"] <= 0:
+        raise AssertionError("the kernel API did not launch elastic_matmul")
+    return launches
 
 
 def check_kernels(torch, k_bitplane, k_lz4, k_attn, results):
@@ -278,14 +521,15 @@ def check_kernels(torch, k_bitplane, k_lz4, k_attn, results):
 
 
 def check_tier_and_model(torch):
-    """The card's tier encode against the CPU's on the same KV pages, and
-    the card's model against the CPU's on a small input."""
+    """The card's tier against the CPU's on the same KV pages — encode,
+    readback at every view the tier reads with, PNM gathers — and the
+    card's model against the CPU's on a small input."""
     import numpy as np
 
     from repro_torch.configs import ARCHS, smoke_config
-    from repro_torch.core.precision import FULL, MAN0, MAN4
+    from repro_torch.core.precision import MAN4, PrecisionView
     from repro_torch.core.tier import (
-        KV, GatherReq, ReadReq, WriteReq, make_device,
+        KV, TENSOR, GatherReq, ReadReq, WriteReq, make_device,
     )
     from repro_torch.models.model import decode_step, init_cache, init_params
 
@@ -293,14 +537,26 @@ def check_tier_and_model(torch):
     pages = [(rng.standard_normal((64, CHANNELS)) * 0.5)
              .astype(np.float32) for _ in range(24)]
     u16 = [(p.view(np.uint32) >> 16).astype(np.uint16) for p in pages]
+    edges = kv_windows(torch, 1, 64, 11)[0].cpu().numpy().view(np.uint16)
     writes = [WriteReq(f"p{i}", u, kind=KV) for i, u in enumerate(u16)]
-    reads = [ReadReq(f"p{i}", kind=KV, view=v)
-             for i in range(len(u16)) for v in (FULL, MAN4, MAN0)]
+    views = [v for v in read_views() if not v.name.startswith("cut")]
+    wide = PrecisionView(r_m=2, d_m=4, name="wide")   # MAN4 block: cut11
+    more = [WriteReq("edges", edges, kind=KV),
+            WriteReq("part", u16[0][:37], kind=KV),
+            WriteReq("w", u16[1].ravel(), kind=TENSOR)]
+    reads = [ReadReq(k, kind=KV, view=v) for k in [f"p{i}" for i in
+                                                   range(len(u16))]
+             + ["edges", "part"] for v in views] \
+        + [ReadReq("w", view=v) for v in views]
+    reread = [ReadReq(k, kind=kind, view=v)
+              for k, kind in (("p1", KV), ("edges", KV), ("w", TENSOR))
+              for v in views + [wide]]
     out = {}
     for dev in ("cuda", "cpu"):
         tier = make_device("trace", device=dev)
-        recs = tier.submit(writes) + tier.submit(reads)
-        out[dev] = recs
+        recs = tier.submit(writes + more) + tier.submit(reads)
+        tier.truncate_planes(["p1", "edges", "w"], MAN4)
+        out[dev] = recs + tier.submit(reread)
     for a, b in zip(out["cuda"], out["cpu"]):
         fa = {k: v for k, v in vars(a).items() if k != "data"}
         fb = {k: v for k, v in vars(b).items() if k != "data"}
@@ -318,7 +574,10 @@ def check_tier_and_model(torch):
         tier = make_device("trace", device=dev)
         tier.submit(writes)
         out[dev] = tier.submit([GatherReq(keys, digest, k=k)
-                                for k in (0, 5, 24)])
+                                for k in (0, 5, 24)]
+                               + [GatherReq(keys, digest, k=24,
+                                            views=tuple(views[i % 4]
+                                                        for i in range(24)))])
     for a, b in zip(out["cuda"], out["cpu"]):
         skip = ("data", "gather")
         fa = {k: v for k, v in vars(a).items() if k not in skip}
@@ -369,9 +628,11 @@ _SPANS = (
     ("model forward", "models/model.py", "decode_step"),
     ("cache windows to host", "runtime/serving.py", "_commit_pages"),
     ("tier encode", "core/tier.py", "_encode_commit"),
+    ("  KV forward on card", "core/tier.py", "_transform_kv_windows"),
     ("  LZ4 match on card", "kernels/lz4.py", "_match_events_device"),
     ("  LZ4 emit (host)", "core/codec.py", "lz4_emit_events"),
     ("tier decode", "core/tier.py", "_do_reads"),
+    ("  unpack + inverse on card", "core/tier.py", "_decode_planes"),
     ("  PNM gather", "core/tier.py", "_do_gather"),
     ("  page scoring", "kernels/pnm_score.py", "page_scores_u16"),
     ("attention importance", "runtime/serving.py",
@@ -442,7 +703,7 @@ def pnm_path(torch, serve, build, params):
         "d c on 4 shards": dict(pnm_topk=16, importance="attention",
                                 shards=4, placement="hash-stripe"),
     }
-    reps, total = {}, {name: 0 for name in build.SOURCES}
+    reps, total = {}, {name: 0 for name in build.KERNELS}
     for case, extra in cases.items():
         build.reset_launches()
         rep = serve(**kw, **extra)
@@ -457,6 +718,9 @@ def pnm_path(torch, serve, build, params):
               f"{rep.readback_pages}, gathered {rep.gathered_pages}; "
               f"launches {launches}", flush=True)
         reps[case] = rep
+        for name in KV_PATH_KERNELS:
+            if launches[name] <= 0:
+                raise AssertionError(f"{case}: kernel {name} never launched")
         if extra:
             if launches["pnm_score"] <= 0 or rep.gathered_pages <= 0:
                 raise AssertionError(f"{case}: no gather on the card")
@@ -481,6 +745,10 @@ def pnm_path(torch, serve, build, params):
     return total
 
 
+# the kernels every spill and every readback or gather goes through
+KV_PATH_KERNELS = ("kv_delta_fwd", "kv_delta_inv", "bitplane_unpack")
+
+
 def np_equal(x, y) -> bool:
     return x.shape == y.shape and bool((x == y).all())
 
@@ -488,6 +756,21 @@ def np_equal(x, y) -> bool:
 def _to(tree, dev):
     return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
             for k, v in tree.items()}
+
+
+class ShapeRecorder:
+    """Record the input shapes of ``module.name`` (which still runs) —
+    how the main path batches a kernel's work."""
+
+    def __init__(self, module, name):
+        self.original = getattr(module, name)
+        self.counts = {}
+
+        def wrapped(x, *args, **kw):
+            key = "x".join(map(str, x.shape))
+            self.counts[key] = self.counts.get(key, 0) + 1
+            return self.original(x, *args, **kw)
+        setattr(module, name, wrapped)
 
 
 def main():
@@ -507,7 +790,10 @@ def main():
     from repro_torch.kernels import bitplane as k_bitplane
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attn as k_attn
+    from repro_torch.kernels import elastic_matmul as k_mm
+    from repro_torch.kernels import kv_delta as k_kv
     from repro_torch.kernels import lz4 as k_lz4
+    from repro_torch.kernels import ops
     from repro_torch.kernels import pnm_score as k_pnm
     from repro_torch.configs import ARCHS
     from repro_torch.launch.serve import serve
@@ -526,6 +812,8 @@ def main():
     results = {}
     check_kernels(torch, k_bitplane, k_lz4, k_attn, results)
     check_pnm_score(torch, k_pnm, results)
+    check_kv_and_unpack(torch, k_bitplane, k_kv, results)
+    check_elastic_matmul(torch, k_bitplane, k_mm, ops, results)
     for r in results.values():
         lib = r["library_ms"]
         lib = "-" if lib is None else f"{lib * 1e3:.2f} us"
@@ -535,12 +823,17 @@ def main():
               f"{r['bound_ms'] * 1e3:.3f} us by {r['bound_by']}, library "
               f"{lib}; max abs err {r['max_abs_err']:.3g}", flush=True)
     phase("kernel checks")
+    api_launches = kernel_api_path(torch, build, ops, k_mm)
+    results["elastic_matmul"]["launches"] = api_launches["elastic_matmul"]
+    phase("kernel API")
     diff = check_tier_and_model(torch)
-    print(f"[check] tier encode and PNM gather cuda == cpu; smoke-model "
+    print(f"[check] tier encode, readback at every view and PNM gathers "
+          f"cuda == cpu; smoke-model "
           f"logits cuda vs cpu max |diff| {diff:.4g}", flush=True)
     phase("tier and model checks")
 
     params = init_params(ARCHS["qwen2-0.5b"], seed=0, device="cuda")
+    fwd_shapes = ShapeRecorder(k_kv, "kv_forward")
     build.reset_launches()
     rep = serve(arch="qwen2-0.5b", smoke=False, device="trace",
                 prompt_len=512, n_tokens=64, batch=1, requests=3,
@@ -554,7 +847,12 @@ def main():
     if rep.spilled_pages <= 0 or rep.readback_pages <= 0:
         raise AssertionError(f"no spill/readback: {rep.spilled_pages} "
                              f"spilled, {rep.readback_pages} read back")
-    main_kernels = ("bitplane_pack", "lz4_prep", "decode_attn")
+    k_kv.kv_forward = fwd_shapes.original
+    if f"{FLUSH_WINDOWS}x{WINDOW}x{CHANNELS}" not in fwd_shapes.counts:
+        raise AssertionError(f"the [kernel] check's prefill flush is not one "
+                             f"the main path ran: {fwd_shapes.counts}")
+    main_kernels = ("bitplane_pack", "lz4_prep", "decode_attn") \
+        + KV_PATH_KERNELS
     for name in main_kernels:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
@@ -562,12 +860,11 @@ def main():
         results[name]["launches"] = launches[name]
     print(f"[main] wall tok/s {rep.tok_s:.3f}; compression ratio "
           f"{rep.kv_compression_ratio:.4f}; spilled {rep.spilled_pages}, "
-          f"read back {rep.readback_pages}; launches {launches}", flush=True)
+          f"read back {rep.readback_pages}; launches {launches}; KV "
+          f"forward batches {fwd_shapes.counts}", flush=True)
     phase("main path")
     pnm_launches = pnm_path(torch, serve, build, params)
-    for name in build.SOURCES:
-        if name not in main_kernels:
-            results[name]["launches"] = pnm_launches[name]
+    results["pnm_score"]["launches"] = pnm_launches["pnm_score"]
     phase("PNM path")
     profile_request(torch, serve, params)
     profile_request(torch, serve, params, device_time=False, pnm_topk=16,
@@ -577,7 +874,7 @@ def main():
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: results[n][k] for k in keys}
-                                  for n in build.SOURCES]}), flush=True)
+                                  for n in build.KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -16,13 +16,16 @@ queue and sanitizer:
   words + codec (GComp) or TRACE's bit-plane substrate with the
   cross-token KV transform (Fig. 8).
 
-The store lives on a ``device``: on the card, a write batch's encode slab
-is packed by the bit-plane kernel and matched by the LZ4 pipeline there
-(``kernels.bitplane`` / ``kernels.lz4``), and a gather's candidates are
-scored there (``kernels.pnm_score``); the byte-level emit and the read
-path's decode run on the host, in numpy, as in the reference.  Payload
-bytes, flags, receipts (latency included) and ledger rows are identical
-to the reference's for the same request sequence.
+The store lives on a ``device``: on the card, a write batch's KV windows
+go through the exponent-delta kernel and its encode slab is packed by the
+bit-plane kernel and matched by the LZ4 pipeline there
+(``kernels.kv_delta`` / ``kernels.bitplane`` / ``kernels.lz4``); a read's
+fetched planes are unpacked, inverted and rounded there
+(``kernels.bitplane`` / ``kernels.kv_delta``), and a gather's candidates
+are scored there (``kernels.pnm_score``).  The LZ4 byte-level emit and
+decompress run on the host, as in the reference.  Payload bytes, flags,
+receipts (latency included), ledger rows and readback words are
+identical to the reference's for the same request sequence.
 
 Asynchronous submission: ``submit_async`` posts writes immediately and
 queues reads in a bounded in-flight window; queued reads execute as
@@ -47,9 +50,10 @@ import torch
 
 from .. import devices
 from ..kernels import bitplane as kbitplane
+from ..kernels import kv_delta as kkv
 from . import codec as codecs
-from .bitplane import BF16_BITS, BLOCK_ELEMS, iter_blocks, unpack_planes_subset
-from .kv_transform import KVBlockMeta, kv_forward_batch, kv_inverse_batch
+from .bitplane import BF16_BITS, BLOCK_ELEMS, iter_blocks
+from .kv_transform import KVBlockMeta
 from .precision import EXP_BITS, FULL, SCORE, PrecisionView, reconstruct_u16
 
 INDEX_ENTRY_BYTES = 64  # paper §III-D: one compact entry per 4 KB block
@@ -486,17 +490,26 @@ class ResidencyEntry:
         return self.payload_bytes + self.index_bytes
 
 
+_Chunk = Union[np.ndarray, torch.Tensor]
+
+
+def _numel(chunk: _Chunk) -> int:
+    return chunk.numel() if isinstance(chunk, torch.Tensor) else chunk.size
+
+
 class _EncodeSlab:
     """Per-posting-group staging area for deferred batched encoding: keys,
     receipts, chunks, valid counts, KV metas and untransformed KV windows
-    in parallel lists, encoded in one pass and committed in order."""
+    in parallel lists, encoded in one pass and committed in order.  A
+    chunk is a host array, or a tensor on the tier's device once its KV
+    window was transformed there."""
 
     __slots__ = ("keys", "recs", "chunks", "valids", "metas", "kv_windows")
 
     def __init__(self):
         self.keys: List[str] = []
         self.recs: List[Receipt] = []
-        self.chunks: List[Optional[np.ndarray]] = []
+        self.chunks: List[Optional[_Chunk]] = []
         self.valids: List[int] = []
         self.metas: List[Optional[KVBlockMeta]] = []
         self.kv_windows: List[Optional[np.ndarray]] = []
@@ -559,7 +572,7 @@ class Layout:
     kv_transform = False
     uses_codec = False
 
-    def encode_batch(self, chunks: Sequence[np.ndarray], codec: str,
+    def encode_batch(self, chunks: Sequence[_Chunk], codec: str,
                      device: torch.device
                      ) -> List[Tuple[List[bytes], List[int]]]:
         """Batch encode on ``device``: ``(payloads, flags)`` per chunk."""
@@ -570,8 +583,9 @@ class Layout:
         raise NotImplementedError
 
     def decode_batch(self, blocks: Sequence[_Block], view: PrecisionView,
-                     codec: str) -> List[np.ndarray]:
-        """Per-block host-visible uint16 (valid-trimmed, reconstructed)."""
+                     codec: str, device: torch.device) -> List[np.ndarray]:
+        """Per-block host-visible uint16 (valid-trimmed, reconstructed),
+        the bit work on ``device``."""
         raise NotImplementedError
 
 
@@ -593,7 +607,7 @@ class WordLayout(Layout):
     def fetched_payloads(self, block, view):
         return (0,)
 
-    def decode_batch(self, blocks, view, codec):
+    def decode_batch(self, blocks, view, codec, device):
         if not blocks:
             return []
         raws = codecs.decompress_batch(
@@ -629,15 +643,16 @@ class BitplaneLayout(Layout):
         if not chunks:
             return []
         for c in chunks:
-            if c.size % 8:
-                raise ValueError(f"block length {c.size} not a multiple of 8")
+            if _numel(c) % 8:
+                raise ValueError(f"block length {_numel(c)} not a multiple "
+                                 "of 8")
         out, cur, cur_n = [], [], 0
         for c in chunks:
-            if cur and cur_n + c.size > self.ENCODE_SLAB_ELEMS:
+            if cur and cur_n + _numel(c) > self.ENCODE_SLAB_ELEMS:
                 out.extend(self._encode_slab(cur, codec, device))
                 cur, cur_n = [], 0
             cur.append(c)
-            cur_n += c.size
+            cur_n += _numel(c)
         out.extend(self._encode_slab(cur, codec, device))
         return out
 
@@ -646,10 +661,8 @@ class BitplaneLayout(Layout):
         block) stream.  Blocks are byte-multiples, so packing the
         concatenation and slicing per block equals packing each alone;
         the planes go to the codec as one flat slab with stream bounds."""
-        sizes = [c.size for c in chunks]
-        planes = kbitplane.pack_planes_slab(
-            np.concatenate(chunks) if len(chunks) > 1 else chunks[0].ravel(),
-            device)
+        sizes = [_numel(c) for c in chunks]
+        planes = kbitplane.pack_planes_slab(_concat(chunks, device), device)
         offs = np.cumsum([0] + [n // 8 for n in sizes])
         nblk = len(chunks)
         n8 = planes.shape[1]
@@ -669,7 +682,7 @@ class BitplaneLayout(Layout):
     def fetched_payloads(self, block, view):
         return view.fetched_planes()
 
-    def decode_batch(self, blocks, view, codec):
+    def decode_batch(self, blocks, view, codec, device):
         if len(blocks) > 1:
             slabs, cur, cur_elems = [], [], 0
             for b in blocks:
@@ -682,13 +695,12 @@ class BitplaneLayout(Layout):
             if len(slabs) > 1:
                 out = []
                 for s in slabs:
-                    out.extend(self.decode_batch(s, view, codec))
+                    out.extend(self.decode_batch(s, view, codec, device))
                 return out
         if not blocks:
             return []
         plane_set = view.fetched_planes()
         nbytes = [b.padded_elems // 8 for b in blocks]
-        total = sum(nbytes)
         rows = np.stack([
             np.frombuffer(
                 b"".join(codecs.decompress_batch(
@@ -699,30 +711,67 @@ class BitplaneLayout(Layout):
             )
             for p in plane_set
         ])
-        flat = unpack_planes_subset(rows, plane_set, total * 8)
-        segs: List[np.ndarray] = []
-        off = 0
-        kv_groups: Dict[tuple, List[int]] = {}
-        for bi, b in enumerate(blocks):
-            seg = flat[off * 8 : off * 8 + b.valid_elems]
-            off += nbytes[bi]
-            if b.kv_meta is not None:
-                m = b.kv_meta
-                kv_groups.setdefault((m.n_tokens, m.n_channels), []).append(bi)
-                seg = seg[: m.n_tokens * m.n_channels]
-            segs.append(seg)
-        # Invert the exponent-delta FIRST: guard rounding may carry from
-        # mantissa into exponent, meaningful only in the real-exponent
-        # domain.
-        for idxs in kv_groups.values():
-            metas = [blocks[i].kv_meta for i in idxs]
-            inv = kv_inverse_batch(np.stack([segs[i] for i in idxs]), metas)
-            for i, tok in zip(idxs, inv):
-                segs[i] = tok
-        if view.is_full:
-            return segs
-        flat = reconstruct_u16(np.concatenate([s.ravel() for s in segs]), view)
-        return [r.reshape(s.shape) for r, s in zip(_split_like(flat, segs), segs)]
+        return self._decode_planes(blocks, nbytes, rows, view, device)
+
+    @staticmethod
+    def _decode_planes(blocks, nbytes, rows, view, device):
+        """One decode slab's fetched plane rows → per-block words, the bit
+        work on ``device``.  KV windows unpack with every fetched bit kept,
+        then go through the exponent-delta inverse, which rounds to
+        ``view`` after it (a round's carry may move into the exponent,
+        meaningful only in the real-exponent domain); other blocks unpack
+        and round in one launch.  The words come back in one copy."""
+        plane_set = view.fetched_planes()
+        offs = np.cumsum([0] + nbytes)
+        rows_dev = torch.from_numpy(rows).to(device)
+
+        def columns(idxs):
+            """The byte columns of blocks ``idxs`` and each one's first
+            element in their unpacked words."""
+            starts = np.cumsum([0] + [nbytes[i] for i in idxs[:-1]]) * 8
+            if len(idxs) == len(blocks):
+                return rows_dev, starts
+            return torch.cat([rows_dev[:, offs[i]:offs[i + 1]] for i in idxs],
+                             dim=1), starts
+
+        parts: List[torch.Tensor] = []
+        where: List[Tuple[int, int, Optional[tuple]]] = [None] * len(blocks)
+        base = 0
+        plain = [i for i, b in enumerate(blocks) if b.kv_meta is None]
+        if plain:
+            cols, starts = columns(plain)
+            parts.append(kbitplane.unpack_planes(cols, plane_set, view))
+            for i, st in zip(plain, starts):
+                where[i] = (base + int(st), blocks[i].valid_elems, None)
+            base += parts[-1].numel()
+        kv = [i for i, b in enumerate(blocks) if b.kv_meta is not None]
+        if kv:
+            cols, starts = columns(kv)
+            raw = kbitplane.unpack_planes(cols, plane_set)
+            groups: Dict[tuple, List[Tuple[int, int]]] = {}
+            for i, st in zip(kv, starts):
+                m = blocks[i].kv_meta
+                groups.setdefault((m.n_tokens, m.n_channels), []).append(
+                    (i, int(st)))
+            for (n, C), members in groups.items():
+                L, first = n * C, members[0][1]
+                if all(st == first + j * L for j, (_, st) in enumerate(members)):
+                    cm = raw[first : first + len(members) * L]
+                else:
+                    cm = torch.cat([raw[st : st + L] for _, st in members])
+                beta = torch.from_numpy(np.stack(
+                    [blocks[i].kv_meta.beta for i, _ in members])).to(device)
+                parts.append(kkv.kv_inverse(cm.view(len(members), C, n), beta,
+                                            view))
+                for j, (i, _) in enumerate(members):
+                    where[i] = (base + j * L, L, (n, C))
+                base += parts[-1].numel()
+        flat = (parts[0].reshape(-1) if len(parts) == 1
+                else torch.cat([p.reshape(-1) for p in parts]))
+        flat = flat.cpu().numpy().view(np.uint16)
+        return [flat[st : st + ln] if shape is None
+                else flat[st : st + ln].reshape(shape)
+                for st, ln, shape in where]
 
 
 def _intersect_views(a: PrecisionView, b: PrecisionView) -> PrecisionView:
@@ -739,6 +788,18 @@ def _intersect_views(a: PrecisionView, b: PrecisionView) -> PrecisionView:
             return v
     return PrecisionView(r_e=r_e, r_m=r_m, d_e=d_e, d_m=d_m,
                          name=f"cut{1 + r_e + r_m}")
+
+
+def _concat(chunks: Sequence[_Chunk], device: torch.device) -> _Chunk:
+    """One flat slab of ``chunks``: a host array when every chunk is one,
+    else a tensor on ``device`` (host chunks go up)."""
+    if all(isinstance(c, np.ndarray) for c in chunks):
+        return np.concatenate(chunks) if len(chunks) > 1 else chunks[0].ravel()
+    return torch.cat([
+        c.reshape(-1).to(device) if isinstance(c, torch.Tensor)
+        else torch.from_numpy(c.astype(np.uint16).ravel().view(np.int16)).to(
+            device)
+        for c in chunks])
 
 
 def _split_like(flat: np.ndarray, segs: Sequence[np.ndarray]) -> List[np.ndarray]:
@@ -1128,24 +1189,34 @@ class TierStore:
                 encoded, slab.keys, slab.recs, slab.chunks, slab.valids,
                 slab.metas):
             self._commit(rec, key,
-                         _Block(payloads, flags, valid, chunk.size,
+                         _Block(payloads, flags, valid, _numel(chunk),
                                 kv_meta=meta))
         slab.clear()
 
     def _transform_kv_windows(self, slab: "_EncodeSlab"):
-        """Resolve deferred KV windows: same-shape windows go through one
-        ``kv_forward_batch``."""
+        """Resolve deferred KV windows on the tier's device: same-shape
+        windows go up once and through one exponent-delta forward
+        (``kernels.kv_delta``, the modal betas found there); the
+        transformed streams stay on the device for the pack, and the betas
+        come back as the blocks' metadata."""
         pend = [i for i, w in enumerate(slab.kv_windows) if w is not None]
         groups: Dict[tuple, List[int]] = {}
         for i in pend:
             groups.setdefault(slab.kv_windows[i].shape, []).append(i)
         for idxs in groups.values():
-            streams, metas = kv_forward_batch(
-                np.stack([slab.kv_windows[i] for i in idxs]))
-            for i, row, meta in zip(idxs, streams, metas):
-                slab.chunks[i] = (np.pad(row, (0, 8 - row.size % 8))
-                                  if row.size % 8 else row)
-                slab.metas[i] = meta
+            win = np.stack([slab.kv_windows[i] for i in idxs]).astype(
+                np.uint16, copy=False)
+            B, n, C = win.shape
+            streams, beta = kkv.kv_forward(
+                torch.from_numpy(win.view(np.int16)).to(self.device))
+            flat = streams.reshape(B, n * C)
+            if (n * C) % 8:
+                flat = torch.nn.functional.pad(flat, (0, 8 - (n * C) % 8))
+            beta = beta.cpu().numpy()
+            for j, i in enumerate(idxs):
+                slab.chunks[i] = flat[j]
+                slab.metas[i] = KVBlockMeta(beta=beta[j].copy(), n_tokens=n,
+                                            n_channels=C)
                 slab.kv_windows[i] = None
 
     def _commit(self, rec: Receipt, key: str, block: _Block):
@@ -1217,7 +1288,8 @@ class TierStore:
         for eff in per_key:
             for b, v in eff:
                 groups.setdefault(v, []).append(b)
-        decoded = {v: iter(self.layout.decode_batch(blocks, v, self.codec))
+        decoded = {v: iter(self.layout.decode_batch(blocks, v, self.codec,
+                                                    self.device))
                    for v, blocks in groups.items()}
         return [self._assemble(ReadReq(key, kind=kind, view=FULL),
                                [next(decoded[v]) for _, v in eff])
@@ -1304,7 +1376,8 @@ class TierStore:
             for view, b in zip(views, blocks):
                 groups.setdefault(view, []).append(b)
         decoded = {
-            view: iter(self.layout.decode_batch(blocks, view, self.codec))
+            view: iter(self.layout.decode_batch(blocks, view, self.codec,
+                                                self.device))
             for view, blocks in groups.items()
         }
         for req, rec, views in zip(reqs, recs, req_views):

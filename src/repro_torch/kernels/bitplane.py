@@ -1,19 +1,30 @@
-"""Bit-plane pack: the Hopper kernel (``csrc/bitplane_pack.cu``), its
-plain PyTorch version, and the tier's slab entry point.
+"""Bit-plane pack and unpack: the Hopper kernels
+(``csrc/bitplane_pack.cu``, ``csrc/bitplane_unpack.cu``), their plain
+PyTorch versions, the tier's slab entry point and the precision-view
+round they share with ``kernels.kv_delta`` and ``kernels.elastic_matmul``.
 
-Replaces ``src/repro/kernels/bitplane.py::_pack_kernel``.  The wrapper
-launches the CUDA kernel for a tensor on the card and takes the plain
-version for a tensor on the CPU; both produce the bytes of
-``core.bitplane.pack_planes``.
+Replaces ``src/repro/kernels/bitplane.py::_pack_kernel`` and
+``::_unpack_kernel``.  Each wrapper launches its CUDA kernel for a tensor
+on the card and takes the plain version for a tensor on the CPU.  Pack
+produces the bytes of ``core.bitplane.pack_planes``; unpack the words of
+``core.bitplane.unpack_planes_subset``, rounded as
+``core.precision.reconstruct_u16`` rounds them when given a view.
 """
 
 from __future__ import annotations
+
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..core.bitplane import BF16_BITS
 from . import build
+
+# (keep mask, cut, do_round) of a precision view, the constants of the
+# shared ``csrc/view_round.cuh``.
+RoundParams = Tuple[int, int, bool]
+NO_ROUND: RoundParams = (0xFFFF, 1, False)
 
 
 def pack_planes_plain(x: torch.Tensor) -> torch.Tensor:
@@ -69,3 +80,110 @@ def pack_planes_slab(flat_u16, device: torch.device) -> torch.Tensor:
     else:
         x = flat_u16.reshape(-1).to(device)
     return pack_planes_u16(x)
+
+
+# ---------------------------------------------------------------------------
+# precision-view round (the tail of _unpack_kernel, csrc/view_round.cuh)
+# ---------------------------------------------------------------------------
+
+def round_params(r_e: int = 8, r_m: int = 7, d_m: int = 0) -> RoundParams:
+    """The view's kept-bit mask, mantissa cut and whether guard planes
+    round: RNE only with guard planes (``d_m > 0``), all 8 exponent
+    planes and a cut (``r_m < 7``), as ``reconstruct_u16`` rounds."""
+    keep = (0x8000 | (((1 << r_e) - 1) << (15 - r_e))
+            | (((1 << r_m) - 1) << (7 - r_m)))
+    cut = 7 - r_m
+    return keep, max(cut, 1), bool(d_m > 0 and r_e == 8 and cut > 0)
+
+
+def view_round_params(view) -> RoundParams:
+    """:func:`round_params` of a ``PrecisionView`` (``None``: no round)."""
+    if view is None:
+        return NO_ROUND
+    return round_params(view.r_e, view.r_m, view.d_m)
+
+
+def view_round_plain(u: torch.Tensor, rnd: RoundParams) -> torch.Tensor:
+    """Plain version of ``view_round``: int32 bf16 patterns → rounded and
+    masked int32 patterns."""
+    keep, cut, do_round = rnd
+    if do_round:
+        mag = u & 0x7FFF
+        special = (u & 0x7F80) == 0x7F80
+        half, gmask = 1 << (cut - 1), (1 << cut) - 1
+        guard = mag & gmask
+        lsb = (mag >> cut) & 1
+        up = (guard > half) | ((guard == half) & (lsb == 1))
+        mag = ((mag & ~gmask) + (up.to(torch.int32) << cut)).clamp_max(0x7F80)
+        kept = u & keep
+        nan_lost = special & ((u & 0x7F) != 0) & ((kept & 0x7F) == 0)
+        kept = torch.where(nan_lost, kept | 0x40, kept)
+        u = torch.where(special, kept, (u & 0x8000) | mag)
+    return u & keep
+
+
+def to_int16(u: torch.Tensor) -> torch.Tensor:
+    """int32 patterns in [0, 65536) → the int16 tensor of the same bits."""
+    return torch.where(u >= 0x8000, u - 0x10000, u).to(torch.int16)
+
+
+# ---------------------------------------------------------------------------
+# unpack: fetched plane rows → words (csrc/bitplane_unpack.cu)
+# ---------------------------------------------------------------------------
+
+def plane_code(plane_ids: Sequence[int]) -> int:
+    """Plane ids packed four bits each (plane ``plane_ids[i]`` in bits
+    ``4i..4i+3``), as the kernels take them."""
+    if len(plane_ids) > BF16_BITS:
+        raise ValueError(f"at most {BF16_BITS} planes, got {len(plane_ids)}")
+    if len(set(int(p) for p in plane_ids)) != len(plane_ids):
+        raise ValueError(f"repeated plane id in {list(plane_ids)}")
+    code = 0
+    for i, p in enumerate(plane_ids):
+        if not 0 <= int(p) < BF16_BITS:
+            raise ValueError(f"plane id {p} outside [0, {BF16_BITS})")
+        code |= int(p) << (4 * i)
+    return code
+
+
+def unpack_planes_plain(rows: torch.Tensor, plane_ids: Sequence[int],
+                        rnd: RoundParams = NO_ROUND) -> torch.Tensor:
+    """Plain PyTorch unpack: ``(P_f, nbytes)`` uint8 rows, row ``i`` the
+    stream of plane ``plane_ids[i]`` → ``(8 * nbytes,)`` int16 words
+    (absent planes zero), rounded with ``rnd``."""
+    P, nbytes = rows.shape
+    shifts = 7 - torch.arange(8, dtype=torch.int32, device=rows.device)
+    bits = (rows.to(torch.int32)[:, :, None] >> shifts) & 1   # (P, nb, 8)
+    pos = torch.tensor([int(p) for p in plane_ids], dtype=torch.int32,
+                       device=rows.device)
+    u = (bits << pos[:, None, None]).sum(0, dtype=torch.int32).reshape(-1)
+    return to_int16(view_round_plain(u, rnd))
+
+
+def unpack_planes(rows: torch.Tensor, plane_ids: Sequence[int],
+                  view=None) -> torch.Tensor:
+    """Unpack fetched plane rows to ``(8 * nbytes,)`` int16 words on the
+    rows' device, rounded to ``view`` (a ``PrecisionView``; ``None`` keeps
+    every fetched bit)."""
+    if rows.dtype != torch.uint8 or rows.dim() != 2:
+        raise TypeError(f"unpack expects (P_f, nbytes) uint8 rows, got "
+                        f"{rows.dtype} {tuple(rows.shape)}")
+    if rows.shape[0] != len(plane_ids):
+        raise ValueError(f"{rows.shape[0]} rows for {len(plane_ids)} planes")
+    code = plane_code(plane_ids)
+    rnd = view_round_params(view)
+    if rows.device.type == "cpu":
+        return unpack_planes_plain(rows, plane_ids, rnd)
+    if rows.device.type != "cuda":
+        raise ValueError(f"unsupported device {rows.device}")
+    if not rows.is_contiguous():
+        raise ValueError("unpack kernel needs contiguous rows")
+    nbytes = rows.shape[1]
+    out = torch.empty((8 * nbytes,), dtype=torch.int16, device=rows.device)
+    rc = build.load("bitplane_unpack").unpack_planes_u16(
+        rows.data_ptr(), out.data_ptr(), nbytes, rows.shape[0], code,
+        rnd[0], rnd[1], int(rnd[2]), rows.device.index,
+        torch.cuda.current_stream(rows.device).cuda_stream)
+    build.check(rc, "bitplane_unpack")
+    build.LAUNCHES["bitplane_unpack"] += 1
+    return out

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C launcher and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library, loaded with
-``ctypes``.  The library name carries a hash of its source, so an edited
-kernel rebuilds and a stale library is never loaded.  Libraries go to
+``ctypes``.  The library name carries a hash of its source and of every
+shared header in ``csrc/`` (``*.cuh``), so an edited kernel or header
+rebuilds and a stale library is never loaded.  Libraries go to
 ``src/repro_torch/_build/`` (git-ignored), built at first use from the
 sources in the checkout; :func:`build_all` starts one ``nvcc`` per source
 together, which is what a caller that needs every kernel should run
@@ -23,23 +24,38 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("bitplane_pack", "lz4_prep", "decode_attn", "pnm_score")
+SOURCES = ("bitplane_pack", "lz4_prep", "decode_attn", "pnm_score",
+           "kv_delta", "bitplane_unpack", "elastic_matmul")
+# Kernels, by the name their launches are counted under (kv_delta.cu
+# holds two).
+KERNELS = ("bitplane_pack", "lz4_prep", "decode_attn", "pnm_score",
+           "kv_delta_fwd", "kv_delta_inv", "bitplane_unpack",
+           "elastic_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# C launcher of each library: (function, argtypes); each returns cudaError_t.
+_U = ctypes.c_ulonglong
+# C launchers of each library: {function: argtypes}; each returns
+# cudaError_t.
 SIGNATURES = {
-    "bitplane_pack": ("pack_planes_u16", (_P, _P, _L, _I, _P)),
-    "lz4_prep": ("lz4_prep", (_P, _P, _P, _P, _L, _I, _P)),
-    "decode_attn": ("decode_attn", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                    _F, _I, _I, _P)),
-    "pnm_score": ("pnm_score", (_P, _P, _P, _P, _I, _I, _I, _I, _P)),
+    "bitplane_pack": {"pack_planes_u16": (_P, _P, _L, _I, _P)},
+    "lz4_prep": {"lz4_prep": (_P, _P, _P, _P, _L, _I, _P)},
+    "decode_attn": {"decode_attn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                    _F, _I, _I, _P)},
+    "pnm_score": {"pnm_score": (_P, _P, _P, _P, _I, _I, _I, _I, _P)},
+    "kv_delta": {"kv_delta_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+                 "kv_delta_inv": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                  _P)},
+    "bitplane_unpack": {"unpack_planes_u16": (_P, _P, _L, _I, _U, _I, _I, _I,
+                                              _I, _P)},
+    "elastic_matmul": {"elastic_matmul": (_P, _P, _P, _I, _I, _I, _I, _U, _I,
+                                          _I, _I, _I, _P)},
 }
 
 # Launches per kernel: each wrapper adds one where it launches its kernel
 # and nowhere else, so a run can show that its path went through the card.
-LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -64,6 +80,8 @@ def _nvcc() -> str:
 
 def lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
@@ -108,10 +126,10 @@ def load(name: str) -> ctypes.CDLL:
             if not path.is_file():
                 build_all((name,))
             lib = ctypes.CDLL(str(path))
-            fn_name, argtypes = SIGNATURES[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
+            for fn_name, argtypes in SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
             _LIBS[name] = lib
         return lib
 

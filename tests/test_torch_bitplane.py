@@ -139,3 +139,62 @@ def test_kv_transform_batch_identical(shape):
     s0, m0 = tkv.kv_forward(w[0])
     np.testing.assert_array_equal(s0, ts[0])
     np.testing.assert_array_equal(tkv.kv_inverse(s0, m0), w[0])
+
+
+def _view_pair(name):
+    if name == "score":
+        return tprec.SCORE, rprec.SCORE
+    if name == "cut11":     # a MAN4-truncated block read at (r_m 2, d_m 4)
+        return (tprec.PrecisionView(r_m=2, d_m=3, name="cut11"),
+                rprec.PrecisionView(r_m=2, d_m=3, name="cut11"))
+    return tprec.VIEWS[name], rprec.VIEWS[name]
+
+
+@pytest.mark.parametrize("name", ["bf16", "man4", "man2", "man0", "score",
+                                  "cut11"])
+def test_unpack_subset_and_round_match_reference(name):
+    """The unpack wrapper (plain version on the CPU) over a view's fetched
+    rows: unrounded it equals ``unpack_planes_subset``; rounded, that
+    reconstructed, and the Pallas unpack kernel over the zeroed stack."""
+    tview, rview = _view_pair(name)
+    x = np.concatenate([_u16(4096, seed=13),
+                        np.arange(0, 1 << 16, 16, dtype=np.uint16)])
+    planes = rbit.pack_planes(x)
+    idx = rview.fetched_planes()
+    rows = np.ascontiguousarray(planes[list(idx)])
+    subset = rbit.unpack_planes_subset(rows, idx, x.size)
+    before = build.LAUNCHES["bitplane_unpack"]
+    raw = tkbit.unpack_planes(torch.from_numpy(rows), idx)
+    got = tkbit.unpack_planes(torch.from_numpy(rows), idx, tview)
+    assert build.LAUNCHES["bitplane_unpack"] == before
+    np.testing.assert_array_equal(raw.numpy().view(np.uint16), subset)
+    want = rprec.reconstruct_u16(subset, rview)
+    np.testing.assert_array_equal(got.numpy().view(np.uint16), want)
+    stack = np.zeros_like(planes)
+    stack[list(idx)] = rows
+    pallas = rkbit.unpack_planes_pallas(
+        jnp.asarray(stack.reshape(16, -1, 32)), r_e=rview.r_e, r_m=rview.r_m,
+        d_m=rview.d_m, block_r=stack.shape[1] // 32, interpret=True)
+    np.testing.assert_array_equal(got.numpy().view(np.uint16),
+                                  np.asarray(pallas).ravel())
+
+
+@pytest.mark.parametrize("name", ["bf16", "man4", "man2", "man0", "score",
+                                  "cut11"])
+def test_view_round_plain_exhaustive(name):
+    """The round every kernel shares, over all 65536 patterns, equals
+    ``reconstruct_u16`` (as the fetched planes would give them)."""
+    tview, rview = _view_pair(name)
+    allu = np.arange(1 << 16, dtype=np.uint32).astype(np.uint16)
+    fetched = allu & np.uint16(rview.plane_mask())
+    got = tkbit.view_round_plain(torch.from_numpy(fetched.astype(np.int32)),
+                                 tkbit.view_round_params(tview))
+    np.testing.assert_array_equal(got.numpy().astype(np.uint16),
+                                  rprec.reconstruct_u16(fetched, rview))
+
+
+@pytest.mark.parametrize("ids", [[15, 15], [16], list(range(16)) + [0]])
+def test_unpack_rejects_bad_plane_ids(ids):
+    rows = torch.zeros((len(ids), 4), dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        tkbit.unpack_planes(rows, ids)

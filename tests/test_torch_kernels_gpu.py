@@ -17,7 +17,8 @@ from repro_torch.configs import ARCHS, smoke_config  # noqa: E402
 from repro_torch.core import precision  # noqa: E402
 from repro_torch.core import tier  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
-    bitplane, build, decode_attn, lz4, pnm_score,
+    bitplane, build, decode_attn, elastic_matmul, kv_delta, lz4, ops,
+    pnm_score,
 )
 from repro_torch.models.model import init_params  # noqa: E402
 from repro_torch.runtime import LOSSLESS_POLICY, ServeEngine  # noqa: E402
@@ -25,6 +26,17 @@ from repro_torch.runtime import LOSSLESS_POLICY, ServeEngine  # noqa: E402
 pytestmark = pytest.mark.gpu
 
 ATOL, RTOL = 2e-5, 1e-5      # f32 summation order (decode attention)
+# elastic matmul: bf16 x bf16 products are exact in f32, so kernel and
+# plain version differ only in the order of the f32 sum over K (the
+# reference's own test tolerance)
+MM_TOL = 1e-5
+# every view the tier produces: the policy views, the PNM score view and
+# a truncated block's intersection (MAN4 kept, MAN0 asked: cut9 keeps the
+# MAN0 guard plane)
+VIEWS = [precision.FULL, precision.MAN4, precision.MAN2, precision.MAN0,
+         precision.SCORE,
+         precision.PrecisionView(r_m=0, d_m=1, name="cut9"),
+         precision.PrecisionView(r_m=3, d_m=2, name="cut12")]
 
 
 @pytest.fixture
@@ -178,14 +190,31 @@ def test_tier_on_card_identical_to_cpu(card):
     rng = np.random.default_rng(4)
     pages = [((rng.standard_normal((64, 128)) * 0.5).astype(np.float32)
               .view(np.uint32) >> 16).astype(np.uint16) for _ in range(20)]
+    pages[3][::7, 5] = 0x7FC1                # NaN, payload in a dropped plane
+    pages[4][::5, 9] = 0xFF80                # -Inf
+    pages[5][:, 2] = 0x407F                  # MAN4 round carries into exp
+    pages[6][:, 3] = 0x7F7F                  # rounds up to saturate at Inf
+    views = [v for v in VIEWS if v.name[:3] != "cut"]
     recs = {}
     for dev in (card, "cpu"):
         t = tier.make_device("trace", device=dev)
         recs[str(dev)] = t.submit(
             [tier.WriteReq(f"p{i}", p, kind=tier.KV) for i, p in enumerate(pages)]
+            + [tier.WriteReq("w", pages[7].ravel()),
+               tier.WriteReq("part", pages[8][:37], kind=tier.KV)]
         ) + t.submit([tier.ReadReq(f"p{i}", kind=tier.KV, view=v)
-                      for i in range(20) for v in (precision.FULL,
-                                                   precision.MAN0)])
+                      for i in range(20) for v in views]
+                     + [tier.ReadReq("w", view=v) for v in views]
+                     + [tier.ReadReq("part", kind=tier.KV, view=v)
+                        for v in views])
+        # truncated blocks: a read at (r_m 2, d_m 4) of a MAN4 block is
+        # served at their intersection, cut11
+        t.truncate_planes(["p1", "w"], precision.MAN4)
+        wide = precision.PrecisionView(r_m=2, d_m=4, name="wide")
+        recs[str(dev)] += t.submit([tier.ReadReq(k, kind=kind, view=v)
+                                    for k, kind in (("p1", tier.KV),
+                                                    ("w", tier.TENSOR))
+                                    for v in views + [wide]])
     for a, b in zip(recs[str(card)], recs["cpu"], strict=True):
         assert {k: v for k, v in vars(a).items() if k != "data"} == \
             {k: v for k, v in vars(b).items() if k != "data"}
@@ -195,7 +224,8 @@ def test_tier_on_card_identical_to_cpu(card):
 
 def test_engine_on_card_runs_every_kernel(card):
     """Classic readback and the PNM path (attention importance, 2 shards)
-    on the card: together they launch every kernel."""
+    on the card: together they launch every serving kernel (all but the
+    elastic matmul, which only the kernel API reaches)."""
     cfg = smoke_config(ARCHS["qwen2-0.5b"])
     params = init_params(cfg, seed=0, device=card)
     build.reset_launches()
@@ -210,5 +240,123 @@ def test_engine_on_card_runs_every_kernel(card):
         assert toks.shape == (1, 12) and toks.max() < cfg.vocab
         assert eng.stats().spilled_pages > 0
     assert eng.pool.pages_gathered > 0
-    assert all(build.LAUNCHES[name] > 0 for name in build.SOURCES), \
-        build.LAUNCHES
+    assert all(build.LAUNCHES[name] > 0 for name in build.KERNELS
+               if name != "elastic_matmul"), build.LAUNCHES
+
+
+def _patterns(shape, seed):
+    """bf16 patterns of KV-like magnitudes with every special the round
+    treats apart: NaN with its payload only in low planes, +-Inf, a round
+    that carries into the exponent and one that saturates at Inf."""
+    rng = np.random.default_rng(seed)
+    f = (rng.standard_normal(shape) * np.exp(rng.uniform(-3, 3, shape[-1])))
+    u = (f.astype(np.float32).view(np.uint32) >> 16).astype(np.uint16)
+    flat = u.reshape(-1)
+    flat[::97] = 0x7F81
+    flat[1::89] = 0xFF80
+    flat[2::83] = 0x7F80
+    flat[3::79] = 0x407F
+    flat[4::73] = 0x7F7F
+    flat[5::71] = 0xFFC1
+    return u
+
+
+@pytest.mark.parametrize("view", VIEWS, ids=lambda v: v.name)
+@pytest.mark.parametrize("nbytes", [1, 7, 8192])
+def test_unpack_kernel_matches_plain(card, view, nbytes):
+    rng = np.random.default_rng(nbytes)
+    ids = view.fetched_planes()
+    rows = torch.from_numpy(rng.integers(0, 256, (len(ids), nbytes),
+                                         dtype=np.uint8)).to(card)
+    for v in (None, view):
+        before = build.LAUNCHES["bitplane_unpack"]
+        got = bitplane.unpack_planes(rows, ids, v)
+        assert build.LAUNCHES["bitplane_unpack"] == before + 1
+        want = bitplane.unpack_planes_plain(rows, ids,
+                                            bitplane.view_round_params(v))
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("B,n,C", [(128, 64, 128), (1, 17, 128), (3, 37, 40),
+                                   (2, 256, 256), (1, 1, 1)])
+def test_kv_forward_kernel_matches_plain(card, B, n, C):
+    x = torch.from_numpy(_patterns((B, n, C), n * C).view(np.int16)).to(card)
+    if n >= 4:                           # exponent ties: smallest wins
+        x[0, : n // 2, 0] = 0x3F80
+        x[0, n // 2 : 2 * (n // 2), 0] = 0x4000
+    got, beta = kv_delta.kv_forward(x)
+    want, want_beta = kv_delta.kv_forward_plain(x)
+    assert torch.equal(beta, want_beta) and torch.equal(got, want)
+    if n >= 4:
+        assert int(beta[0, 0]) == 127
+    arb = torch.from_numpy(np.random.default_rng(C).integers(
+        0, 256, (B, C), dtype=np.uint8)).to(card)
+    got, _ = kv_delta.kv_forward(x, arb)
+    assert torch.equal(got, kv_delta.kv_forward_plain(x, arb)[0])
+    assert torch.equal(kv_delta.kv_inverse(got, arb), x)
+
+
+@pytest.mark.parametrize("view", [None] + VIEWS,
+                         ids=lambda v: "exact" if v is None else v.name)
+@pytest.mark.parametrize("B,n,C", [(8, 64, 128), (1, 17, 128), (2, 33, 40)])
+def test_kv_inverse_kernel_matches_plain(card, view, B, n, C):
+    cm = torch.from_numpy(_patterns((B, C, n), B + n).view(np.int16)).to(card)
+    beta = torch.from_numpy(np.random.default_rng(n).integers(
+        0, 256, (B, C), dtype=np.uint8)).to(card)
+    before = build.LAUNCHES["kv_delta_inv"]
+    got = kv_delta.kv_inverse(cm, beta, view)
+    assert build.LAUNCHES["kv_delta_inv"] == before + 1
+    assert torch.equal(got, kv_delta.kv_inverse_plain(cm, beta, view))
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 896, 4864), (16, 896, 4864),
+                                   (3, 64, 40), (33, 264, 129)])
+@pytest.mark.parametrize("r_m,d_m", [(7, 0), (4, 1), (0, 1), (3, 0)])
+def test_elastic_matmul_kernel_matches_plain(card, M, K, N, r_m, d_m):
+    rng = np.random.default_rng(M * K + N)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(
+        card, torch.bfloat16)
+    w = torch.from_numpy((rng.standard_normal((K, N)) * 0.05).astype(
+        np.float32)).to(card, torch.bfloat16)
+    planes = elastic_matmul.pack_weights_kmajor(w)
+    ids = ops.fetch_planes(8, r_m, d_m)
+    rnd = bitplane.round_params(8, r_m, d_m)
+    before = build.LAUNCHES["elastic_matmul"]
+    got = elastic_matmul.elastic_matmul_planes(x, planes[ids].contiguous(),
+                                               ids, rnd)
+    assert build.LAUNCHES["elastic_matmul"] == before + 1
+    want = elastic_matmul.elastic_matmul_plain(x, planes[ids], ids, rnd)
+    torch.testing.assert_close(got, want, atol=MM_TOL, rtol=MM_TOL)
+    if (r_m, d_m) == (7, 0):
+        torch.testing.assert_close(got, x.float() @ w.float(), atol=MM_TOL,
+                                   rtol=MM_TOL)
+
+
+def test_kernel_api_on_card_matches_cpu(card):
+    """Every function of ``kernels.ops`` gives on the card what it gives
+    on the CPU."""
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(_patterns((64, 256), 1).view(np.int16))
+    beta = torch.from_numpy(rng.integers(0, 256, 256, dtype=np.uint8))
+    xm = torch.from_numpy(rng.standard_normal((16, 128)).astype(
+        np.float32)).to(torch.bfloat16)
+    wp = elastic_matmul.pack_weights_kmajor(torch.from_numpy(
+        rng.standard_normal((128, 96)).astype(np.float32)))
+    q = torch.from_numpy(rng.standard_normal((1, 14, 64)).astype(
+        np.float32)).to(torch.bfloat16)
+    kv = torch.from_numpy(rng.standard_normal((1, 80, 2, 64)).astype(
+        np.float32)).to(torch.bfloat16)
+    calls = [
+        lambda d: ops.bitplane_pack(x.to(d)),
+        lambda d: ops.elastic_unpack(ops.bitplane_pack(x.to(d)), 8, 4, 1),
+        lambda d: ops.kv_transform(x.to(d), beta.to(d)),
+        lambda d: ops.kv_transform_inv(x.to(d).T.contiguous(), beta.to(d)),
+        lambda d: ops.elastic_matmul(xm.to(d), wp.to(d), 4, 1),
+        lambda d: ops.decode_attention(q.to(d), kv.to(d), kv.to(d), 77),
+    ]
+    for i, call in enumerate(calls):
+        got, want = call(card).cpu(), call("cpu")
+        if got.dtype.is_floating_point:
+            torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+        else:
+            assert torch.equal(got, want), i

@@ -538,3 +538,37 @@ def test_engine_pnm_args_and_serve_entry_point(models, capsys):
     assert pnm.tokens[0].shape == (1, 6)
     out = capsys.readouterr().out
     assert "PNM read mode" in out and "fleet: 2 tier devices" in out
+
+
+def _truncated_gather_run(mod, pmod):
+    """Gathers over pages whose blocks were truncated to MAN4 (so score
+    and winner reads are served at the intersected views, ``cut11`` for
+    a (r_m 2, d_m 4) winner view) and over a partial page flushed by its
+    write, with special values in the pages."""
+    kv = synth.kv_cache(ROWS * 5, CH, seed=12)
+    kv[::7, 3] = 0x407F                  # MAN4's round carries into exp
+    kv[::5, 4] = 0x7F81                  # NaN, payload in dropped planes
+    kv[::9, 5] = 0xFF80                  # -Inf
+    dev = mod.TierStore("bitplane-kv", kv_window=ROWS, sanitize=True,
+                        **({"device": "cpu"} if mod is ttier else {}))
+    keys = ("a", "b", "c", "d", "part")
+    dev.submit([mod.WriteReq(k, kv[i * ROWS:(i + 1) * ROWS], kind=mod.KV)
+                for i, k in enumerate(keys[:4])]
+               + [mod.WriteReq("part", kv[4 * ROWS:4 * ROWS + 11],
+                               kind=mod.KV)])
+    dev.truncate_planes(["b", "c"], pmod.MAN4)
+    wide = pmod.PrecisionView(r_m=2, d_m=4, name="wide")
+    views = (pmod.FULL, wide, pmod.MAN0, pmod.MAN4, wide)
+    d = np.sin(np.arange(CH)).astype(np.float32)
+    return dev.submit([mod.GatherReq(keys, d, k=5, views=views),
+                       mod.GatherReq(keys, d, k=2),
+                       mod.GatherReq(keys, d, k=5, score_view=pmod.MAN0)])
+
+
+def test_gather_over_truncated_and_partial_pages_identical_to_reference():
+    trecs = _truncated_gather_run(ttier, tprec)
+    rrecs = _truncated_gather_run(rtier, rprec)
+    same_receipts(trecs, rrecs)
+    assert sorted(trecs[0].gather.keys) == ["a", "b", "c", "d", "part"]
+    part = trecs[0].gather.data[trecs[0].gather.keys.index("part")]
+    assert part.shape == (11, CH)

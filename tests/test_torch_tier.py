@@ -166,3 +166,89 @@ def test_cuda_device_without_card_raises():
         ttier.make_device("trace")
     with pytest.raises(RuntimeError, match="CUDA"):
         ttier.TierStore("bitplane-kv", device="cuda")
+
+
+def _kv_view_script(mod, pmod):
+    """KV streams read at FULL/MAN4/MAN0/SCORE, a TENSOR read beside them
+    in the same decode slab, a MAN4-truncated block read at (r_m 2,
+    d_m 4) — served at their intersection ``cut11`` — and a partial
+    window flushed by its write (37 of 64 rows)."""
+    kv = synth.kv_cache(256, 128, seed=8)
+    kv[::9, 7] = 0x407F                  # MAN4's round carries into exp
+    kv[::11, 8] = 0x7F7F                 # and saturates at Inf
+    kv[::13, 9] = 0x7F81                 # NaN, payload in dropped planes
+    W, R, KV = mod.WriteReq, mod.ReadReq, mod.KV
+    wide = pmod.PrecisionView(r_m=2, d_m=4, name="wide")
+    views = (pmod.FULL, pmod.MAN4, pmod.MAN0, pmod.SCORE)
+    return kv, [
+        [W(f"p{i}", kv[64 * i: 64 * (i + 1)], kind=KV) for i in range(3)]
+        + [W("part", kv[192:229], kind=KV),
+           W("w", synth.weights(3000, seed=2))],
+        [R(f"p{i}", kind=KV, view=v) for i in range(3) for v in views]
+        + [R("part", kind=KV, view=v) for v in views]
+        + [R("w", view=v) for v in views],
+        "truncate",
+        [R("p1", kind=KV, view=v) for v in views + (wide,)]
+        + [R("w", view=wide)],
+    ]
+
+
+def test_kv_views_truncation_and_partial_flush_identical_to_reference():
+    out = []
+    for mod, pmod in ((ttier, tprec), (rtier, rprec)):
+        kw = {"device": "cpu"} if mod is ttier else {}
+        dev = mod.TierStore("bitplane-kv", kv_window=64, **kw)
+        kv, script = _kv_view_script(mod, pmod)
+        recs = []
+        for batch in script:
+            if batch == "truncate":
+                dev.truncate_planes(["p1", "w"], pmod.MAN4)
+            else:
+                recs += dev.submit(batch)
+        out.append((dev, recs))
+    (td, trecs), (rd, rrecs) = out
+    _same_receipts(trecs, rrecs)
+    _same_device(td, rd)
+    # the partial window round-trips exactly at FULL; p1 at cut11 differs
+    # from p1 at MAN4 (the wider read keeps the truncated block's guard)
+    part = [r for r in trecs if r.key == "part" and r.op == "read"]
+    np.testing.assert_array_equal(part[0].data, kv[192:229])
+    assert rtier._intersect_views(rprec.PrecisionView(r_m=2, d_m=4),
+                                  rprec.MAN4).name == "cut11"
+
+
+def test_bitplane_kv_tier_runs_kv_delta_and_unpack_on_its_device(
+        monkeypatch):
+    """Writes go through the exponent-delta forward, reads through unpack
+    (unrounded for KV windows, rounded for other blocks) and the
+    inverse with the view's round, all on tensors of the tier's device."""
+    from repro_torch.kernels import bitplane as kbit
+    from repro_torch.kernels import kv_delta as kkv
+
+    calls = []
+
+    def spy(name, fn):
+        def wrapped(x, *args, **kw):
+            calls.append((name, x.device.type, tuple(x.shape),
+                          getattr(args[-1] if args else None, "name", None)))
+            return fn(x, *args, **kw)
+        return wrapped
+
+    monkeypatch.setattr(kkv, "kv_forward", spy("fwd", kkv.kv_forward))
+    monkeypatch.setattr(kkv, "kv_inverse", spy("inv", kkv.kv_inverse))
+    monkeypatch.setattr(kbit, "unpack_planes", spy("unpack",
+                                                    kbit.unpack_planes))
+    dev = ttier.TierStore("bitplane-kv", kv_window=64, device="cpu")
+    kv = synth.kv_cache(128, 128, seed=9)
+    dev.submit([ttier.WriteReq("a", kv, kind=ttier.KV),
+                ttier.WriteReq("w", synth.weights(2048, seed=1))])
+    assert calls == [("fwd", "cpu", (2, 64, 128), None)]
+    calls.clear()
+    recs = dev.submit([ttier.ReadReq("a", kind=ttier.KV, view=tprec.MAN4),
+                       ttier.ReadReq("w", view=tprec.MAN4)])
+    assert calls == [("unpack", "cpu", (14, 256), "man4"),
+                     ("unpack", "cpu", (14, 2048), None),
+                     ("inv", "cpu", (2, 128, 64), "man4")]
+    np.testing.assert_array_equal(
+        recs[0].data, tprec.truncate_reference(kv.ravel(), tprec.MAN4)
+        .reshape(kv.shape))
