@@ -15,9 +15,13 @@ Phases (any failure exits non-zero and prints no result line):
    pages and on one page alone and inside a larger batch; the KV and
    unpack kernels at every view the tier reads with, on histogram ties,
    Inf, NaN, carries and saturation, and an arbitrary beta round trip),
-   decode attention and the elastic matmul within f32 tolerance — and
-   time kernel, plain version and the one PyTorch call computing the
-   same function where there is one;
+   decode attention (at split boundaries, bit-equal across two calls)
+   and the elastic matmul (at every view, P = 9..16 planes) within f32
+   tolerance — and time kernel, plain version and the one PyTorch call
+   computing the same function where there is one (SDPA under each
+   backend that takes the shape, the fastest reported; torch.matmul at
+   M = 1 and 16), decode attention at 4096 and 32768 cached positions
+   and the elastic matmul at each view beside its byte bound;
 3. drive the kernel API (``repro_torch.kernels.ops``), the only path
    that reaches the elastic matmul, with the launch counts set to 0 just
    before and read just after;
@@ -334,56 +338,75 @@ def check_kv_and_unpack(torch, k_bitplane, k_kv, results):
 
 def check_elastic_matmul(torch, k_bitplane, k_mm, ops, results):
     """x (M, 896) against qwen2-0.5b's (896, 4864) MLP up-projection in
-    K-packed planes, M in {1, 16}, at r_m 7, 4 and 0."""
+    K-packed planes, M in {1, 16}: within tolerance of the plain version
+    at every view (P = 9..16 fetched planes), timed at the views without
+    a round (r_m 0..7, d_m 0) and with one guard plane (d_m 1), beside
+    each byte bound, torch.matmul on the dense weight and the kernel API
+    call itself."""
     import numpy as np
 
     rng = np.random.default_rng(8)
     w = torch.from_numpy((rng.standard_normal((D_MODEL, D_FF)) * 0.02)
                          .astype(np.float32)).cuda().to(torch.bfloat16)
     planes = k_mm.pack_weights_kmajor(w)
-    errs, extra = [], []
+    errs, row = [], None
     for M in (1, 16):
         x = torch.from_numpy(rng.standard_normal((M, D_MODEL)).astype(
             np.float32)).cuda().to(torch.bfloat16)
-        for r_m, d_m in ((7, 0), (4, 1), (0, 1)):
-            ids = ops.fetch_planes(8, r_m, d_m)
-            fetched = planes[ids].contiguous()
-            rnd = k_bitplane.round_params(8, r_m, d_m)
-            got = k_mm.elastic_matmul_planes(x, fetched, ids, rnd)
-            want = k_mm.elastic_matmul_plain(x, fetched, ids, rnd)
-            torch.cuda.synchronize()
-            err = (got - want).abs()
-            if not bool((err <= MM_ATOL + MM_RTOL * want.abs()).all()):
-                raise AssertionError(
-                    f"elastic_matmul (M={M}, r_m={r_m}) max error "
-                    f"{float(err.max())} beyond atol {MM_ATOL} rtol {MM_RTOL}")
-            errs.append(float(err.max()))
-            if (r_m, d_m) == (7, 0):
-                dense = x.float() @ w.float()
-                if not bool(((got - dense).abs()
-                             <= MM_ATOL + MM_RTOL * dense.abs()).all()):
+        dense = x.float() @ w.float()
+        lines = []
+        for r_m in range(8):
+            for d_m in range(8 - r_m):
+                ids = ops.fetch_planes(8, r_m, d_m)
+                fetched = planes[ids].contiguous()
+                rnd = k_bitplane.round_params(8, r_m, d_m)
+                got = k_mm.elastic_matmul_planes(x, fetched, ids, rnd)
+                want = k_mm.elastic_matmul_plain(x, fetched, ids, rnd)
+                torch.cuda.synchronize()
+                err = (got - want).abs()
+                if not bool((err <= MM_ATOL + MM_RTOL * want.abs()).all()):
+                    raise AssertionError(
+                        f"elastic_matmul (M={M}, r_m={r_m}, d_m={d_m}) max "
+                        f"error {float(err.max())} beyond atol {MM_ATOL} "
+                        f"rtol {MM_RTOL}")
+                errs.append(float(err.max()))
+                if r_m == 7 and not bool(((got - dense).abs()
+                                          <= MM_ATOL + MM_RTOL * dense.abs()
+                                          ).all()):
                     raise AssertionError("full-view elastic_matmul is not "
                                          "the dense product")
-            t = timed(torch, lambda: k_mm.elastic_matmul_planes(
-                x, fetched, ids, rnd))
-            nbytes = 2 * M * D_MODEL + len(ids) * D_MODEL // 8 * D_FF \
-                + 4 * M * D_FF
-            b, by = bound_ms(nbytes, 2 * M * D_MODEL * D_FF, BF16_FLOPS_S)
-            extra.append(f"M={M} r_m={r_m}: {t['ms'] * 1e3:.2f} us (bound "
-                         f"{b * 1e3:.3f} us by {by})")
-            if (M, r_m) == (1, 7):
-                row = dict(
-                    name="elastic_matmul", route="cuda",
-                    source="src/repro_torch/csrc/elastic_matmul.cu",
-                    replaces="src/repro/kernels/elastic_matmul.py:31", **t,
-                    plain_ms=timed(torch, lambda: k_mm.elastic_matmul_plain(
-                        x, fetched, ids, rnd))["ms"],
-                    bound_ms=b, bound_by=by,
-                    library_ms=timed(torch, lambda: torch.matmul(x, w))["ms"])
+                if d_m > 1:
+                    continue
+                t = timed(torch, lambda: k_mm.elastic_matmul_planes(
+                    x, fetched, ids, rnd))
+                nbytes = 2 * M * D_MODEL + len(ids) * D_MODEL // 8 * D_FF \
+                    + 4 * M * D_FF
+                b, by = bound_ms(nbytes, 2 * M * D_MODEL * D_FF, BF16_FLOPS_S)
+                lines.append(f"r_m {r_m} d_m {d_m} ({len(ids)} planes) "
+                             f"{t['ms'] * 1e3:.2f} us (bound {b * 1e3:.3f} "
+                             f"us)")
+                if (M, r_m, d_m) == (1, 7, 0):
+                    row = dict(
+                        name="elastic_matmul", route="cuda",
+                        source="src/repro_torch/csrc/elastic_matmul.cu",
+                        replaces="src/repro/kernels/elastic_matmul.py:31",
+                        **t, plain_ms=timed(
+                            torch, lambda: k_mm.elastic_matmul_plain(
+                                x, fetched, ids, rnd))["ms"],
+                        bound_ms=b, bound_by=by)
+        lib = timed(torch, lambda: torch.matmul(x, w))
+        if M == 1:
+            row["library_ms"] = lib["ms"]
+        api = timed(torch, lambda: ops.elastic_matmul(x, planes, 7, 0))
+        print(f"[kernel] elastic_matmul at the MLP up-projection, M={M}: "
+              + "; ".join(lines), flush=True)
+        print(f"[kernel] elastic_matmul M={M}: torch.matmul on the dense "
+              f"bf16 weight {lib['ms'] * 1e3:.2f} us; kernels.ops."
+              f"elastic_matmul (r_m 7, planes read in place) "
+              f"{api['ms'] * 1e3:.2f} us device, {api['call_ms'] * 1e3:.2f} "
+              "us per call back to back", flush=True)
     row["max_abs_err"] = max(errs)
     results["elastic_matmul"] = row
-    print("[kernel] elastic_matmul at the MLP up-projection: "
-          + "; ".join(extra), flush=True)
 
 
 def kernel_api_path(torch, build, ops, k_mm):
@@ -484,30 +507,29 @@ def check_kernels(torch, k_bitplane, k_lz4, k_attn, results):
                     device="cuda").to(torch.bfloat16)
     v = torch.randn((1, MAX_SEQ, KV_HEADS, HEAD_DIM), generator=gen,
                     device="cuda").to(torch.bfloat16)
+    split = k_attn.SPLIT_POSITIONS
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     errs = []
     for dt in (torch.bfloat16, torch.float8_e4m3fn):
         kc, vc = k.to(dt), v.to(dt)
-        for valid in (VALID_LEN, 1, 77):
+        # the main path's length, one block, block boundaries +-1, all of S
+        for valid in (VALID_LEN, 1, 77, split - 1, split, split + 1,
+                      2 * split + 1, VALID_LEN + 1, MAX_SEQ):
             got = k_attn.decode_attention(q, kc, vc, valid)
             want = k_attn.decode_attention_plain(q, kc, vc, valid)
+            again = k_attn.decode_attention(q, kc, vc, valid)
             torch.cuda.synchronize()
             err = (got - want).abs()
             if not bool((err <= ATOL + RTOL * want.abs()).all()):
                 raise AssertionError(
                     f"decode_attn ({dt}, valid_len={valid}) max error "
                     f"{float(err.max())} beyond atol {ATOL} rtol {RTOL}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"decode_attn ({dt}, valid_len={valid}) "
+                                     "differs between two calls")
             errs.append(float(err.max()))
-    # library yardstick: SDPA over the same valid prefix, KV heads expanded
-    # outside the timed call (the port never calls it)
-    group = HEADS // KV_HEADS
-    kx = k[:, :VALID_LEN].repeat_interleave(group, dim=2).transpose(1, 2)
-    vx = v[:, :VALID_LEN].repeat_interleave(group, dim=2).transpose(1, 2)
-    kx, vx = kx.contiguous(), vx.contiguous()
-    q4 = q[:, :, None, :]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    nbytes = (2 * VALID_LEN * KV_HEADS * HEAD_DIM * 2 + HEADS * HEAD_DIM * 2
-              + HEADS * HEAD_DIM * 4)
-    b, by = bound_ms(nbytes, 4 * HEADS * VALID_LEN * HEAD_DIM)
+    b, by = attn_bound(VALID_LEN, HEADS, KV_HEADS, HEAD_DIM)
+    sdpa_ms = sdpa_backends(torch, q, k, v, VALID_LEN)
     results["decode_attn"] = dict(
         name="decode_attn", route="cuda",
         source="src/repro_torch/csrc/decode_attn.cu",
@@ -517,7 +539,79 @@ def check_kernels(torch, k_bitplane, k_lz4, k_attn, results):
         plain_ms=timed(torch, lambda: k_attn.decode_attention_plain(
             q, k, v, VALID_LEN))["ms"],
         bound_ms=b, bound_by=by,
-        library_ms=timed(torch, lambda: sdpa(q4, kx, vx))["ms"])
+        library_ms=min(sdpa_ms.values()) if sdpa_ms else None)
+    print("[kernel] SDPA yardstick at the main path's shape, by backend: "
+          + "; ".join(f"{name} {ms * 1e3:.2f} us"
+                      for name, ms in sdpa_ms.items()), flush=True)
+    # what a call costs: one block alone, then blocks merged on chip
+    parts = []
+    for valid in (split, 2 * split, VALID_LEN):
+        blocks = -(-valid // k_attn.split_size(valid, KV_HEADS, sms))
+        t = timed(torch, lambda: k_attn.decode_attention(q, k, v, valid))
+        parts.append(f"valid_len {valid}: {t['ms'] * 1e3:.2f} us, {blocks} "
+                     f"block{'s' * (blocks > 1)} per KV head")
+    print("[kernel] decode_attn by split: " + "; ".join(parts), flush=True)
+
+    # -- decode attention at long context: same heads, longer caches --------
+    lines = []
+    for S in (4096, 32768):
+        ql = torch.randn((1, HEADS, HEAD_DIM), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        kl, vl = (torch.randn((1, S, KV_HEADS, HEAD_DIM), generator=gen,
+                              device="cuda").to(torch.bfloat16)
+                  for _ in range(2))
+        got = k_attn.decode_attention(ql, kl, vl, S)
+        want = k_attn.decode_attention_plain(ql, kl, vl, S)
+        torch.cuda.synchronize()
+        if not bool(((got - want).abs() <= ATOL + RTOL * want.abs()).all()):
+            raise AssertionError(f"decode_attn at valid_len {S} beyond "
+                                 "tolerance")
+        t = timed(torch, lambda: k_attn.decode_attention(ql, kl, vl, S))
+        b, by = attn_bound(S, HEADS, KV_HEADS, HEAD_DIM)
+        lib = sdpa_backends(torch, ql, kl, vl, S)
+        blocks = -(-S // k_attn.split_size(S, KV_HEADS, sms))
+        lines.append(f"valid_len {S}: {t['ms'] * 1e3:.2f} us (bound "
+                     f"{b * 1e3:.3f} us by {by}; {blocks} blocks per KV "
+                     "head; SDPA fastest "
+                     + (f"{min(lib.values()) * 1e3:.2f} us)" if lib else "-)"))
+    print("[kernel] decode_attn at long context, q (1, 14, 64) over a bf16 "
+          "cache: " + "; ".join(lines), flush=True)
+
+
+def attn_bound(valid: int, heads: int, kv_heads: int, hd: int) -> tuple:
+    """Bound of one bf16 decode-attention call: K and V rows below
+    ``valid`` read once, q read and the f32 output written once."""
+    nbytes = 2 * valid * kv_heads * hd * 2 + heads * hd * 2 + heads * hd * 4
+    return bound_ms(nbytes, 4 * heads * valid * hd)
+
+
+def sdpa_backends(torch, q, k, v, valid: int) -> dict:
+    """Device time of ``scaled_dot_product_attention`` over the same valid
+    prefix under each backend that takes these shapes (KV heads expanded
+    outside the timed call; the port never calls it)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    group = q.shape[1] // k.shape[2]
+    kx = k[:, :valid].repeat_interleave(group, dim=2).transpose(1, 2)
+    vx = v[:, :valid].repeat_interleave(group, dim=2).transpose(1, 2)
+    kx, vx = kx.contiguous(), vx.contiguous()
+    q4 = q[:, :, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+                 "MATH"):
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            continue
+        try:
+            with sdpa_kernel([backend]):
+                sdpa(q4, kx, vx)
+                torch.cuda.synchronize()
+                out[name.lower()] = timed(
+                    torch, lambda: sdpa(q4, kx, vx))["ms"]
+        except RuntimeError:          # this backend refuses these shapes
+            continue
+    return out
 
 
 def check_tier_and_model(torch):
@@ -680,10 +774,12 @@ def profile_request(torch, serve, params, device_time=True, **overrides):
             for e in tprof.key_averages()]
     busy_s = sum(us for _, us, _ in evts) / 1e6
     top = sorted(evts, key=lambda t: -t[1])[:5]
+    attn_s = sum(us for k, us, _ in evts if "decode_attn" in k) / 1e6
     print(f"[profile] one request under torch.profiler: wall "
           f"{rep.wall_s:.3f} s, device busy {busy_s:.3f} s "
           f"({100 * busy_s / rep.wall_s:.1f}%), {sum(n for *_, n in evts)} "
-          f"kernels; top: "
+          f"kernels; decode attention {attn_s * 1e3:.1f} ms "
+          f"({100 * attn_s / busy_s:.1f}% of busy); top: "
           + "; ".join(f"{k[:60]} {us / 1e3:.1f} ms x{n}" for k, us, n in top),
           flush=True)
 

@@ -41,15 +41,15 @@ _U = ctypes.c_ulonglong
 SIGNATURES = {
     "bitplane_pack": {"pack_planes_u16": (_P, _P, _L, _I, _P)},
     "lz4_prep": {"lz4_prep": (_P, _P, _P, _P, _L, _I, _P)},
-    "decode_attn": {"decode_attn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                    _F, _I, _I, _P)},
+    "decode_attn": {"decode_attn": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                    _I, _I, _I, _F, _I, _I, _P)},
     "pnm_score": {"pnm_score": (_P, _P, _P, _P, _I, _I, _I, _I, _P)},
     "kv_delta": {"kv_delta_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
                  "kv_delta_inv": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                   _P)},
     "bitplane_unpack": {"unpack_planes_u16": (_P, _P, _L, _I, _U, _I, _I, _I,
                                               _I, _P)},
-    "elastic_matmul": {"elastic_matmul": (_P, _P, _P, _I, _I, _I, _I, _U, _I,
+    "elastic_matmul": {"elastic_matmul": (_P, _P, _L, _P, _I, _I, _I, _I, _I,
                                           _I, _I, _I, _P)},
 }
 

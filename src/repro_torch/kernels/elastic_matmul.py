@@ -5,7 +5,7 @@ weight packing it reads.
 Replaces ``src/repro/kernels/elastic_matmul.py::_kernel``.  A ``(K, N)``
 bf16 weight is stored as K-packed bit-planes ``(16, K // 8, N)`` uint8
 (:func:`pack_weights_kmajor`); a product at a precision view reads only
-the view's fetched planes (sliced before the launch, so the bytes read
+the view's fetched planes, the top ``P`` of the stack (so the bytes read
 scale with the view), rebuilds each weight with the view's guard round
 and multiplies in f32:
 
@@ -26,6 +26,10 @@ from . import build
 from .bitplane import (
     RoundParams, plane_code, to_int16, view_round_plain,
 )
+
+
+# Fewest planes the kernel reads: the sign and the 8 exponent planes.
+MIN_PLANES = 9
 
 
 def pack_weights_kmajor(w: torch.Tensor) -> torch.Tensor:
@@ -75,7 +79,9 @@ def elastic_matmul_planes(x: torch.Tensor, planes: torch.Tensor,
     """``x (M, K)`` bf16 times the weight rebuilt from its fetched
     ``(P_f, K // 8, N)`` planes at round ``rnd`` → ``(M, N)`` f32, on the
     tensors' device: the CUDA kernel on the card,
-    :func:`elastic_matmul_plain` on the CPU."""
+    :func:`elastic_matmul_plain` on the CPU.  The kernel takes the top
+    ``P_f >= 9`` planes, in the order a view fetches them (15 first) or in
+    the stack's own order (``w_planes[16 - P_f:]``, read in place)."""
     if x.dim() != 2 or planes.dim() != 3:
         raise ValueError(f"bad shapes x {tuple(x.shape)} planes "
                          f"{tuple(planes.shape)}")
@@ -87,7 +93,7 @@ def elastic_matmul_planes(x: torch.Tensor, planes: torch.Tensor,
     if x.dtype != torch.bfloat16 or planes.dtype != torch.uint8:
         raise TypeError(f"expects bf16 x and uint8 planes, got {x.dtype}, "
                         f"{planes.dtype}")
-    code = plane_code(plane_ids)
+    plane_code(plane_ids)                      # validates the ids
     if x.device.type == "cpu" and planes.device.type == "cpu":
         return elastic_matmul_plain(x, planes, plane_ids, rnd)
     if x.device.type != "cuda" or planes.device != x.device:
@@ -95,11 +101,26 @@ def elastic_matmul_planes(x: torch.Tensor, planes: torch.Tensor,
                          f"device, got {x.device}/{planes.device}")
     if not (x.is_contiguous() and planes.is_contiguous()):
         raise ValueError("elastic matmul kernel needs contiguous tensors")
+    if x.data_ptr() % 16:
+        raise ValueError("elastic matmul kernel needs a 16-byte aligned x")
+    if P < MIN_PLANES:
+        raise ValueError(f"the kernel needs at least {MIN_PLANES} planes "
+                         f"(sign and exponent), got {P}")
+    ids = [int(p) for p in plane_ids]
+    top = list(range(BF16_BITS - 1, BF16_BITS - 1 - P, -1))
+    plane_bytes = K8 * N
+    if ids == top:                 # slot i is bit 15 - i
+        base, stride = planes.data_ptr(), plane_bytes
+    elif ids == top[::-1]:         # the stack's own order: read it backwards
+        base, stride = planes.data_ptr() + (P - 1) * plane_bytes, -plane_bytes
+    else:
+        raise ValueError(f"the kernel reads the top {P} planes in either "
+                         f"order, got {ids}")
     keep, cut, do_round = rnd
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     rc = build.load("elastic_matmul").elastic_matmul(
-        x.data_ptr(), planes.data_ptr(), out.data_ptr(), M, K, N, P, code,
-        keep, cut, int(do_round), x.device.index,
+        x.data_ptr(), base, stride, out.data_ptr(), M, K, N, P, keep, cut,
+        int(do_round), x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(rc, "elastic_matmul")
     build.LAUNCHES["elastic_matmul"] += 1

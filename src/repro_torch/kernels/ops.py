@@ -75,14 +75,15 @@ def elastic_matmul(x: torch.Tensor, w_planes: torch.Tensor, r_m: int = 7,
     """``x (M, K)`` bf16 @ the weight rebuilt from its ``(16, K // 8, N)``
     K-packed planes at view ``(8, r_m, d_m)`` → ``(M, N)`` f32.  Only the
     fetched planes go to the kernel, so weight bytes scale as
-    ``(9 + r_m + d_m) / 16``."""
+    ``(9 + r_m + d_m) / 16``.  They are the top planes of the stack, a
+    contiguous slice the kernel reads in place: nothing is copied."""
     if w_planes.dim() != 3 or w_planes.shape[0] != BF16_BITS:
         raise ValueError(f"expects (16, K // 8, N) planes, got "
                          f"{tuple(w_planes.shape)}")
-    fetch = fetch_planes(8, r_m, d_m)
+    first = BF16_BITS - len(fetch_planes(8, r_m, d_m))
     return kmatmul.elastic_matmul_planes(
-        x.contiguous(), w_planes[fetch].contiguous(), fetch,
-        kbitplane.round_params(8, r_m, d_m))
+        x.contiguous(), w_planes[first:].contiguous(),
+        list(range(first, BF16_BITS)), kbitplane.round_params(8, r_m, d_m))
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

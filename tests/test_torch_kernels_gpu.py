@@ -106,6 +106,68 @@ def test_decode_attention_kernel_matches_plain(card, kv, B, H, KV, hd, S,
         decode_attn.decode_attention(q, k, v, S + 1)
 
 
+def _attention_inputs(card, B, H, KV, hd, S, kv, seed):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn((B, H, hd), generator=gen, device=card).to(torch.bfloat16)
+    k, v = (torch.randn((B, S, KV, hd), generator=gen, device=card)
+            .to(torch.bfloat16).to(kv) for _ in range(2))
+    return q, k, v
+
+
+SPLIT = decode_attn.SPLIT_POSITIONS
+
+
+@pytest.mark.parametrize("kv", [torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("valid", [1, SPLIT - 1, SPLIT, SPLIT + 1,
+                                   2 * SPLIT - 1, 2 * SPLIT, 2 * SPLIT + 1,
+                                   8 * SPLIT, 8 * SPLIT + 1, 16 * SPLIT,
+                                   16 * SPLIT + 1, 575, 576, 577, 640])
+def test_decode_attention_split_boundaries(card, kv, valid):
+    """The main path's shape, q (1, 14, 64) over a (1, 640, 2, 64) cache,
+    at one block, at block boundaries +-1 (up to 16 one-tile blocks, then
+    blocks of two tiles) and around 576; two calls give bit-equal outputs
+    (fixed merge order, no atomics)."""
+    q, k, v = _attention_inputs(card, 1, 14, 2, 64, 640, kv, valid)
+    before = build.LAUNCHES["decode_attn"]
+    got = decode_attn.decode_attention(q, k, v, valid)
+    assert build.LAUNCHES["decode_attn"] == before + 1
+    want = decode_attn.decode_attention_plain(q, k, v, valid)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+    assert torch.equal(got, decode_attn.decode_attention(q, k, v, valid))
+
+
+@pytest.mark.parametrize("kv", [torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("B,H,KV,hd,S,valid", [
+    (1, 16, 2, 128, 32768, 32000),     # long cache: 63 blocks of 512
+    (2, 14, 2, 64, 4096, 4096),        # 43 blocks a row, merged in memory
+    (4, 32, 2, 32, 1024, 999),
+    (1, 14, 2, 64, 2304, 2048),        # the longest a cluster merges
+    (1, 14, 2, 64, 2304, 2049),        # 33 blocks merged in device memory
+])
+def test_decode_attention_long_context(card, kv, B, H, KV, hd, S, valid):
+    q, k, v = _attention_inputs(card, B, H, KV, hd, S, kv, S + valid)
+    got = decode_attn.decode_attention(q, k, v, valid)
+    want = decode_attn.decode_attention_plain(q, k, v, valid)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+    assert torch.equal(got, decode_attn.decode_attention(q, k, v, valid))
+
+
+def test_decode_attention_memory_merge_resets_counters(card):
+    """More than 16 blocks a row merge through device memory: the kernel
+    sets each row's counter back to 0 once merged, so the wrapper keeps
+    one counter buffer per stream and launches no fill per call."""
+    q, k, v = _attention_inputs(card, 2, 14, 2, 64, 8192, torch.bfloat16, 7)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    got = decode_attn.decode_attention(q, k, v, 8000)
+    counters = decode_attn._COUNTERS[(q.device.index, stream)]
+    again = decode_attn.decode_attention(q, k, v, 8000)
+    assert decode_attn._COUNTERS[(q.device.index, stream)] is counters
+    assert not bool(counters.any())
+    assert torch.equal(got, again)
+    want = decode_attn.decode_attention_plain(q, k, v, 8000)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+
+
 def _scores_equal(a, b):
     """Bitwise equal, NaN matching NaN (payloads may differ)."""
     a, b = a.cpu(), b.cpu()
@@ -330,6 +392,86 @@ def test_elastic_matmul_kernel_matches_plain(card, M, K, N, r_m, d_m):
     if (r_m, d_m) == (7, 0):
         torch.testing.assert_close(got, x.float() @ w.float(), atol=MM_TOL,
                                    rtol=MM_TOL)
+
+
+def _matmul_inputs(card, M, K, N, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(
+        card, torch.bfloat16)
+    w = torch.from_numpy((rng.standard_normal((K, N)) * 0.05).astype(
+        np.float32)).to(card, torch.bfloat16)
+    return x, w, elastic_matmul.pack_weights_kmajor(w)
+
+
+# every view with r_e = 8: P = 9 + r_m + d_m fetched planes, 9 to 16
+EVERY_VIEW = [(r_m, d_m) for r_m in range(8) for d_m in range(8 - r_m)]
+
+
+@pytest.mark.parametrize("M", [1, 16])
+@pytest.mark.parametrize("r_m,d_m", EVERY_VIEW,
+                         ids=[f"rm{r}dm{d}" for r, d in EVERY_VIEW])
+def test_elastic_matmul_every_plane_count(card, M, r_m, d_m):
+    """The MLP up-projection (896, 4864) at every view, its planes handed
+    in the view's order and in the stack's own order (read in place)."""
+    x, w, planes = _matmul_inputs(card, M, 896, 4864, 7 * r_m + d_m)
+    ids = ops.fetch_planes(8, r_m, d_m)
+    rnd = bitplane.round_params(8, r_m, d_m)
+    want = elastic_matmul.elastic_matmul_plain(x, planes[ids], ids, rnd)
+    got = elastic_matmul.elastic_matmul_planes(x, planes[ids].contiguous(),
+                                               ids, rnd)
+    torch.testing.assert_close(got, want, atol=MM_TOL, rtol=MM_TOL)
+    first = 16 - len(ids)
+    stack = elastic_matmul.elastic_matmul_planes(
+        x, planes[first:], list(range(first, 16)), rnd)
+    torch.testing.assert_close(stack, want, atol=MM_TOL, rtol=MM_TOL)
+    if r_m == 7:
+        torch.testing.assert_close(got, x.float() @ w.float(), atol=MM_TOL,
+                                   rtol=MM_TOL)
+
+
+@pytest.mark.parametrize("M", [1, 3, 16, 33])
+@pytest.mark.parametrize("K,N", [(8, 129), (8, 40), (264, 129), (896, 40)])
+@pytest.mark.parametrize("r_m,d_m", [(7, 0), (2, 3), (0, 0)])
+def test_elastic_matmul_ragged(card, M, K, N, r_m, d_m):
+    """Ragged N (not a multiple of 4: byte loads; of 32: a part block),
+    K of one byte row, M of one, part of and more than one row tile."""
+    x, _, planes = _matmul_inputs(card, M, K, N, M * K + N)
+    ids = ops.fetch_planes(8, r_m, d_m)
+    rnd = bitplane.round_params(8, r_m, d_m)
+    got = elastic_matmul.elastic_matmul_planes(x, planes[ids].contiguous(),
+                                               ids, rnd)
+    want = elastic_matmul.elastic_matmul_plain(x, planes[ids], ids, rnd)
+    torch.testing.assert_close(got, want, atol=MM_TOL, rtol=MM_TOL)
+
+
+def test_elastic_matmul_rejects_planes_it_cannot_read(card):
+    x, _, planes = _matmul_inputs(card, 1, 64, 32, 0)
+    rnd = bitplane.round_params(8, 7, 0)
+    with pytest.raises(ValueError):       # not the top planes
+        elastic_matmul.elastic_matmul_planes(
+            x, planes[:9].contiguous(), list(range(9)), rnd)
+    with pytest.raises(ValueError):       # fewer than sign + exponent
+        elastic_matmul.elastic_matmul_planes(
+            x, planes[8:].contiguous(), list(range(8, 16)), rnd)
+
+
+@pytest.mark.parametrize("M", [1, 16])
+def test_kernel_api_elastic_matmul_copies_no_planes(card, M):
+    """``ops.elastic_matmul`` hands the kernel the stack's own top planes:
+    the only memory the call allocates is its (M, N) output."""
+    x, w, planes = _matmul_inputs(card, M, 896, 4864, M)
+    ops.elastic_matmul(x, planes, 4, 1)            # build and load first
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = ops.elastic_matmul(x, planes, 4, 1)
+    torch.cuda.synchronize()
+    out_bytes = -(-out.numel() * 4 // 512) * 512    # allocator granule
+    assert torch.cuda.max_memory_allocated() - before == out_bytes
+    ids = ops.fetch_planes(8, 4, 1)
+    want = elastic_matmul.elastic_matmul_plain(x, planes[ids], ids,
+                                               bitplane.round_params(8, 4, 1))
+    torch.testing.assert_close(out, want, atol=MM_TOL, rtol=MM_TOL)
 
 
 def test_kernel_api_on_card_matches_cpu(card):

@@ -158,6 +158,27 @@ def test_elastic_matmul_precision_degrades_gracefully():
     assert errs[3] / (np.abs(dense).mean() + 1e-9) < 0.35
 
 
+@pytest.mark.parametrize("r_m,d_m", [(7, 0), (4, 1), (0, 0)])
+def test_elastic_matmul_hands_the_stack_in_place(monkeypatch, r_m, d_m):
+    """``ops.elastic_matmul`` gives the kernel wrapper the stack's own top
+    planes (a view, no copy) with their ids, so the bytes it moves are the
+    fetched planes once."""
+    w = tmm.pack_weights_kmajor(torch.randn(64, 24))
+    seen = {}
+
+    def record(x, planes, ids, rnd):
+        seen.update(planes=planes, ids=list(ids))
+        return torch.zeros(x.shape[0], planes.shape[2])
+
+    monkeypatch.setattr(tmm, "elastic_matmul_planes", record)
+    ops.elastic_matmul(torch.zeros(2, 64, dtype=torch.bfloat16), w, r_m, d_m)
+    P = 9 + min(r_m + d_m, 7)
+    assert seen["ids"] == list(range(16 - P, 16))
+    assert seen["planes"].data_ptr() == w[16 - P].data_ptr()
+    assert seen["planes"].untyped_storage().data_ptr() == \
+        w.untyped_storage().data_ptr()
+
+
 def test_decode_attention_matches_reference():
     rng = np.random.default_rng(4)
     jq, q = _bf16(rng, (2, 8, 32))
