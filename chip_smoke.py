@@ -10,21 +10,24 @@ Phases (any failure exits non-zero and prints no result line):
    (one ``nvcc`` per source, started together);
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes the main path gives it — pack, prep, page scoring, the KV
-   exponent-delta forward and inverse and the bit-plane unpack bit-equal
+   exponent-delta forward and inverse, the bit-plane unpack and the
+   fused KV read (unpack → inverse → round in one launch) bit-equal
    (page scoring also on ragged, empty, NaN and inf pages, on duplicate
    pages and on one page alone and inside a larger batch; the KV and
    unpack kernels at every view the tier reads with, on histogram ties,
-   Inf, NaN, carries and saturation, and an arbitrary beta round trip),
+   Inf, NaN, carries and saturation, and an arbitrary beta round trip;
+   the fused read also on partial windows whose members lie apart),
    decode attention (at split boundaries, bit-equal across two calls)
    and the elastic matmul (at every view, P = 9..16 planes) within f32
    tolerance — and time kernel, plain version and the one PyTorch call
    computing the same function where there is one (SDPA under each
    backend that takes the shape, the fastest reported; torch.matmul at
    M = 1 and 16), decode attention at 4096 and 32768 cached positions
-   and the elastic matmul at each view beside its byte bound;
+   the elastic matmul at each view beside its byte bound, and the fused
+   KV read beside the two-launch chain it replaces;
 3. drive the kernel API (``repro_torch.kernels.ops``), the only path
-   that reaches the elastic matmul, with the launch counts set to 0 just
-   before and read just after;
+   that reaches the elastic matmul and the standalone KV inverse, with
+   the launch counts set to 0 just before and read just after;
 4. check the card's tier against the CPU's on the same KV pages: writes,
    readback at every view (policy views, the score view, a truncated
    block's intersection, a partial window, a tensor) and PNM gathers
@@ -32,7 +35,9 @@ Phases (any failure exits non-zero and prints no result line):
    against the CPU's on a small input;
 5. serve 3 requests (512 prompt + 64 new tokens) through full-width
    qwen2-0.5b with random weights, KV spilling to a ``trace`` tier, with
-   the kernel launch counts set to 0 just before and read just after;
+   the kernel launch counts set to 0 just before and read just after
+   (the KV read goes through the fused kernel alone: the standalone
+   inverse must not launch);
 6. the PNM path at full width, one request per case, launch counts read
    per case: (a) classic readback, (b) a gather covering every candidate
    (tokens identical to a), (c) top-16 gathers with attention importance
@@ -254,10 +259,12 @@ def read_views():
             prec.PrecisionView(r_m=2, d_m=3, name="cut11")]
 
 
-def check_kv_and_unpack(torch, k_bitplane, k_kv, results):
+def check_kv_and_unpack(torch, build, k_bitplane, k_kv, results):
     """The write path's forward on one prefill flush and on partial
-    windows, then the read path on one decode slab: unpack with every
-    fetched bit kept and inverse + round, at every view."""
+    windows, then the read path on one decode slab at every view: the
+    standalone unpack (every fetched bit kept, and rounded), the
+    standalone inverse + round, and the fused read the tier launches, also
+    over partial windows apart in a slab."""
     import numpy as np
 
     # -- forward: one prefill flush, partial windows, ties, given beta -------
@@ -293,6 +300,8 @@ def check_kv_and_unpack(torch, k_bitplane, k_kv, results):
     cm, beta = k_kv.kv_forward(win)
     planes = k_bitplane.pack_planes_u16(cm.reshape(-1))       # (16, 8192)
     nbytes = planes.shape[1]
+    starts = [i * WINDOW * CHANNELS for i in range(nwin)]
+    part_planes, part_groups = partial_slab(torch, k_bitplane, k_kv)
     for view in read_views():
         ids = view.fetched_planes()
         rows = planes[list(ids)].contiguous()
@@ -312,21 +321,63 @@ def check_kv_and_unpack(torch, k_bitplane, k_kv, results):
             raise AssertionError(f"kv_delta_inv ({view.name}) differs")
         if view.is_full and not torch.equal(tok, win):
             raise AssertionError("full-view readback is not lossless")
+        cases = [(rows, starts, WINDOW, beta, win)] + [
+            (part_planes[list(ids)].contiguous(), *g) for g in part_groups]
+        for rws, sts, n, bt, wins in cases:
+            got = k_bitplane.unpack_kv_windows(rws, ids, sts, n, CHANNELS, bt,
+                                               view)
+            want = k_bitplane.unpack_kv_windows_plain(rws, ids, sts, n,
+                                                      CHANNELS, bt, view)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"fused KV read ({view.name}, {len(sts)}"
+                                     f" x {n} tokens) differs from its plain "
+                                     "version")
+            if view.is_full and not torch.equal(got, wins):
+                raise AssertionError(f"fused KV read of {len(sts)} x {n} "
+                                     "tokens is not lossless")
     man4 = read_views()[1]
     ids = man4.fetched_planes()
     rows = planes[list(ids)].contiguous()
     raw = k_bitplane.unpack_planes(rows, ids).view(nwin, CHANNELS, WINDOW)
-    b, by = bound_ms(len(ids) * nbytes + 16 * nbytes,
-                     3 * len(ids) * 8 * nbytes)
+
+    # the fused kernel alone, called as the wrapper calls it (the starts go
+    # in the launch's parameters)
+    lib = build.load("bitplane_unpack")
+    code = k_bitplane.plane_code(ids)
+    keep, cut, rnd = k_bitplane.view_round_params(man4)
+    starts_host = torch.tensor(starts, dtype=torch.int64)
+    out = torch.empty((nwin, WINDOW, CHANNELS), dtype=torch.int16,
+                      device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def fused():
+        build.check(lib.unpack_kv_windows(
+            rows.data_ptr(), nbytes, len(ids), code, starts_host.data_ptr(),
+            beta.data_ptr(), out.data_ptr(), nwin, WINDOW, CHANNELS, keep,
+            cut, int(rnd), 0, stream), "bitplane_unpack")
+
+    fused()
+    torch.cuda.synchronize()
+    if not torch.equal(out, k_kv.kv_inverse(raw, beta, man4)):
+        raise AssertionError("fused KV read differs from unpack + inverse")
+    elems = DECODE_ELEMS
+    b, by = bound_ms(len(ids) * nbytes + nwin * CHANNELS + 8 * nwin
+                     + 2 * elems, (3 * len(ids) + 20) * elems)
     results["bitplane_unpack"] = dict(
         name="bitplane_unpack", route="cuda",
         source="src/repro_torch/csrc/bitplane_unpack.cu",
         replaces="src/repro/kernels/bitplane.py:51", max_abs_err=0.0,
-        **timed(torch, lambda: k_bitplane.unpack_planes(rows, ids)),
-        plain_ms=timed(torch, lambda: k_bitplane.unpack_planes_plain(
-            rows, ids))["ms"],
+        **timed(torch, fused),
+        plain_ms=timed(torch, lambda: k_bitplane.unpack_kv_windows_plain(
+            rows, ids, starts, WINDOW, CHANNELS, beta, man4))["ms"],
         bound_ms=b, bound_by=by, library_ms=None)
-    b, by = bound_ms(4 * DECODE_ELEMS + nwin * CHANNELS, 20 * DECODE_ELEMS)
+    chain = timed(torch, lambda: k_kv.kv_inverse(
+        k_bitplane.unpack_planes(rows, ids).view(nwin, CHANNELS, WINDOW),
+        beta, man4))
+    alone = timed(torch, lambda: k_bitplane.unpack_planes(rows, ids))
+    b1, _ = bound_ms(len(ids) * nbytes + 2 * elems, 3 * len(ids) * elems)
+    b, by = bound_ms(4 * elems + nwin * CHANNELS, 20 * elems)
     results["kv_delta_inv"] = dict(
         name="kv_delta_inv", route="cuda", source="src/repro_torch/csrc/kv_delta.cu",
         replaces="src/repro/kernels/kv_delta.py:40", max_abs_err=0.0,
@@ -334,6 +385,36 @@ def check_kv_and_unpack(torch, k_bitplane, k_kv, results):
         plain_ms=timed(torch, lambda: k_kv.kv_inverse_plain(raw, beta,
                                                             man4))["ms"],
         bound_ms=b, bound_by=by, library_ms=None)
+    r = results["bitplane_unpack"]
+    print(f"[kernel] kv read fused (unpack -> inverse -> round, {nwin} x "
+          f"{WINDOW} x {CHANNELS}, MAN4, {len(ids)} planes): "
+          f"{r['ms'] * 1e3:.2f} us device, bound {r['bound_ms'] * 1e3:.3f} "
+          f"us by {r['bound_by']}; the two-launch chain (standalone unpack, "
+          f"then inverse + round) {chain['ms'] * 1e3:.2f} us "
+          f"({chain['ms_from']}), {chain['call_ms'] * 1e3:.2f} us per call "
+          "back to back; "
+          f"standalone unpack {alone['ms'] * 1e3:.2f} us (bound "
+          f"{b1 * 1e3:.3f} us), standalone inverse "
+          f"{results['kv_delta_inv']['ms'] * 1e3:.2f} us", flush=True)
+
+
+def partial_slab(torch, k_bitplane, k_kv):
+    """Partial windows as a flush leaves them, stored one after another in
+    one slab (3 of 37 tokens and 1 of 17 between them: channel boundaries
+    inside bytes, members apart), each group's members in shuffled order.
+    Returns the slab's 16 plane rows and per group (starts, n, beta,
+    windows)."""
+    a, b = kv_windows(torch, 3, 37, 4), kv_windows(torch, 1, 17, 5)
+    (cm_a, beta_a), (cm_b, beta_b) = k_kv.kv_forward(a), k_kv.kv_forward(b)
+    la, lb = 37 * CHANNELS, 17 * CHANNELS
+    slab = torch.cat([cm_a[0].reshape(-1), cm_b[0].reshape(-1),
+                      cm_a[1].reshape(-1), cm_a[2].reshape(-1)])
+    order = [2, 0, 1]
+    pos_a = [0, la + lb, 2 * la + lb]
+    return k_bitplane.pack_planes_u16(slab), [
+        ([pos_a[i] for i in order], 37, beta_a[order].contiguous(),
+         a[order]),
+        ([la], 17, beta_b, b)]
 
 
 def check_elastic_matmul(torch, k_bitplane, k_mm, ops, results):
@@ -455,10 +536,12 @@ def kernel_api_path(torch, build, ops, k_mm):
             raise AssertionError(f"kernel API elastic_matmul M={M} r_m={r_m}"
                                  f": relative error {rel}")
     print(f"[api] kernels.ops at the main path's shapes; launches "
-          f"{launches}; elastic_matmul is launched by this kernel API path "
-          "only (no serving path consumes it)", flush=True)
-    if launches["elastic_matmul"] <= 0:
-        raise AssertionError("the kernel API did not launch elastic_matmul")
+          f"{launches}; elastic_matmul and kv_delta_inv are launched by "
+          "this kernel API path only (serving consumes neither: its KV "
+          "read is the fused bitplane_unpack)", flush=True)
+    for name in API_ONLY_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"the kernel API did not launch {name}")
     return launches
 
 
@@ -817,6 +900,9 @@ def pnm_path(torch, serve, build, params):
         for name in KV_PATH_KERNELS:
             if launches[name] <= 0:
                 raise AssertionError(f"{case}: kernel {name} never launched")
+        if launches["kv_delta_inv"]:
+            raise AssertionError(f"{case}: the KV read launched the "
+                                 "standalone inverse")
         if extra:
             if launches["pnm_score"] <= 0 or rep.gathered_pages <= 0:
                 raise AssertionError(f"{case}: no gather on the card")
@@ -841,8 +927,11 @@ def pnm_path(torch, serve, build, params):
     return total
 
 
-# the kernels every spill and every readback or gather goes through
-KV_PATH_KERNELS = ("kv_delta_fwd", "kv_delta_inv", "bitplane_unpack")
+# the kernels every spill and every readback or gather goes through (the
+# read: one fused bitplane_unpack launch per window group)
+KV_PATH_KERNELS = ("kv_delta_fwd", "bitplane_unpack")
+# the kernels only the kernel API reaches
+API_ONLY_KERNELS = ("elastic_matmul", "kv_delta_inv")
 
 
 def np_equal(x, y) -> bool:
@@ -908,7 +997,7 @@ def main():
     results = {}
     check_kernels(torch, k_bitplane, k_lz4, k_attn, results)
     check_pnm_score(torch, k_pnm, results)
-    check_kv_and_unpack(torch, k_bitplane, k_kv, results)
+    check_kv_and_unpack(torch, build, k_bitplane, k_kv, results)
     check_elastic_matmul(torch, k_bitplane, k_mm, ops, results)
     for r in results.values():
         lib = r["library_ms"]
@@ -920,7 +1009,8 @@ def main():
               f"{lib}; max abs err {r['max_abs_err']:.3g}", flush=True)
     phase("kernel checks")
     api_launches = kernel_api_path(torch, build, ops, k_mm)
-    results["elastic_matmul"]["launches"] = api_launches["elastic_matmul"]
+    for name in API_ONLY_KERNELS:
+        results[name]["launches"] = api_launches[name]
     phase("kernel API")
     diff = check_tier_and_model(torch)
     print(f"[check] tier encode, readback at every view and PNM gathers "
@@ -954,6 +1044,9 @@ def main():
             raise AssertionError(f"kernel {name} never launched on the "
                                  "main path")
         results[name]["launches"] = launches[name]
+    if launches["kv_delta_inv"]:
+        raise AssertionError("the main path's KV read launched the "
+                             "standalone inverse")
     print(f"[main] wall tok/s {rep.tok_s:.3f}; compression ratio "
           f"{rep.kv_compression_ratio:.4f}; spilled {rep.spilled_pages}, "
           f"read back {rep.readback_pages}; launches {launches}; KV "

@@ -1,5 +1,5 @@
-"""Design alternatives of the port's decode attention and elastic matmul,
-timed on one NVIDIA GPU beside the shipped choice.
+"""Design alternatives of the port's decode attention, elastic matmul and
+fused KV read, timed on one NVIDIA GPU beside the shipped choice.
 
 Run from the repository root on a machine with a card:
 
@@ -17,6 +17,18 @@ Run from the repository root on a machine with a card:
   substitution (``MATMUL_VARIANTS``): the tensor-core kernel at M = 1
   too, and the guard round as a runtime branch; in the order shipped,
   each variant twice, shipped.
+- Fused KV read (unpack -> exponent-delta inverse -> round) of a decode
+  slab's 8 windows x 64 tokens x 128 channels at FULL, MAN4 and SCORE
+  (16, 14, 9 planes): the shipped kernel against variants of
+  ``bitplane_unpack.cu`` (``KV_READ_VARIANTS``): other channel tiles
+  and tokens a thread (``t<channels>k<tokens>``), and the plane loop
+  rolled, as a runtime plane
+  count would leave it (each load used before the next is issued), and
+  the standalone unpack's block of 64 or 256 threads instead of 128
+  (``u<threads>``); the standalone unpack of the same rows under each;
+  and the
+  standalone inverse with the same tiles and tokens a thread
+  (``INVERSE_VARIANTS``).
 
 Every call is held to its plain version (the tolerances of
 ``chip_smoke.py``); times are device time per call from
@@ -35,10 +47,12 @@ sys.path.insert(0, str(cs.ROOT / "src"))
 
 import torch  # noqa: E402
 
+from repro_torch.core import precision  # noqa: E402
 from repro_torch.kernels import bitplane as k_bitplane  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import decode_attn as k_attn  # noqa: E402
 from repro_torch.kernels import elastic_matmul as k_mm  # noqa: E402
+from repro_torch.kernels import kv_delta as k_kv  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
 VALID_LENS = (576, 1024, 1536, 2048, 3072, 4096, 4097, 8192, 16384,
@@ -111,32 +125,69 @@ MATMUL_VARIANTS = {
 }
 
 
-def matmul_variant_libs() -> dict:
-    """Build every variant of elastic_matmul.cu, one nvcc each, together."""
-    src = (build.CSRC / "elastic_matmul.cu").read_text()
+def tile_variant(source: str, tc: int, k: int) -> tuple:
+    """Substitutions giving ``csrc/<source>.cu`` a tile of ``tc`` channels
+    and ``k`` tokens a thread in place of its shipped ones."""
+    text = (build.CSRC / f"{source}.cu").read_text()
+    subs = []
+    for const, val in (("kTileChannels", tc), ("kTokensPerThread", k)):
+        line = next(ln for ln in text.splitlines()
+                    if ln.startswith(f"constexpr int {const} = "))
+        subs.append((line, f"constexpr int {const} = {val};"))
+    return tuple(subs)
+
+
+# Variants of bitplane_unpack.cu: the fused KV read's channel tile and
+# tokens a thread, and the plane loop rolled (one load in flight at a
+# time); of kv_delta.cu: the standalone inverse's tile and tokens.
+KV_READ_VARIANTS = {
+    f"t{tc}k{k}": tile_variant("bitplane_unpack", tc, k)
+    for tc, k in ((4, 1), (4, 2), (4, 4), (8, 1), (8, 4), (16, 2), (16, 4),
+                  (32, 4), (32, 8))
+}
+KV_READ_VARIANTS.update({
+    f"u{nt}": (("constexpr int kUnpackThreads = 128;",
+                f"constexpr int kUnpackThreads = {nt};"),)
+    for nt in (64, 256)
+})
+INVERSE_VARIANTS = {
+    f"t{tc}k{k}": tile_variant("kv_delta", tc, k)
+    for tc, k in ((4, 1), (4, 2), (8, 2), (16, 1), (16, 4), (32, 8))
+}
+KV_READ_VARIANTS["rolled"] = (
+    ("#pragma unroll  // every plane's load in flight at once",
+     "#pragma unroll 1"),)
+
+
+def variant_libs(source: str, variants: dict) -> dict:
+    """Build every variant of ``csrc/<source>.cu``, one nvcc each,
+    together: {variant: library, its C launchers' signatures set}."""
+    src = (build.CSRC / f"{source}.cu").read_text()
     out = build.BUILD_DIR / "variants"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, subs in MATMUL_VARIANTS.items():
+    for name, subs in variants.items():
         text = src
         for old, new in subs:
             if text.count(old) != 1:
-                raise AssertionError(f"elastic_matmul.cu: {old!r} moved")
+                raise AssertionError(f"{source}.cu: {old!r} moved")
             text = text.replace(old, new)
-        cu = out / f"elastic_matmul_{name}.cu"
+        cu = out / f"{source}_{name}.cu"
         cu.write_text(text)
-        so = out / f"libelastic_matmul_{name}.so"
+        so = out / f"lib{source}_{name}.so"
         procs[name] = (so, subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o",
              str(so), str(cu)]))
     libs = {}
     for name, (so, proc) in procs.items():
         if proc.wait() != 0:
-            raise RuntimeError(f"nvcc failed for the {name} variant")
-        fn = ctypes.CDLL(str(so)).elastic_matmul
-        fn.argtypes = list(build.SIGNATURES["elastic_matmul"]["elastic_matmul"])
-        fn.restype = ctypes.c_int
-        libs[name] = fn
+            raise RuntimeError(f"nvcc failed for the {source} {name} variant")
+        lib = ctypes.CDLL(str(so))
+        for fn_name, argtypes in build.SIGNATURES[source].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        libs[name] = lib
     return libs
 
 
@@ -158,8 +209,8 @@ def matmul_m1(variants: dict) -> None:
         want = k_mm.elastic_matmul_plain(x, fetched, ids, (keep, cut, rnd))
         times = []
         order = [("shipped", shipped)]
-        for name, fn in variants.items():
-            order += [(name, fn), (name, fn)]
+        for name, lib in variants.items():
+            order += [(name, lib.elastic_matmul), (name, lib.elastic_matmul)]
         for name, fn in order + [("shipped", shipped)]:
             out = torch.empty((1, N), dtype=torch.float32, device="cuda")
 
@@ -181,14 +232,102 @@ def matmul_m1(variants: dict) -> None:
               f"({len(ids)} planes), us: " + ", ".join(times), flush=True)
 
 
+def kv_read(variants: dict) -> None:
+    """The fused KV read and the standalone unpack of the same rows at a
+    decode slab's shape, shipped and variants, each call held bit-equal
+    to the plain version."""
+    nwin, n, C = 8, cs.WINDOW, cs.CHANNELS
+    x = cs.kv_windows(torch, nwin, n, 12)
+    cm, beta = k_kv.kv_forward(x)
+    planes = k_bitplane.pack_planes_u16(cm.reshape(-1))
+    nbytes = planes.shape[1]
+    starts = torch.arange(nwin, dtype=torch.int64) * n * C
+    libs = dict(shipped=build.load("bitplane_unpack"), **variants)
+    for view in (precision.FULL, precision.MAN4, precision.SCORE):
+        ids = view.fetched_planes()
+        rows = planes[list(ids)].contiguous()
+        code = k_bitplane.plane_code(ids)
+        keep, cut, rnd = k_bitplane.view_round_params(view)
+        want = k_bitplane.unpack_kv_windows_plain(
+            rows, ids, starts.tolist(), n, C, beta, view)
+        flat_want = k_bitplane.unpack_planes_plain(rows, ids)
+        times, unpack_times = [], []
+        order = ["shipped"] + [v for v in variants for _ in (0, 1)] \
+            + ["shipped"]
+        for name in order:
+            lib = libs[name]
+            out = torch.empty((nwin, n, C), dtype=torch.int16, device="cuda")
+            flat = torch.empty(8 * nbytes, dtype=torch.int16, device="cuda")
+            stream = torch.cuda.current_stream().cuda_stream
+
+            def fused(lib=lib, out=out):
+                build.check(lib.unpack_kv_windows(
+                    rows.data_ptr(), nbytes, len(ids), code,
+                    starts.data_ptr(), beta.data_ptr(), out.data_ptr(), nwin,
+                    n, C, keep, cut, int(rnd), 0, stream), "bitplane_unpack")
+
+            def alone(lib=lib, flat=flat):
+                build.check(lib.unpack_planes_u16(
+                    rows.data_ptr(), flat.data_ptr(), nbytes, len(ids), code,
+                    0xFFFF, 1, 0, 0, stream), "bitplane_unpack")
+
+            fused()
+            alone()
+            torch.cuda.synchronize()
+            if not (torch.equal(out, want) and torch.equal(flat, flat_want)):
+                raise AssertionError(f"kv read {name} ({view.name}) differs "
+                                     "from its plain version")
+            times.append(f"{name} {cs.timed(torch, fused)['ms'] * 1e3:.2f}")
+            unpack_times.append(
+                f"{name} {cs.timed(torch, alone)['ms'] * 1e3:.2f}")
+        print(f"[variant] kv read fused {nwin} x {n} x {C} {view.name} "
+              f"({len(ids)} planes), us: " + ", ".join(times) + "; the "
+              "standalone unpack, us: " + ", ".join(unpack_times),
+              flush=True)
+
+
+def inverse(variants: dict) -> None:
+    """The standalone inverse + MAN4 round of a decode slab's 8 windows,
+    shipped and with other channel tiles, held to the plain version."""
+    nwin, n, C = 8, cs.WINDOW, cs.CHANNELS
+    cm, beta = k_kv.kv_forward(cs.kv_windows(torch, nwin, n, 13))
+    keep, cut, rnd = k_bitplane.view_round_params(precision.MAN4)
+    want = k_kv.kv_inverse_plain(cm, beta, precision.MAN4)
+    libs = dict(shipped=build.load("kv_delta"), **variants)
+    times = []
+    for name in ["shipped"] + [v for v in variants for _ in (0, 1)] \
+            + ["shipped"]:
+        lib = libs[name]
+        out = torch.empty((nwin, n, C), dtype=torch.int16, device="cuda")
+
+        def call(lib=lib, out=out):
+            build.check(lib.kv_delta_inv(
+                cm.data_ptr(), beta.data_ptr(), out.data_ptr(), nwin, n, C,
+                keep, cut, int(rnd), 0,
+                torch.cuda.current_stream().cuda_stream), "kv_delta_inv")
+
+        call()
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            raise AssertionError(f"kv_delta_inv {name} differs")
+        times.append(f"{name} {cs.timed(torch, call)['ms'] * 1e3:.2f}")
+    print(f"[variant] kv_delta_inv {nwin} x {n} x {C} man4, us: "
+          + ", ".join(times), flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         cs.fail("no CUDA device")
     print(cs.card_line(), flush=True)
-    build.build_all(("decode_attn", "elastic_matmul"))
-    variants = matmul_variant_libs()
+    build.build_all(("decode_attn", "elastic_matmul", "bitplane_unpack",
+                     "kv_delta", "bitplane_pack"))
+    matmul = variant_libs("elastic_matmul", MATMUL_VARIANTS)
+    kv = variant_libs("bitplane_unpack", KV_READ_VARIANTS)
+    inv = variant_libs("kv_delta", INVERSE_VARIANTS)
     attention_sweep()
-    matmul_m1(variants)
+    matmul_m1(matmul)
+    kv_read(kv)
+    inverse(inv)
 
 
 if __name__ == "__main__":

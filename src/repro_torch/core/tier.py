@@ -716,56 +716,42 @@ class BitplaneLayout(Layout):
     @staticmethod
     def _decode_planes(blocks, nbytes, rows, view, device):
         """One decode slab's fetched plane rows → per-block words, the bit
-        work on ``device``.  KV windows unpack with every fetched bit kept,
-        then go through the exponent-delta inverse, which rounds to
-        ``view`` after it (a round's carry may move into the exponent,
-        meaningful only in the real-exponent domain); other blocks unpack
-        and round in one launch.  The words come back in one copy."""
+        work on ``device``.  Each ``(n, C)`` group of KV windows is one
+        fused launch, unpack → exponent-delta inverse → round to ``view``
+        (the round after the inverse: its carry may move into the
+        exponent, meaningful only in the real-exponent domain), reading
+        every member where it lies in the rows; other blocks unpack and
+        round in one launch.  The words come back in one copy."""
         plane_set = view.fetched_planes()
         offs = np.cumsum([0] + nbytes)
         rows_dev = torch.from_numpy(rows).to(device)
-
-        def columns(idxs):
-            """The byte columns of blocks ``idxs`` and each one's first
-            element in their unpacked words."""
-            starts = np.cumsum([0] + [nbytes[i] for i in idxs[:-1]]) * 8
-            if len(idxs) == len(blocks):
-                return rows_dev, starts
-            return torch.cat([rows_dev[:, offs[i]:offs[i + 1]] for i in idxs],
-                             dim=1), starts
 
         parts: List[torch.Tensor] = []
         where: List[Tuple[int, int, Optional[tuple]]] = [None] * len(blocks)
         base = 0
         plain = [i for i, b in enumerate(blocks) if b.kv_meta is None]
         if plain:
-            cols, starts = columns(plain)
+            cols = rows_dev if len(plain) == len(blocks) else torch.cat(
+                [rows_dev[:, offs[i]:offs[i + 1]] for i in plain], dim=1)
             parts.append(kbitplane.unpack_planes(cols, plane_set, view))
-            for i, st in zip(plain, starts):
-                where[i] = (base + int(st), blocks[i].valid_elems, None)
+            for i in plain:
+                where[i] = (base, blocks[i].valid_elems, None)
+                base += nbytes[i] * 8
+        groups: Dict[tuple, List[int]] = {}
+        for i, b in enumerate(blocks):
+            if b.kv_meta is not None:
+                m = b.kv_meta
+                groups.setdefault((m.n_tokens, m.n_channels), []).append(i)
+        for (n, C), members in groups.items():
+            L = n * C
+            beta = torch.from_numpy(np.stack(
+                [blocks[i].kv_meta.beta for i in members])).to(device)
+            parts.append(kbitplane.unpack_kv_windows(
+                rows_dev, plane_set, [int(offs[i]) * 8 for i in members], n,
+                C, beta, view))
+            for j, i in enumerate(members):
+                where[i] = (base + j * L, L, (n, C))
             base += parts[-1].numel()
-        kv = [i for i, b in enumerate(blocks) if b.kv_meta is not None]
-        if kv:
-            cols, starts = columns(kv)
-            raw = kbitplane.unpack_planes(cols, plane_set)
-            groups: Dict[tuple, List[Tuple[int, int]]] = {}
-            for i, st in zip(kv, starts):
-                m = blocks[i].kv_meta
-                groups.setdefault((m.n_tokens, m.n_channels), []).append(
-                    (i, int(st)))
-            for (n, C), members in groups.items():
-                L, first = n * C, members[0][1]
-                if all(st == first + j * L for j, (_, st) in enumerate(members)):
-                    cm = raw[first : first + len(members) * L]
-                else:
-                    cm = torch.cat([raw[st : st + L] for _, st in members])
-                beta = torch.from_numpy(np.stack(
-                    [blocks[i].kv_meta.beta for i, _ in members])).to(device)
-                parts.append(kkv.kv_inverse(cm.view(len(members), C, n), beta,
-                                            view))
-                for j, (i, _) in enumerate(members):
-                    where[i] = (base + j * L, L, (n, C))
-                base += parts[-1].numel()
         flat = (parts[0].reshape(-1) if len(parts) == 1
                 else torch.cat([p.reshape(-1) for p in parts]))
         flat = flat.cpu().numpy().view(np.uint16)

@@ -15,22 +15,30 @@
 // Inverse: cm (B, C, n) + beta -> out (B, n, C) token-major, exact for
 // any beta, then rounded to a precision view (view_round.cuh).  The round
 // runs after the inverse because its carry may move into the exponent,
-// and Inf/NaN are recognisable only in the real-exponent domain.
+// and Inf/NaN are recognisable only in the real-exponent domain.  The
+// tier's KV read path does not come here: it unpacks, inverts and rounds
+// in one launch (bitplane_unpack.cu); this is the kernel API's inverse
+// (ops.kv_transform_inv), and both share the inverse + transpose + round
+// stage of kv_read.cuh.
 //
 // Bound on this card: memory.  2 bytes read and 2 written per element
 // (plus one beta byte per channel) and a few integer operations each.
 //
-// Design: one block per (window, 32-channel tile); the forward walks all
-// n tokens of its tile (the histogram needs every token of a channel),
-// the inverse one 32 x 32 tile per block.  A 32 x 33 tile in shared
-// memory turns the transpose into coalesced reads along one axis and
-// coalesced writes along the other.  Histogram bins are padded to 257
-// per channel, so the 32 channels of a warp, which usually share the
-// modal exponent, fall into 32 different banks.
+// Design: the forward takes one block per (window, 32-channel tile) and
+// walks all n tokens of its tile (the histogram needs every token of a
+// channel); a 32 x 33 tile in shared memory turns its transpose into
+// coalesced reads along one axis and coalesced writes along the other.
+// Histogram bins are padded to 257 per channel, so the 32 channels of a
+// warp, which usually share the modal exponent, fall into 32 different
+// banks.  The inverse takes one block per (window, kTileChannels
+// channels, kTileTokens tokens): thread (ci, g) reads kTokensPerThread
+// tokens of one channel (one vector load when n is a multiple of it),
+// and kv_read.cuh's stage inverts, rounds and writes the tile
+// token-major.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "view_round.cuh"
+#include "kv_read.cuh"
 
 namespace {
 
@@ -38,17 +46,16 @@ constexpr int kTile = 32;
 constexpr int kRows = 8;                 // thread rows of a 32 x 8 block
 constexpr int kThreads = kTile * kRows;
 constexpr int kBins = 257;               // 256 exponents + 1 bank pad
+// The inverse's tile and a thread's tokens, from chip_variants.py's sweep
+// (PERF.md §6): one word a thread keeps its dependent chain short.
+constexpr int kTileChannels = 8;
+constexpr int kTokensPerThread = 1;
+constexpr int kInvThreads = kTileChannels * (kTileTokens / kTokensPerThread);
 
 __device__ __forceinline__ uint32_t zigzag(uint32_t v, uint32_t beta) {
   const uint32_t d = (((v >> 7) & 0xFFu) - beta) & 0xFFu;   // mod 256
   const uint32_t z = d < 128u ? 2u * d : 511u - 2u * d;      // s<0: -2s-1
   return (v & 0x807Fu) | (z << 7);
-}
-
-__device__ __forceinline__ uint32_t unzigzag(uint32_t v, uint32_t beta) {
-  const uint32_t z = (v >> 7) & 0xFFu;
-  const uint32_t s = (z & 1u) ? 0u - ((z + 1u) >> 1) : z >> 1;
-  return (v & 0x807Fu) | (((s + beta) & 0xFFu) << 7);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -113,28 +120,59 @@ kv_fwd_kernel(const uint16_t* __restrict__ x, uint16_t* __restrict__ out,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// K consecutive words from one aligned load (K halfwords, K <= 8).
+template <int K>
+__device__ __forceinline__ void load_words(const uint16_t* src,
+                                           uint32_t (&e)[K]) {
+  static_assert(K == 1 || K == 2 || K == 4 || K == 8, "1, 2, 4 or 8 words");
+  if constexpr (K == 1) {
+    e[0] = src[0];
+  } else {
+    uint32_t h[K / 2];
+    if constexpr (K == 8) {
+      const uint4 q = *reinterpret_cast<const uint4*>(src);
+      h[0] = q.x, h[1] = q.y, h[2] = q.z, h[3] = q.w;
+    } else if constexpr (K == 4) {
+      const uint2 q = *reinterpret_cast<const uint2*>(src);
+      h[0] = q.x, h[1] = q.y;
+    } else {
+      h[0] = *reinterpret_cast<const uint32_t*>(src);
+    }
+#pragma unroll
+    for (int k = 0; k < K / 2; ++k) {    // little-endian: word 2k is low
+      e[2 * k] = h[k] & 0xFFFFu;
+      e[2 * k + 1] = h[k] >> 16;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kInvThreads)
 kv_inv_kernel(const uint16_t* __restrict__ cm, const uint8_t* __restrict__ beta,
               uint16_t* __restrict__ out, int n, int C, uint32_t keep, int cut,
-              bool do_round) {
-  __shared__ uint32_t tile[kTile][kTile + 1];
-  const int tx = threadIdx.x % kTile, ty = threadIdx.x / kTile;
-  const int c0 = blockIdx.x * kTile, t0 = blockIdx.y * kTile, b = blockIdx.z;
-  const uint16_t* cb = cm + (long long)b * C * n;
-  uint16_t* ob = out + (long long)b * n * C;
-  for (int r = ty; r < kTile; r += kRows) {        // read along tokens
-    const int c = c0 + r, t = t0 + tx;
-    if (c < C && t < n)
-      tile[r][tx] = unzigzag(cb[(long long)c * n + t],
-                             beta[(long long)b * C + c]);
+              bool do_round, bool vec, bool pairs) {
+  constexpr int TC = kTileChannels, K = kTokensPerThread;
+  constexpr int G = kTileTokens / K;       // token groups of a channel
+  __shared__ KvTile<TC> tile;
+  const int g = threadIdx.x % G, ci = threadIdx.x / G;
+  const int c0 = blockIdx.x * TC, t0 = blockIdx.y * kTileTokens;
+  const int b = blockIdx.z, c = c0 + ci;
+  const int tt = min(kTileTokens, n - t0), tc = min(TC, C - c0);
+  const int cnt = min(K, tt - K * g);
+  if (c < C && cnt > 0) {
+    const uint16_t* src = cm + ((long long)b * C + c) * n + t0 + K * g;
+    uint32_t e[K];
+    if (vec)                             // n % K == 0: cnt == K, aligned
+      load_words<K>(src, e);
+    else {
+#pragma unroll
+      for (int k = 0; k < K; ++k) e[k] = k < cnt ? src[k] : 0u;
+    }
+    kv_tile_put<TC, K>(tile, ci, g, e, cnt, beta[(long long)b * C + c], keep,
+                       cut, do_round);
   }
   __syncthreads();
-  for (int r = ty; r < kTile; r += kRows) {        // write along channels
-    const int t = t0 + r, c = c0 + tx;
-    if (t < n && c < C)
-      ob[(long long)t * C + c] =
-          static_cast<uint16_t>(view_round(tile[tx][r], keep, cut, do_round));
-  }
+  kv_tile_write<TC, kInvThreads>(tile, out + ((long long)b * n + t0) * C + c0,
+                                 tt, tc, C, pairs);
 }
 
 cudaError_t set_device(int device) {
@@ -167,16 +205,21 @@ extern "C" int kv_delta_fwd(const void* x, void* out, void* beta, int B, int n,
 extern "C" int kv_delta_inv(const void* cm, const void* beta, void* out, int B,
                             int n, int C, int keep, int cut, int do_round,
                             int device, void* stream) {
-  if (B < 0 || n < 0 || C < 0 || B > 65535 || (n + kTile - 1) / kTile > 65535 ||
+  if (B < 0 || n < 0 || C < 0 || B > 65535 ||
+      (n + kTileTokens - 1) / kTileTokens > 65535 ||
       (do_round && (cut < 1 || cut > 7)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = set_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B == 0 || n == 0 || C == 0) return 0;
-  const dim3 grid((C + kTile - 1) / kTile, (n + kTile - 1) / kTile, B);
-  kv_inv_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const bool vec = n % kTokensPerThread == 0 &&
+                   reinterpret_cast<uintptr_t>(cm) % (2 * kTokensPerThread) == 0;
+  const bool pairs = C % 2 == 0 && reinterpret_cast<uintptr_t>(out) % 4 == 0;
+  const dim3 grid((C + kTileChannels - 1) / kTileChannels,
+                  (n + kTileTokens - 1) / kTileTokens, B);
+  kv_inv_kernel<<<grid, kInvThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint16_t*>(cm), static_cast<const uint8_t*>(beta),
       static_cast<uint16_t*>(out), n, C, static_cast<uint32_t>(keep), cut,
-      do_round != 0);
+      do_round != 0, vec, pairs);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,6 @@
 """Bit-plane pack and unpack: the Hopper kernels
 (``csrc/bitplane_pack.cu``, ``csrc/bitplane_unpack.cu``), their plain
-PyTorch versions, the tier's slab entry point and the precision-view
+PyTorch versions, the tier's slab entry points and the precision-view
 round they share with ``kernels.kv_delta`` and ``kernels.elastic_matmul``.
 
 Replaces ``src/repro/kernels/bitplane.py::_pack_kernel`` and
@@ -9,6 +9,8 @@ on the card and takes the plain version for a tensor on the CPU.  Pack
 produces the bytes of ``core.bitplane.pack_planes``; unpack the words of
 ``core.bitplane.unpack_planes_subset``, rounded as
 ``core.precision.reconstruct_u16`` rounds them when given a view.
+:func:`unpack_kv_windows` is the tier's KV read: unpack, exponent-delta
+inverse and round of a group of windows in one launch.
 """
 
 from __future__ import annotations
@@ -174,10 +176,7 @@ def unpack_planes(rows: torch.Tensor, plane_ids: Sequence[int],
     rnd = view_round_params(view)
     if rows.device.type == "cpu":
         return unpack_planes_plain(rows, plane_ids, rnd)
-    if rows.device.type != "cuda":
-        raise ValueError(f"unsupported device {rows.device}")
-    if not rows.is_contiguous():
-        raise ValueError("unpack kernel needs contiguous rows")
+    _check_kernel_rows(rows)
     nbytes = rows.shape[1]
     out = torch.empty((8 * nbytes,), dtype=torch.int16, device=rows.device)
     rc = build.load("bitplane_unpack").unpack_planes_u16(
@@ -186,4 +185,88 @@ def unpack_planes(rows: torch.Tensor, plane_ids: Sequence[int],
         torch.cuda.current_stream(rows.device).cuda_stream)
     build.check(rc, "bitplane_unpack")
     build.LAUNCHES["bitplane_unpack"] += 1
+    return out
+
+
+def _check_kernel_rows(rows: torch.Tensor) -> None:
+    if rows.device.type != "cuda":
+        raise ValueError(f"unsupported device {rows.device}")
+    if not rows.is_contiguous():
+        raise ValueError("unpack kernels need contiguous rows")
+    if rows.shape[0] == 0:
+        raise ValueError("unpack kernels take 1 to 16 planes, got none")
+
+
+# ---------------------------------------------------------------------------
+# fused KV read: unpack → exponent-delta inverse → round, one launch per
+# group of same-shape windows (csrc/bitplane_unpack.cu + csrc/kv_read.cuh)
+# ---------------------------------------------------------------------------
+
+# Windows one fused launch takes (kMaxWindows in csrc/bitplane_unpack.cu):
+# a 64 Ki-element readback slab holds more only of windows under 256
+# elements.
+KV_READ_WINDOWS = 256
+
+def unpack_kv_windows_plain(rows: torch.Tensor, plane_ids: Sequence[int],
+                            starts: Sequence[int], n: int, C: int,
+                            beta: torch.Tensor, view=None) -> torch.Tensor:
+    """Plain version of the fused KV read: :func:`unpack_planes_plain` of
+    each window's bytes, then ``kv_delta.kv_inverse_plain``."""
+    from .kv_delta import kv_inverse_plain
+
+    B, L = len(starts), n * C
+    nb = -(-L // 8)
+    first = torch.tensor([s // 8 for s in starts], dtype=torch.int64,
+                         device=rows.device)
+    cols = (first[:, None] + torch.arange(nb, device=rows.device)).reshape(-1)
+    raw = unpack_planes_plain(rows[:, cols], plane_ids).view(B, 8 * nb)
+    return kv_inverse_plain(raw[:, :L].reshape(B, C, n), beta, view)
+
+
+def unpack_kv_windows(rows: torch.Tensor, plane_ids: Sequence[int],
+                      starts: Sequence[int], n: int, C: int,
+                      beta: torch.Tensor, view=None) -> torch.Tensor:
+    """The KV windows of one ``(n, C)`` group of a readback slab →
+    ``(B, n, C)`` int16 token-major words on the rows' device: window
+    ``b``'s channel-major stream starts at element ``starts[b]`` (a
+    multiple of 8) of the fetched ``rows``; its exponent deltas are
+    inverted with ``beta`` ``(B, C)`` uint8 and the words rounded to
+    ``view`` after the inverse.  On the card one launch, counted under
+    ``bitplane_unpack`` (one per :data:`KV_READ_WINDOWS` windows); what
+    ``kv_inverse(unpack_planes(...))`` gives.  The starts travel in the
+    launch's parameters."""
+    from .kv_delta import check_beta
+
+    if rows.dtype != torch.uint8 or rows.dim() != 2:
+        raise TypeError(f"unpack expects (P_f, nbytes) uint8 rows, got "
+                        f"{rows.dtype} {tuple(rows.shape)}")
+    if rows.shape[0] != len(plane_ids):
+        raise ValueError(f"{rows.shape[0]} rows for {len(plane_ids)} planes")
+    code = plane_code(plane_ids)
+    starts = [int(s) for s in starts]
+    B, nbytes = len(starts), rows.shape[1]
+    for s in starts:
+        if s % 8 or s < 0 or s + n * C > 8 * nbytes:
+            raise ValueError(f"window start {s} of {n} x {C} elements is "
+                             f"not a byte inside {nbytes}-byte rows")
+    check_beta(beta, B, C, rows.device)
+    if rows.device.type == "cpu":
+        return unpack_kv_windows_plain(rows, plane_ids, starts, n, C, beta,
+                                       view)
+    _check_kernel_rows(rows)
+    if not beta.is_contiguous():
+        raise ValueError("the KV read kernel needs a contiguous beta")
+    keep, cut, do_round = view_round_params(view)
+    out = torch.empty((B, n, C), dtype=torch.int16, device=rows.device)
+    lib = build.load("bitplane_unpack")
+    stream = torch.cuda.current_stream(rows.device).cuda_stream
+    for b0 in range(0, B, KV_READ_WINDOWS):
+        part = torch.tensor(starts[b0 : b0 + KV_READ_WINDOWS],
+                            dtype=torch.int64)
+        rc = lib.unpack_kv_windows(
+            rows.data_ptr(), nbytes, rows.shape[0], code, part.data_ptr(),
+            beta[b0].data_ptr(), out[b0].data_ptr(), part.numel(), n, C,
+            keep, cut, int(do_round), rows.device.index, stream)
+        build.check(rc, "bitplane_unpack")
+        build.LAUNCHES["bitplane_unpack"] += 1
     return out

@@ -27,7 +27,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("bitplane_pack", "lz4_prep", "decode_attn", "pnm_score",
            "kv_delta", "bitplane_unpack", "elastic_matmul")
 # Kernels, by the name their launches are counted under (kv_delta.cu
-# holds two).
+# holds two; bitplane_unpack.cu's standalone and fused KV read launches
+# both count as bitplane_unpack).
 KERNELS = ("bitplane_pack", "lz4_prep", "decode_attn", "pnm_score",
            "kv_delta_fwd", "kv_delta_inv", "bitplane_unpack",
            "elastic_matmul")
@@ -48,7 +49,9 @@ SIGNATURES = {
                  "kv_delta_inv": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                   _P)},
     "bitplane_unpack": {"unpack_planes_u16": (_P, _P, _L, _I, _U, _I, _I, _I,
-                                              _I, _P)},
+                                              _I, _P),
+                        "unpack_kv_windows": (_P, _L, _I, _U, _P, _P, _P, _I,
+                                              _I, _I, _I, _I, _I, _I, _P)},
     "elastic_matmul": {"elastic_matmul": (_P, _P, _L, _P, _I, _I, _I, _I, _I,
                                           _I, _I, _I, _P)},
 }

@@ -12,7 +12,9 @@ Replaces ``src/repro/kernels/kv_delta.py::_fwd_kernel`` and
 * :func:`kv_inverse` — the exact inverse for any beta, then the
   precision view's guard round on the token-major words (after the
   inverse: a round's carry may move into the exponent, and Inf/NaN are
-  recognisable only in the real-exponent domain).
+  recognisable only in the real-exponent domain).  The kernel API's
+  inverse; the tier's KV read runs the same stage fused with the unpack
+  (``kernels.bitplane.unpack_kv_windows``).
 
 Bit patterns are int16 (or uint16) tensors; bit math runs in int32.
 """
@@ -68,7 +70,7 @@ def kv_inverse_plain(cm: torch.Tensor, beta: torch.Tensor,
     return to_int16(view_round_plain(out, view_round_params(view))).contiguous()
 
 
-def _check_beta(beta: torch.Tensor, B: int, C: int, dev: torch.device):
+def check_beta(beta: torch.Tensor, B: int, C: int, dev: torch.device):
     if beta.shape != (B, C) or beta.dtype != torch.uint8:
         raise ValueError(f"beta must be ({B}, {C}) uint8, got "
                          f"{beta.dtype} {tuple(beta.shape)}")
@@ -86,7 +88,7 @@ def kv_forward(windows: torch.Tensor, beta: Optional[torch.Tensor] = None
                         f"{windows.dtype} {tuple(windows.shape)}")
     B, n, C = windows.shape
     if beta is not None:
-        _check_beta(beta, B, C, windows.device)
+        check_beta(beta, B, C, windows.device)
     if windows.device.type == "cpu":
         return kv_forward_plain(windows, beta)
     if windows.device.type != "cuda":
@@ -115,7 +117,7 @@ def kv_inverse(cm: torch.Tensor, beta: torch.Tensor,
         raise TypeError(f"kv_inverse expects (B, C, n) int16/uint16, got "
                         f"{cm.dtype} {tuple(cm.shape)}")
     B, C, n = cm.shape
-    _check_beta(beta, B, C, cm.device)
+    check_beta(beta, B, C, cm.device)
     if cm.device.type == "cpu":
         return kv_inverse_plain(cm, beta, view)
     if cm.device.type != "cuda":

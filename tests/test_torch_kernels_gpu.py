@@ -287,7 +287,8 @@ def test_tier_on_card_identical_to_cpu(card):
 def test_engine_on_card_runs_every_kernel(card):
     """Classic readback and the PNM path (attention importance, 2 shards)
     on the card: together they launch every serving kernel (all but the
-    elastic matmul, which only the kernel API reaches)."""
+    elastic matmul and the standalone KV inverse, which only the kernel
+    API reaches)."""
     cfg = smoke_config(ARCHS["qwen2-0.5b"])
     params = init_params(cfg, seed=0, device=card)
     build.reset_launches()
@@ -302,8 +303,13 @@ def test_engine_on_card_runs_every_kernel(card):
         assert toks.shape == (1, 12) and toks.max() < cfg.vocab
         assert eng.stats().spilled_pages > 0
     assert eng.pool.pages_gathered > 0
+    # the KV read is one fused launch per window group (bitplane_unpack);
+    # the standalone inverse, like the elastic matmul, is the kernel API's
+    assert build.LAUNCHES["bitplane_unpack"] > 0, build.LAUNCHES
+    assert build.LAUNCHES["kv_delta_inv"] == 0, build.LAUNCHES
     assert all(build.LAUNCHES[name] > 0 for name in build.KERNELS
-               if name != "elastic_matmul"), build.LAUNCHES
+               if name not in ("elastic_matmul", "kv_delta_inv")), \
+        build.LAUNCHES
 
 
 def _patterns(shape, seed):
@@ -339,6 +345,138 @@ def test_unpack_kernel_matches_plain(card, view, nbytes):
         assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("P", range(1, 17))
+def test_unpack_kernel_every_plane_count(card, P):
+    rng = np.random.default_rng(P)
+    ids = [int(i) for i in rng.permutation(16)[:P]]
+    rows = torch.from_numpy(rng.integers(0, 256, (P, 8192),
+                                         dtype=np.uint8)).to(card)
+    for v in (None, precision.MAN4):
+        got = bitplane.unpack_planes(rows, ids, v)
+        want = bitplane.unpack_planes_plain(rows, ids,
+                                            bitplane.view_round_params(v))
+        assert torch.equal(got, want)
+
+
+# the tier's window groups: a decode slab's 8 full windows, partial
+# flushes (channel boundaries inside bytes) and an odd channel count
+KV_SHAPES = [(8, 64, 128), (1, 17, 128), (2, 33, 40), (3, 37, 40), (2, 7, 5),
+             (2, 100, 24)]
+
+
+def _kv_slab(card, B, n, C, P, seed, ids=None):
+    """Transformed windows with every special, packed into one slab of
+    plane rows with random bytes around each (members apart), members in
+    shuffled order: (windows, fetched rows, plane ids, starts, beta)."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(_patterns((B, n, C), seed).view(np.int16))
+    cm, beta = kv_delta.kv_forward_plain(x)
+    L = n * C
+    segs, starts, pos = [], [], 0
+    for b in range(B):
+        gap = 8 * int(rng.integers(1, 5))
+        pad = -L % 8
+        segs += [rng.integers(0, 1 << 16, gap), cm[b].reshape(-1).numpy()
+                 .view(np.uint16), rng.integers(0, 1 << 16, pad)]
+        starts.append(pos + gap)
+        pos += gap + L + pad
+    segs.append(rng.integers(0, 1 << 16, 16))
+    flat = np.concatenate([np.asarray(s, dtype=np.uint16) for s in segs])
+    planes = bitplane.pack_planes_plain(torch.from_numpy(flat.view(np.int16)))
+    if ids is None:
+        ids = [int(i) for i in rng.permutation(16)[:P]]
+    order = [int(i) for i in rng.permutation(B)]
+    return (x[order].to(card), planes[ids].contiguous().to(card), ids,
+            [starts[i] for i in order], beta[order].contiguous().to(card))
+
+
+@pytest.mark.parametrize("view", [None] + VIEWS,
+                         ids=lambda v: "exact" if v is None else v.name)
+@pytest.mark.parametrize("B,n,C", KV_SHAPES)
+def test_kv_read_kernel_matches_plain(card, view, B, n, C):
+    """The fused read at every view, over the view's own planes of
+    windows stored as the tier stores them: bit-equal to the plain
+    version, one launch, and lossless at the full view."""
+    ids = list((view or precision.FULL).fetched_planes())
+    x, rows, ids, starts, beta = _kv_slab(card, B, n, C, len(ids), n * C,
+                                          ids)
+    before = dict(build.LAUNCHES)
+    got = bitplane.unpack_kv_windows(rows, ids, starts, n, C, beta, view)
+    assert build.LAUNCHES["bitplane_unpack"] == \
+        before["bitplane_unpack"] + 1
+    assert build.LAUNCHES["kv_delta_inv"] == before["kv_delta_inv"]
+    want = bitplane.unpack_kv_windows_plain(rows, ids, starts, n, C, beta,
+                                            view)
+    assert torch.equal(got, want)
+    if view is None or view.is_full:
+        assert torch.equal(got, x)
+
+
+@pytest.mark.parametrize("P", range(1, 17))
+@pytest.mark.parametrize("B,n,C", KV_SHAPES)
+def test_kv_read_kernel_every_plane_count(card, P, B, n, C):
+    """Any P of the 16 planes, in any row order, members apart: the
+    kernel's P template instance against the plain version, unrounded and
+    with a round."""
+    _, rows, ids, starts, beta = _kv_slab(card, B, n, C, P, 31 * P + n)
+    for view in (None, precision.MAN4, precision.SCORE):
+        got = bitplane.unpack_kv_windows(rows, ids, starts, n, C, beta, view)
+        want = bitplane.unpack_kv_windows_plain(rows, ids, starts, n, C,
+                                                beta, view)
+        assert torch.equal(got, want), view
+
+
+def test_kv_read_kernel_more_windows_than_a_launch_takes(card):
+    """A group of more windows than one launch's parameters hold goes in
+    launches of KV_READ_WINDOWS, each counted."""
+    B = bitplane.KV_READ_WINDOWS + 44
+    _, rows, ids, starts, beta = _kv_slab(card, B, 1, 8, 14, 9)
+    before = build.LAUNCHES["bitplane_unpack"]
+    got = bitplane.unpack_kv_windows(rows, ids, starts, 1, 8, beta,
+                                     precision.MAN2)
+    assert build.LAUNCHES["bitplane_unpack"] == before + 2
+    assert torch.equal(got, bitplane.unpack_kv_windows_plain(
+        rows, ids, starts, 1, 8, beta, precision.MAN2))
+
+
+def test_kv_read_kernel_deterministic(card):
+    _, rows, ids, starts, beta = _kv_slab(card, 8, 64, 128, 14, 7)
+    a = bitplane.unpack_kv_windows(rows, ids, starts, 64, 128, beta,
+                                   precision.MAN4)
+    b = bitplane.unpack_kv_windows(rows, ids, starts, 64, 128, beta,
+                                   precision.MAN4)
+    assert torch.equal(a, b)
+
+
+def test_non_kv_tier_read_launches_the_standalone_unpack(card, monkeypatch):
+    """A ``bitplane`` tier (no KV transform) reads through the standalone
+    unpack + round, never the fused KV read, and returns the CPU tier's
+    words at every view."""
+    fused = []
+    monkeypatch.setattr(bitplane, "unpack_kv_windows",
+                        lambda *a, **kw: fused.append(a))
+    w = _patterns((96, 128), 12).ravel()
+    views = [v for v in VIEWS if v.name[:3] != "cut"]
+    data = {}
+    for dev in (card, "cpu"):
+        t = tier.TierStore("bitplane", device=dev)
+        t.submit([tier.WriteReq("w", w),
+                  tier.WriteReq("kv", w[:64 * 128].reshape(64, 128),
+                                kind=tier.KV)])
+        before = dict(build.LAUNCHES)
+        recs = t.submit([tier.ReadReq(k, kind=kind, view=v)
+                         for k, kind in (("w", tier.TENSOR), ("kv", tier.KV))
+                         for v in views])
+        data[str(dev)] = [r.data for r in recs]
+        if dev == card:
+            assert build.LAUNCHES["bitplane_unpack"] > \
+                before["bitplane_unpack"]
+            assert build.LAUNCHES["kv_delta_inv"] == before["kv_delta_inv"]
+    assert not fused
+    for a, b in zip(data[str(card)], data["cpu"], strict=True):
+        np.testing.assert_array_equal(a, b)
+
+
 @pytest.mark.parametrize("B,n,C", [(128, 64, 128), (1, 17, 128), (3, 37, 40),
                                    (2, 256, 256), (1, 1, 1)])
 def test_kv_forward_kernel_matches_plain(card, B, n, C):
@@ -360,7 +498,7 @@ def test_kv_forward_kernel_matches_plain(card, B, n, C):
 
 @pytest.mark.parametrize("view", [None] + VIEWS,
                          ids=lambda v: "exact" if v is None else v.name)
-@pytest.mark.parametrize("B,n,C", [(8, 64, 128), (1, 17, 128), (2, 33, 40)])
+@pytest.mark.parametrize("B,n,C", KV_SHAPES)
 def test_kv_inverse_kernel_matches_plain(card, view, B, n, C):
     cm = torch.from_numpy(_patterns((B, C, n), B + n).view(np.int16)).to(card)
     beta = torch.from_numpy(np.random.default_rng(n).integers(

@@ -219,9 +219,10 @@ def test_kv_views_truncation_and_partial_flush_identical_to_reference():
 
 def test_bitplane_kv_tier_runs_kv_delta_and_unpack_on_its_device(
         monkeypatch):
-    """Writes go through the exponent-delta forward, reads through unpack
-    (unrounded for KV windows, rounded for other blocks) and the
-    inverse with the view's round, all on tensors of the tier's device."""
+    """Writes go through the exponent-delta forward; reads unpack and
+    round other blocks in one call and each group of KV windows in one
+    fused unpack → inverse → round call over the slab's rows (no
+    standalone inverse), all on tensors of the tier's device."""
     from repro_torch.kernels import bitplane as kbit
     from repro_torch.kernels import kv_delta as kkv
 
@@ -238,6 +239,8 @@ def test_bitplane_kv_tier_runs_kv_delta_and_unpack_on_its_device(
     monkeypatch.setattr(kkv, "kv_inverse", spy("inv", kkv.kv_inverse))
     monkeypatch.setattr(kbit, "unpack_planes", spy("unpack",
                                                     kbit.unpack_planes))
+    monkeypatch.setattr(kbit, "unpack_kv_windows",
+                        spy("kv_read", kbit.unpack_kv_windows))
     dev = ttier.TierStore("bitplane-kv", kv_window=64, device="cpu")
     kv = synth.kv_cache(128, 128, seed=9)
     dev.submit([ttier.WriteReq("a", kv, kind=ttier.KV),
@@ -247,8 +250,7 @@ def test_bitplane_kv_tier_runs_kv_delta_and_unpack_on_its_device(
     recs = dev.submit([ttier.ReadReq("a", kind=ttier.KV, view=tprec.MAN4),
                        ttier.ReadReq("w", view=tprec.MAN4)])
     assert calls == [("unpack", "cpu", (14, 256), "man4"),
-                     ("unpack", "cpu", (14, 2048), None),
-                     ("inv", "cpu", (2, 128, 64), "man4")]
+                     ("kv_read", "cpu", (14, 2304), "man4")]
     np.testing.assert_array_equal(
         recs[0].data, tprec.truncate_reference(kv.ravel(), tprec.MAN4)
         .reshape(kv.shape))
