@@ -19,12 +19,17 @@ Phases (any failure exits non-zero and prints no result line):
    the fused read also on partial windows whose members lie apart),
    decode attention (at split boundaries, bit-equal across two calls)
    and the elastic matmul (at every view, P = 9..16 planes) within f32
-   tolerance — and time kernel, plain version and the one PyTorch call
-   computing the same function where there is one (SDPA under each
-   backend that takes the shape, the fastest reported; torch.matmul at
-   M = 1 and 16), decode attention at 4096 and 32768 cached positions
-   the elastic matmul at each view beside its byte bound, and the fused
-   KV read beside the two-launch chain it replaces;
+   tolerance; the LZ4 match kernel event for event against the plain
+   pipeline on the card and the numpy twin (a flush slab built as the
+   tier builds it, with the pre-screen's gaps; a gapped slab; a periodic
+   stream; streams past 65536 bytes at the 0xFFFF window) — and time
+   kernel, plain version and the one PyTorch call computing the same
+   function where there is one (SDPA under each backend that takes the
+   shape, the fastest reported; torch.matmul at M = 1 and 16), decode
+   attention at 4096 and 32768 cached positions, the elastic matmul at
+   each view beside its byte bound, the fused KV read beside the
+   two-launch chain it replaces, and the match launch beside the wrapper
+   (prep + match + one copy back) and the plain pipeline it replaces;
 3. drive the kernel API (``repro_torch.kernels.ops``), the only path
    that reaches the elastic matmul and the standalone KV inverse, with
    the launch counts set to 0 just before and read just after;
@@ -37,7 +42,8 @@ Phases (any failure exits non-zero and prints no result line):
    qwen2-0.5b with random weights, KV spilling to a ``trace`` tier, with
    the kernel launch counts set to 0 just before and read just after
    (the KV read goes through the fused kernel alone: the standalone
-   inverse must not launch);
+   inverse must not launch; every flush launches the prep and the match
+   kernel once each);
 6. the PNM path at full width, one request per case, launch counts read
    per case: (a) classic readback, (b) a gather covering every candidate
    (tokens identical to a), (c) top-16 gathers with attention importance
@@ -139,12 +145,12 @@ def _self_device_us(evt) -> float:
     return 0.0
 
 
-def timed(torch, fn) -> dict:
+def timed(torch, fn, iters: int = 50) -> dict:
     """``ms``: device time per call (profiler; CUDA events when the
     profiler sees no device work); ``call_ms``: CUDA-event time per call
     of back-to-back calls, which includes the host's launch cadence."""
-    call = time_ms(torch, fn)
-    dev = device_ms(torch, fn)
+    call = time_ms(torch, fn, iters, min(5, iters))
+    dev = device_ms(torch, fn, min(20, iters))
     return {"ms": call if dev is None else dev, "call_ms": call,
             "ms_from": "events" if dev is None else "profiler"}
 
@@ -661,6 +667,129 @@ def check_kernels(torch, k_bitplane, k_lz4, k_attn, results):
           "cache: " + "; ".join(lines), flush=True)
 
 
+def flush_slab(torch, k_bitplane, k_kv, seed: int):
+    """One flush's encode slab as the tier builds it on the card: KV
+    windows through the exponent-delta forward and the pack, 16 planes x
+    16 windows = 256 streams of 1024 bytes.  Returns the slab and the
+    streams' bounds the pre-screen leaves to the match (the others are
+    gaps)."""
+    import numpy as np
+
+    from repro_torch.core import codec
+
+    x = kv_windows(torch, SLAB_ELEMS // (WINDOW * CHANNELS), WINDOW, seed)
+    cm, _ = k_kv.kv_forward(x)
+    planes = k_bitplane.pack_planes_u16(cm.reshape(-1))
+    slab = planes.reshape(-1).view(torch.uint8)
+    nb = WINDOW * CHANNELS // 8
+    starts = (np.arange(16)[:, None] * planes.shape[1]
+              + np.arange(x.shape[0])[None, :] * nb).ravel()
+    ends = starts + nb
+    keep = ~codec._prescreen_slab(slab.cpu().numpy(), starts, ends)
+    return slab, starts[keep], ends[keep]
+
+
+def far_pair(np, token, dist: int):
+    """``token``, zeros, ``token`` again ``dist`` bytes on, zeros."""
+    out = np.zeros(dist + token.size + 64, np.uint8)
+    out[: token.size] = token
+    out[dist : dist + token.size] = token
+    return out
+
+
+def match_bytes(np, starts, ends, n_events: int) -> int:
+    """Bytes the match kernel must move: of each stream longer than
+    MFLIMIT + 1 bytes the int32 word and hash of its L - 3 positions, the
+    four int64 meta entries and the int32 count of every stream, and 12 B
+    (pos, dist, mlen) an event."""
+    L = np.asarray(ends) - np.asarray(starts)
+    return int(8 * (L - 3)[L > 13].sum() + 36 * L.size + 12 * n_events)
+
+
+def check_lz4_match(torch, k_bitplane, k_kv, k_lz4, results):
+    """The LZ4 match kernel against the plain pipeline on the card and the
+    numpy twin, event for event: the main path's flush slab (gaps where the
+    pre-screen bypasses), a gapped slab of mixed streams, a periodic
+    stream, and streams longer than 65536 bytes that reach the 0xFFFF
+    window (the global-scratch path); timed at the flush slab."""
+    import numpy as np
+
+    rng = np.random.default_rng(4)
+    slab, st, en = flush_slab(torch, k_bitplane, k_kv, 3)
+    parts = [np.where(rng.random(4096) < p, rng.integers(0, 256, 4096), 0)
+             .astype(np.uint8) for p in (0.0, 0.01, 0.3, 1.0)]
+    mixed = np.concatenate([np.concatenate([rng.integers(0, 256, 100)
+                                            .astype(np.uint8), q])
+                            for q in parts])
+    m_st = 100 + np.arange(4) * 4196
+    token = rng.integers(1, 256, 40).astype(np.uint8)
+    far = np.concatenate([far_pair(np, token, 65535),
+                          far_pair(np, token, 65636)])
+    cases = {
+        "flush slab (256 x 1024 B, pre-screened)": (slab, st, en),
+        "gapped mixed streams": (torch.from_numpy(mixed).cuda(), m_st,
+                                 m_st + 4096),
+        "periodic 3900 B": (torch.from_numpy(np.tile(
+            rng.integers(0, 256, 13).astype(np.uint8), 300)).cuda(),
+            np.array([0]), np.array([3900])),
+        "two streams of 65.6 KB, repeats 65535 and 65636 B back": (
+            torch.from_numpy(far).cuda(), np.array([0, far.size // 2]),
+            np.array([far.size // 2, far.size])),
+    }
+    lines = []
+    for what, (buf, s, e) in cases.items():
+        got = k_lz4.lz4_match(buf, s, e)
+        plain = k_lz4.match_plain(buf, s, e)
+        twin = k_lz4.match_events_slab(buf.cpu().numpy(), s, e,
+                                       force="numpy")
+        for g, p, t in zip(got, plain, twin):
+            if not (np.array_equal(g, p) and np.array_equal(g, t)):
+                raise AssertionError(f"lz4_match differs on {what}")
+        lines.append(f"{what}: {got[0].size} events")
+    if not (65535 in got[1] and (got[1] <= 0xFFFF).all()):
+        raise AssertionError("the 0xFFFF window case selected the wrong "
+                             f"distances: {sorted(set(got[1].tolist()))}")
+
+    # the match launch alone, as the wrapper makes it, at the flush slab
+    pos, _, _ = k_lz4.match_events_slab(slab.cpu().numpy(), st, en,
+                                        force="numpy")
+    match, out, rows = k_lz4.match_launch(slab, st, en)
+    match()
+    if not np.array_equal(k_lz4.match_result(out, rows)[0], pos):
+        raise AssertionError("the match launch alone differs from the twin")
+    S, covered = st.size, int((en - st).sum())
+    b, by = bound_ms(match_bytes(np, st, en, pos.size), 0)
+    plain = timed(torch, lambda: k_lz4.match_plain(slab, st, en), iters=3)
+    wrapper = timed(torch, lambda: k_lz4.lz4_match(slab, st, en), iters=20)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        k_lz4.match_plain(slab, st, en)
+    plain_wall = (time.perf_counter() - t0) / 3
+    t0 = time.perf_counter()
+    for _ in range(20):
+        k_lz4.lz4_match(slab, st, en)
+    wrapper_wall = (time.perf_counter() - t0) / 20
+    results["lz4_match"] = dict(
+        name="lz4_match", route="cuda",
+        source="src/repro_torch/csrc/lz4_match.cu",
+        replaces="src/repro/kernels/lz4.py:593", max_abs_err=0.0,
+        **timed(torch, match), plain_ms=plain["ms"], bound_ms=b,
+        bound_by=by, library_ms=None)
+    r = results["lz4_match"]
+    print(f"[kernel] lz4_match == plain pipeline == numpy twin on: "
+          + "; ".join(lines), flush=True)
+    print(f"[kernel] lz4_match at the flush slab ({S} streams, {covered} "
+          f"B, {pos.size} events): the match launch {r['ms'] * 1e3:.2f} us "
+          f"device ({r['ms_from']}), bound {r['bound_ms'] * 1e3:.3f} us "
+          f"(the words and hashes it reads + meta + events); the wrapper "
+          f"(prep + match + one copy back) {wrapper['ms'] * 1e3:.2f} us "
+          f"device, "
+          f"{wrapper_wall * 1e3:.3f} ms wall per call; plain pipeline on "
+          f"the card (what serving ran before this kernel) "
+          f"{plain['ms']:.3f} ms device, {plain_wall * 1e3:.1f} ms wall per "
+          "call", flush=True)
+
+
 def attn_bound(valid: int, heads: int, kv_heads: int, hd: int) -> tuple:
     """Bound of one bf16 decode-attention call: K and V rows below
     ``valid`` read once, q read and the f32 output written once."""
@@ -806,7 +935,7 @@ _SPANS = (
     ("cache windows to host", "runtime/serving.py", "_commit_pages"),
     ("tier encode", "core/tier.py", "_encode_commit"),
     ("  KV forward on card", "core/tier.py", "_transform_kv_windows"),
-    ("  LZ4 match on card", "kernels/lz4.py", "_match_events_device"),
+    ("  LZ4 match on card", "kernels/lz4.py", "lz4_match"),
     ("  LZ4 emit (host)", "core/codec.py", "lz4_emit_events"),
     ("tier decode", "core/tier.py", "_do_reads"),
     ("  unpack + inverse on card", "core/tier.py", "_decode_planes"),
@@ -903,6 +1032,9 @@ def pnm_path(torch, serve, build, params):
         if launches["kv_delta_inv"]:
             raise AssertionError(f"{case}: the KV read launched the "
                                  "standalone inverse")
+        if launches["lz4_match"] != launches["lz4_prep"]:
+            raise AssertionError(f"{case}: the match kernel did not launch "
+                                 f"once per flush: {launches}")
         if extra:
             if launches["pnm_score"] <= 0 or rep.gathered_pages <= 0:
                 raise AssertionError(f"{case}: no gather on the card")
@@ -998,6 +1130,7 @@ def main():
     check_kernels(torch, k_bitplane, k_lz4, k_attn, results)
     check_pnm_score(torch, k_pnm, results)
     check_kv_and_unpack(torch, build, k_bitplane, k_kv, results)
+    check_lz4_match(torch, k_bitplane, k_kv, k_lz4, results)
     check_elastic_matmul(torch, k_bitplane, k_mm, ops, results)
     for r in results.values():
         lib = r["library_ms"]
@@ -1037,7 +1170,7 @@ def main():
     if f"{FLUSH_WINDOWS}x{WINDOW}x{CHANNELS}" not in fwd_shapes.counts:
         raise AssertionError(f"the [kernel] check's prefill flush is not one "
                              f"the main path ran: {fwd_shapes.counts}")
-    main_kernels = ("bitplane_pack", "lz4_prep", "decode_attn") \
+    main_kernels = ("bitplane_pack", "lz4_prep", "lz4_match", "decode_attn") \
         + KV_PATH_KERNELS
     for name in main_kernels:
         if launches[name] <= 0:
@@ -1047,6 +1180,9 @@ def main():
     if launches["kv_delta_inv"]:
         raise AssertionError("the main path's KV read launched the "
                              "standalone inverse")
+    if launches["lz4_match"] != launches["lz4_prep"]:
+        raise AssertionError("the match kernel did not launch once per "
+                             f"flush: {launches}")
     print(f"[main] wall tok/s {rep.tok_s:.3f}; compression ratio "
           f"{rep.kv_compression_ratio:.4f}; spilled {rep.spilled_pages}, "
           f"read back {rep.readback_pages}; launches {launches}; KV "

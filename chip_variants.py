@@ -29,6 +29,15 @@ Run from the repository root on a machine with a card:
   and the
   standalone inverse with the same tiles and tokens a thread
   (``INVERSE_VARIANTS``).
+- LZ4 match at the main path's flush shape (256 streams of 1024 bytes,
+  the pre-screen's gaps; the smoke's synthetic slab and the first slab a
+  served request spills): the shipped ``lz4_match.cu`` against variants
+  (``MATCH_VARIANTS``): prev() by a bitonic sort in shared memory instead
+  of the position-ordered table, the same-hash lanes by a ballot per hash
+  bit instead of ``__match_any_sync``, the hash-table pass in 1, 2 or 8
+  segments (shipped: 4), a warp or 2-8 warps per stream (shipped: 16),
+  1-8 streams per block, and the lanes' length and mask-scan reach; then
+  the shipped kernel's clocks per phase (``PHASE_CLOCKS``).
 
 Every call is held to its plain version (the tolerances of
 ``chip_smoke.py``); times are device time per call from
@@ -53,6 +62,7 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import decode_attn as k_attn  # noqa: E402
 from repro_torch.kernels import elastic_matmul as k_mm  # noqa: E402
 from repro_torch.kernels import kv_delta as k_kv  # noqa: E402
+from repro_torch.kernels import lz4 as k_lz4  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
 VALID_LENS = (576, 1024, 1536, 2048, 3072, 4096, 4097, 8192, 16384,
@@ -157,6 +167,109 @@ INVERSE_VARIANTS = {
 KV_READ_VARIANTS["rolled"] = (
     ("#pragma unroll  // every plane's load in flight at once",
      "#pragma unroll 1"),)
+
+
+def const_variant(source: str, **values) -> tuple:
+    """Substitutions giving ``csrc/<source>.cu`` other values of its
+    ``constexpr`` design constants."""
+    text = (build.CSRC / f"{source}.cu").read_text()
+    subs = []
+    for const, val in values.items():
+        line = next(ln for ln in text.splitlines()
+                    if ln.startswith(f"constexpr ")
+                    and f" {const} = " in ln)
+        head = line.split(" = ")[0]
+        subs.append((line, f"{head} = {val};"))
+    return tuple(subs)
+
+
+# lz4_match.cu with prev() by a bitonic sort of (hash << 16 | position)
+# keys in shared memory (the reference's algorithm, per stream): the
+# sorted neighbour of the same hash.  Streams past the tile keep the
+# tables (their positions do not fit 16 bits).
+PREV_BY_SORT = (
+    ("__host__ __device__ constexpr int prev_bytes(int) {\n"
+     "  return kSegments * 2 * kTableEntries;\n}\n",
+     "__host__ __device__ constexpr int pow2_at_least(int n) {\n"
+     "  int p = 1;\n  while (p < n) p <<= 1;\n  return p;\n}\n"
+     "__host__ __device__ constexpr int prev_bytes(int tile) {\n"
+     "  return 4 * pow2_at_least(tile);\n}\n"),
+    ("// Phase 2: the candidate test", """\
+template <typename H, typename I>
+__device__ void sort_pass(const Stream<H, I>& st, uint32_t* keys, int team,
+                          int tid) {
+  const int n = pow2_at_least(st.nval);
+  for (int i = tid; i < n; i += kTeam)
+    keys[i] = i < st.nval ? (static_cast<uint32_t>(st.H[i]) << 16) | i
+                          : 0xFFFFFFFFu;
+  team_sync(team);
+  for (int k = 2; k <= n; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = tid; i < n; i += kTeam) {
+        const int ixj = i ^ j;
+        if (ixj > i) {
+          const uint32_t a = keys[i], b = keys[ixj];
+          if ((a > b) == ((i & k) == 0)) {
+            keys[i] = b;
+            keys[ixj] = a;
+          }
+        }
+      }
+      team_sync(team);
+    }
+  }
+  for (int i = tid; i < st.nval; i += kTeam) {
+    const uint32_t key = keys[i];
+    const bool same = i > 0 && (keys[i - 1] >> 16) == (key >> 16);
+    st.dist[key & 0xFFFFu] =
+        same ? static_cast<I>((keys[i - 1] & 0xFFFFu) + 1u) : static_cast<I>(0);
+  }
+}
+
+// Phase 2: the candidate test"""),
+    ("  const int segw = (st.nwords + kSegments - 1) / kSegments;\n"
+     "  for (int g = tid / 32; g < kSegments; g += kWarpsPerStream)\n",
+     "  if constexpr (sizeof(I) == 2) {\n"
+     "    sort_pass(st, reinterpret_cast<uint32_t*>(st.table), team, tid);\n"
+     "  } else {\n"
+     "  const int segw = (st.nwords + kSegments - 1) / kSegments;\n"
+     "  for (int g = tid / 32; g < kSegments; g += kWarpsPerStream)\n"),
+    ("  if (kSegments > 1) link_segments(st, segw, tid);\n",
+     "  if (kSegments > 1) link_segments(st, segw, tid);\n  }\n"),
+    ("    int4* t4 = reinterpret_cast<int4*>(base);\n"
+     "    for (int i = tid; i < prev_bytes(tile) / 16; i += kTeam)\n"
+     "      t4[i] = make_int4(0, 0, 0, 0);\n", ""),
+)
+# lz4_match.cu with the same-hash lanes of a step found by one ballot per
+# hash bit instead of __match_any_sync.
+PEERS_BY_BALLOT = (
+    ("    const unsigned peers = __match_any_sync(kFull, hq);\n",
+     "    unsigned peers = kFull;\n"
+     "#pragma unroll\n"
+     "    for (int b = 0; b <= kHashLog; ++b) {\n"
+     "      const unsigned v = __ballot_sync(kFull, (hq >> b) & 1u);\n"
+     "      peers &= (hq >> b) & 1u ? v : ~v;\n"
+     "    }\n"),
+)
+
+# Variants of lz4_match.cu (shipped: the tables of 4 segments,
+# __match_any_sync, 16 warps a stream, one stream a block).
+MATCH_VARIANTS = {
+    "sort": PREV_BY_SORT,
+    "ballot": PEERS_BY_BALLOT,
+    "ballot-w8": PEERS_BY_BALLOT + const_variant("lz4_match",
+                                                 kWarpsPerStream=8),
+    **{f"w{w}s{n}": const_variant("lz4_match", kWarpsPerStream=w,
+                                  kStreamsPerBlock=n)
+       for w, n in ((1, 1), (1, 4), (1, 8), (2, 2), (4, 1), (4, 2),
+                    (4, 4), (8, 1))},
+    **{f"seg{n}": const_variant("lz4_match", kSegments=n)
+       for n in (1, 2, 8)},
+    "lcp4": const_variant("lz4_match", kLcpWords=4),
+    "lcp16": const_variant("lz4_match", kLcpWords=16),
+    "scan1": const_variant("lz4_match", kScanWords=1),
+    "scan4": const_variant("lz4_match", kScanWords=4),
+}
 
 
 def variant_libs(source: str, variants: dict) -> dict:
@@ -315,19 +428,141 @@ def inverse(variants: dict) -> None:
           + ", ".join(times), flush=True)
 
 
+def served_flush_slab():
+    """The first encode slab a full-width qwen2-0.5b request (random
+    weights, seed 0) hands the match kernel: its prefill spill."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import init_params
+
+    seen = []
+    wrapped = k_lz4.lz4_match
+
+    def record(buf, starts, ends):
+        if not seen:
+            seen.append((buf.clone(), starts.copy(), ends.copy()))
+        return wrapped(buf, starts, ends)
+
+    k_lz4.lz4_match = record
+    try:
+        serve(arch="qwen2-0.5b", device="trace", prompt_len=512, n_tokens=2,
+              batch=1, requests=1, hbm_kv_budget=1 << 22, page_tokens=64,
+              seed=0, torch_device="cuda", verbose=False,
+              params=init_params(ARCHS["qwen2-0.5b"], seed=0, device="cuda"))
+    finally:
+        k_lz4.lz4_match = wrapped
+    return seen[0]
+
+
+# The shipped lz4_match.cu with clock64() reads at each phase boundary,
+# per stream, read back through lz4_match_phases.
+PHASE_CLOCKS = (
+    ("namespace {\n", "namespace {\n__device__ long long g_phase[8 * 4096];\n"
+     "__device__ long long g_start[4096];\n"),
+    ("  if (s >= S) return;\n",
+     "  if (s >= S) return;\n  if (tid == 0) g_start[s] = clock64();\n"),
+    ("  __shared__ int events[kStreamsPerBlock];\n",
+     "  __shared__ int events[kStreamsPerBlock];\n  long long clk[7];\n"
+     "  clk[0] = clock64();\n"),
+    *((f"  team_sync(team);\n  {nxt}", f"  team_sync(team);\n  clk[{i}] = "
+       f"clock64();\n  {nxt}")
+      for i, nxt in ((1, "mask_pass"), (2, "length_pass"), (3, "jump_pass"),
+                     (4, "if (tid < 32) {"), (5, "const int n = events"))),
+    ("  emit(st, n, start, pos, dst, len, tid);\n  return n;",
+     "  emit(st, n, start, pos, dst, len, tid);\n  if (tid == 0) {\n"
+     "    const int sidx = blockIdx.x * (blockDim.x / kTeam) + team;\n"
+     "    long long* d = g_phase + 8 * sidx;\n"
+     "    d[0] = clk[0] - g_start[sidx];\n"
+     "    for (int i = 1; i < 6; ++i) d[i] = clk[i] - clk[i - 1];\n"
+     "    d[6] = clock64() - clk[5];\n    d[7] = n;\n  }\n  return n;"),
+    ("}  // namespace\n", "}  // namespace\n\nextern \"C\" int "
+     "lz4_match_phases(void* dst, int n) {\n  return static_cast<int>("
+     "cudaMemcpyFromSymbol(dst, g_phase, 8 * sizeof(long long) * n));\n}\n"),
+)
+PHASES = ("stage", "prev", "masks", "lengths", "jumps", "walk", "emit")
+
+
+def match_sweep(variants: dict) -> None:
+    """The LZ4 match launch at two flush slabs (the smoke's synthetic KV
+    windows, and the first slab a served request spills), shipped and
+    variants, each variant's events held equal to the numpy twin's; then
+    the shipped kernel's phases per stream."""
+    slabs = {"smoke flush slab": cs.flush_slab(torch, k_bitplane, k_kv, 3),
+             "served flush slab": served_flush_slab()}
+    for what, (slab, st, en) in slabs.items():
+        match_sweep_at(variants, what, slab, st, en)
+    lib = variant_libs("lz4_match", {"phases": PHASE_CLOCKS})["phases"]
+    lib.lz4_match_phases.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.lz4_match_phases.restype = ctypes.c_int
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, check=True).stdout)
+    for what, (slab, st, en) in slabs.items():
+        match_phases(lib, what, slab, st, en, mhz)
+
+
+def match_phases(lib, what: str, slab, st, en, mhz: float) -> None:
+    """Per-stream clocks of each phase (the instrumented kernel, its
+    events checked against the twin): the slowest stream's phases and the
+    median of each."""
+    import numpy as np
+
+    want = k_lz4.match_events_slab(slab.cpu().numpy(), st, en, force="numpy")
+    call, out, rows = k_lz4.match_launch(slab, st, en, lib=lib)
+    call()
+    got = k_lz4.match_result(out, rows)
+    if not all(np.array_equal(g, x) for g, x in zip(got, want)):
+        raise AssertionError("the instrumented lz4_match differs")
+    clk = np.zeros((st.size, 8), dtype=np.int64)
+    build.check(lib.lz4_match_phases(clk.ctypes.data, st.size),
+                "lz4_match_phases")
+    total = clk[:, :7].sum(axis=1)
+    worst = int(np.argmax(total))
+    walk = clk[:, 5].sum() / max(int(clk[:, 7].sum()), 1)
+    print(f"[variant] lz4_match phases at the {what}, cycles (us at the "
+          f"{mhz:.0f} MHz max SM clock): slowest stream "
+          f"({int(clk[worst, 7])} events) "
+          + ", ".join(f"{n} {int(c)} ({c / mhz:.2f})"
+                      for n, c in zip(PHASES, clk[worst, :7]))
+          + f"; medians " + ", ".join(
+              f"{n} {int(c)}" for n, c in zip(PHASES,
+                                               np.median(clk[:, :7], 0)))
+          + f"; walk {walk:.0f} cycles an event", flush=True)
+
+
+def match_sweep_at(variants: dict, what: str, slab, st, en) -> None:
+    import numpy as np
+
+    want = k_lz4.match_events_slab(slab.cpu().numpy(), st, en, force="numpy")
+    libs = dict(shipped=build.load("lz4_match"), **variants)
+    times = []
+    for name in ["shipped"] + [v for v in variants for _ in (0, 1)] \
+            + ["shipped"]:
+        call, out, rows = k_lz4.match_launch(slab, st, en, lib=libs[name])
+        call()
+        got = k_lz4.match_result(out, rows)
+        if not all(np.array_equal(g, x) for g, x in zip(got, want)):
+            raise AssertionError(f"lz4_match {name} differs from the twin")
+        times.append(f"{name} {cs.timed(torch, call)['ms'] * 1e3:.2f}")
+    print(f"[variant] lz4_match at the {what} ({st.size} streams, "
+          f"{want[0].size} events), us: " + ", ".join(times), flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         cs.fail("no CUDA device")
     print(cs.card_line(), flush=True)
     build.build_all(("decode_attn", "elastic_matmul", "bitplane_unpack",
-                     "kv_delta", "bitplane_pack"))
+                     "kv_delta", "bitplane_pack", "lz4_prep", "lz4_match"))
     matmul = variant_libs("elastic_matmul", MATMUL_VARIANTS)
     kv = variant_libs("bitplane_unpack", KV_READ_VARIANTS)
     inv = variant_libs("kv_delta", INVERSE_VARIANTS)
+    match = variant_libs("lz4_match", MATCH_VARIANTS)
     attention_sweep()
     matmul_m1(matmul)
     kv_read(kv)
     inverse(inv)
+    match_sweep(match)
 
 
 if __name__ == "__main__":

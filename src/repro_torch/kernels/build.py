@@ -25,13 +25,13 @@ from typing import Dict, List
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("bitplane_pack", "lz4_prep", "decode_attn", "pnm_score",
-           "kv_delta", "bitplane_unpack", "elastic_matmul")
+           "kv_delta", "bitplane_unpack", "elastic_matmul", "lz4_match")
 # Kernels, by the name their launches are counted under (kv_delta.cu
 # holds two; bitplane_unpack.cu's standalone and fused KV read launches
 # both count as bitplane_unpack).
 KERNELS = ("bitplane_pack", "lz4_prep", "decode_attn", "pnm_score",
            "kv_delta_fwd", "kv_delta_inv", "bitplane_unpack",
-           "elastic_matmul")
+           "elastic_matmul", "lz4_match")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -54,6 +54,8 @@ SIGNATURES = {
                                               _I, _I, _I, _I, _I, _I, _P)},
     "elastic_matmul": {"elastic_matmul": (_P, _P, _L, _P, _I, _I, _I, _I, _I,
                                           _I, _I, _I, _P)},
+    "lz4_match": {"lz4_match": (_P, _P, _P, _I, _I, _P, _P, _L, _I, _P),
+                  "lz4_match_tile_max": (), "lz4_match_table_bytes": ()},
 }
 
 # Launches per kernel: each wrapper adds one where it launches its kernel

@@ -1,31 +1,35 @@
 """Device-resident LZ4 match pipeline (paper §IV-E's 32-lane engine).
 
 The encoder's hot path — match-table build, previous-occurrence
-resolution, LCP extension and greedy selection — as array programs over a
-whole flush group's concatenated (plane, block) streams.  Four passes:
+resolution, LCP extension and greedy selection — over a whole flush
+group's concatenated (plane, block) streams.  On the card it is two
+launches and one copy back:
 
 1. **prep** — 4-byte little-endian words, multiplicative hashes and
-   byte-run boundaries for every position: the Hopper kernel
-   ``csrc/lz4_prep.cu`` (replacing ``src/repro/kernels/lz4.py::
-   _prep_kernel``) for a slab on the card, :func:`prep_plain` on the CPU.
-2. **previous occurrence** — one stable sort of stream-namespaced hash
-   keys; the previous same-key position is the sorted neighbour.
-3. **candidate filter** — window / end-of-block / run-stride rules as
-   boolean masks, then reverse cumulative minima for the next-candidate
-   and run-end tables.
-4. **greedy select** — every stream keeps a cursor; one round advances all
-   live streams by their next selected match (run table for offset-1
-   runs, word gallop plus an exact tail otherwise).
+   byte-run boundaries for every position: ``csrc/lz4_prep.cu``
+   (replacing ``src/repro/kernels/lz4.py::_prep_kernel``);
+2. **match** — ``csrc/lz4_match.cu`` (replacing the rest of the
+   reference's jitted ``_device_match_impl``): per stream the previous
+   same-hash position, the candidate filter (window / end-of-block /
+   run-stride rules) and the greedy chain (run end for offset-1 runs,
+   word gallop plus an exact tail otherwise), every stream of the slab in
+   one launch, events in per-stream rows;
+3. the events and counts come back in one copy; streams are ascending
+   and events rise within a stream, so dropping the unused row slots
+   (:func:`compact_events`) leaves them sorted by position.
 
-Passes 2-4 are PyTorch operations on the slab's device, so on the card
-the packed planes never leave it; only the compact ``(pos, dist, mlen)``
-event arrays return to the host for ``codec.lz4_emit_events``.
+:func:`lz4_match` is that wrapper; for a slab on the CPU it runs
+:func:`match_plain`, the same function as PyTorch operations (a stable
+sort of stream-namespaced hash keys, reverse cumulative minima for the
+next-candidate and run-end tables, then Python-driven rounds that advance
+every live stream by one match), which is also what the card's kernel is
+held against.
 
 :func:`match_events_slab` dispatches on where the slab lives: a tensor on
-the card takes the device pipeline, host data takes the vectorized-numpy
-twin (the CPU production encoder).  ``force="device"`` runs the device
-pipeline on the CPU (with the plain prep), ``force="numpy"`` pins the
-twin.  Both are byte-identical to the scalar reference
+the card takes the kernels, host data takes the vectorized-numpy twin
+(the CPU production encoder).  ``force="device"`` runs :func:`lz4_match`
+on a tensor's device (:func:`match_plain` on the CPU), ``force="numpy"``
+pins the twin.  All are byte-identical to the scalar reference
 ``codec._lz4_events_scalar``.
 """
 
@@ -72,7 +76,7 @@ def match_events_slab(slab, starts, ends,
     if force == "device" or (force is None and on_card):
         if not isinstance(slab, torch.Tensor):
             slab = torch.from_numpy(np.array(slab, dtype=np.uint8).ravel())
-        return _match_events_device(slab.reshape(-1), starts, ends)
+        return lz4_match(slab.reshape(-1), starts, ends)
     if isinstance(slab, torch.Tensor):
         slab = slab.cpu().numpy()
     buf = np.asarray(slab, dtype=np.uint8).ravel()
@@ -412,40 +416,59 @@ def _match_events_numpy(buf: np.ndarray, starts: np.ndarray,
 
 
 # ---------------------------------------------------------------------------
-# device pipeline: prep kernel + PyTorch passes on the slab's device
+# match: Hopper kernel + plain PyTorch version, events in per-stream rows
 # ---------------------------------------------------------------------------
+
+def event_rows(starts: np.ndarray, ends: np.ndarray) -> np.ndarray:
+    """First event row of each stream and the total, ``(S + 1,)``: a
+    stream of n bytes gets n // MIN_MATCH + 1 rows (matches never overlap
+    and are at least MIN_MATCH long)."""
+    return np.concatenate(([0], np.cumsum((ends - starts) // MIN_MATCH + 1)))
+
+
+def compact_events(ev: np.ndarray, count: np.ndarray, rows: np.ndarray):
+    """``(3, E)`` event rows + per-stream counts → ``(pos, dist, mlen)``
+    int64, the used rows in stream order (sorted by position: streams
+    ascend and events rise within one)."""
+    count = np.asarray(count, dtype=np.int64)
+    skip = rows[:-1] - (np.cumsum(count) - count)   # unused rows before
+    keep = np.arange(int(count.sum())) + np.repeat(skip, count)
+    return tuple(ev[i, keep].astype(np.int64) for i in range(3))
+
 
 def _rev_cummin(x: torch.Tensor) -> torch.Tensor:
     return torch.cummin(x.flip(0), dim=0).values.flip(0)
 
 
-def _match_events_device(buf: torch.Tensor, starts: np.ndarray,
-                         ends: np.ndarray):
-    """Prep kernel + PyTorch match pipeline on ``buf``'s device; only the
-    compacted event arrays return to the host.
+def match_rows_plain(buf: torch.Tensor, starts: np.ndarray,
+                     ends: np.ndarray):
+    """The match pipeline as PyTorch operations on ``buf``'s device:
+    ``(3, E)`` int32 event rows (:func:`event_rows`) and ``(S,)`` counts,
+    on that device.
 
-    Positions are int32 on the device and event positions int64 on the
-    host; every gather index is clamped first.  The greedy rounds are a
-    Python loop whose test (``live.any()``) reads one flag back per round.
+    Positions are int32 on the device; every gather index is clamped
+    first.  The greedy rounds are a Python loop whose test
+    (``live.any()``) reads one flag back per round, with a gallop loop
+    inside that reads one back per 4-byte step.
     """
     N = int(buf.numel())
-    if N < MIN_MATCH:
-        return _EMPTY
     dev = buf.device
     i32 = torch.int32
+    S = int(starts.size)
+    row_start = event_rows(starts, ends)
+    E = int(row_start[-1])
+    count = torch.zeros(S, dtype=i32, device=dev)
+    out = torch.zeros((3, E + 1), dtype=i32, device=dev)
+    if N < MIN_MATCH:
+        return out[:, :E], count
     # static geometry → dense masks (host-computed, uploaded once)
     npos = N - 3
-    S = int(starts.size)
     sid, covered = _stream_ids(npos, starts, ends)
     valid = covered & (np.arange(npos) + MIN_MATCH <= ends[sid])
     local = np.arange(npos) - starts[np.minimum(sid, S - 1)]
     nb = (ends - starts)[np.minimum(sid, S - 1)]
     start_ok = valid & (local < nb - MFLIMIT)
     stride_ok = (local >= 2) & (local % RUN_STRIDE != 0)
-    # per-stream event bound: matches never overlap and are ≥ MIN_MATCH
-    sizes = ends - starts
-    row_start = np.concatenate(([0], np.cumsum(sizes // MIN_MATCH + 1)))
-    E = int(row_start[-1])
 
     def up(a, dtype=i32):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
@@ -510,8 +533,6 @@ def _match_events_device(buf: torch.Tensor, starts: np.ndarray,
         return torch.where(run, m_run, torch.where(live, m, MIN_MATCH))
 
     cur, live = cursor_of(starts_t)
-    count = torch.zeros(S, dtype=i32, device=dev)
-    out = torch.zeros((3, E + 1), dtype=i32, device=dev)
     while bool(live.any()):
         p = cur.clamp(0, npos - 1)
         d = dist[p.long()]
@@ -522,11 +543,108 @@ def _match_events_device(buf: torch.Tensor, starts: np.ndarray,
         count = count + live.to(i32)
         cur, nlive = cursor_of(torch.where(live, p + m, npos))
         live = nlive & live
+    return out[:, :E], count
 
-    ev = out[:, :E].cpu().numpy().astype(np.int64)
-    cnt = count.cpu().numpy().astype(np.int64)
-    rows = np.repeat(np.arange(S), sizes // MIN_MATCH + 1)
-    keep = np.flatnonzero(np.arange(E) - row_start[rows] < cnt[rows])
-    pos, dist_e, mlen = ev[0, keep], ev[1, keep], ev[2, keep]
-    order_h = np.argsort(pos, kind="stable")
-    return pos[order_h], dist_e[order_h], mlen[order_h]
+
+def match_plain(buf: torch.Tensor, starts: np.ndarray, ends: np.ndarray):
+    """Plain PyTorch version of :func:`lz4_match` (the prep through
+    :func:`lz4_prep`, the rest :func:`match_rows_plain`): ``(pos, dist,
+    mlen)`` int64 arrays sorted by position."""
+    ev, count = match_rows_plain(buf, starts, ends)
+    return compact_events(ev.cpu().numpy(), count.cpu().numpy(),
+                          event_rows(starts, ends))
+
+
+def _scratch_bytes(n: int, table_bytes: int) -> int:
+    """Global scratch of a stream too long for the kernel's shared-memory
+    tile (lz4_match.cu's layout: the int32 hash tables, then per position
+    int32 dist, int2 record and int4 jumps, then the candidate and run
+    bits)."""
+    lp = -(-n // 128) * 128
+    return table_bytes + 28 * lp + lp // 4
+
+
+def match_launch(buf: torch.Tensor, starts, ends, lib=None):
+    """The match kernel's launch on a contiguous uint8 slab on the card,
+    set up once: checks the stream bounds, runs the prep kernel, uploads
+    the per-stream meta rows (starts, ends, first event row, scratch
+    offset) and allocates the output and the long streams' scratch.
+    Returns ``(launch, out, rows)``: ``launch()`` runs the match kernel
+    once on PyTorch's current stream and raises if it fails (it counts
+    nothing: :func:`lz4_match` does), ``out`` its ``S + 3 E`` int32 output
+    (counts | pos | dist | mlen, read by :func:`match_result`), ``rows``
+    the streams' event rows (:func:`event_rows`).  ``launch`` is None
+    when no stream has a byte to match.  ``lib`` is the built library
+    (default: ``csrc/lz4_match.cu``'s)."""
+    starts = np.asarray(starts, dtype=np.int64).ravel()
+    ends = np.asarray(ends, dtype=np.int64).ravel()
+    if not buf.is_contiguous():
+        raise ValueError("match kernel needs a contiguous slab")
+    N = buf.numel()
+    sizes = ends - starts
+    if starts.size != ends.size or (sizes < 0).any() or (
+            starts.size and (starts[0] < 0 or ends[-1] > N
+                             or (starts[1:] < ends[:-1]).any())):
+        raise ValueError("stream bounds must be ascending, disjoint and "
+                         "inside the slab")
+    if N >= 1 << 31:
+        raise ValueError(f"slab of {N} bytes: positions are int32")
+    S = int(starts.size)
+    rows = event_rows(starts, ends)
+    if S == 0 or N < MIN_MATCH:
+        return None, None, rows
+    E = int(rows[-1])
+    lib = build.load("lz4_match") if lib is None else lib
+    tile_max = lib.lz4_match_tile_max()
+    long = sizes > tile_max
+    staged = sizes[~long]
+    tile = -(-max(int(staged.max()), 1) // 128) * 128 if staged.size else 0
+    soff = np.full(S, -1, dtype=np.int64)
+    table_bytes = lib.lz4_match_table_bytes()
+    nscr = np.array([_scratch_bytes(int(n), table_bytes)
+                     for n in sizes[long]], dtype=np.int64)
+    soff[long] = np.cumsum(nscr) - nscr
+    dev = buf.device
+    meta = torch.from_numpy(np.stack([starts, ends, rows[:-1], soff])).to(dev)
+    scratch = torch.empty(max(int(nscr.sum()), 1), dtype=torch.uint8,
+                          device=dev)
+    out = torch.empty(S + 3 * E, dtype=torch.int32, device=dev)
+    w, h, _ = lz4_prep(buf)
+
+    def launch():
+        build.check(lib.lz4_match(
+            w.data_ptr(), h.data_ptr(), meta.data_ptr(), S, tile,
+            scratch.data_ptr(), out.data_ptr(), E, dev.index,
+            torch.cuda.current_stream(dev).cuda_stream), "lz4_match")
+
+    return launch, out, rows
+
+
+def match_result(out: torch.Tensor, rows: np.ndarray):
+    """The match kernel's output (:func:`match_launch`) copied back once:
+    ``(pos, dist, mlen)`` int64 arrays sorted by position."""
+    S, E = rows.size - 1, int(rows[-1])
+    host = out.cpu().numpy()
+    return compact_events(host[S:].reshape(3, E), host[:S], rows)
+
+
+def lz4_match(buf: torch.Tensor, starts, ends):
+    """Greedy match events of every stream of a flat uint8 slab on its
+    device: on the card the prep kernel, then one launch of the match
+    kernel and one copy of the events back; on the CPU
+    :func:`match_plain`.  Returns ``(pos, dist, mlen)`` int64 arrays
+    sorted by position."""
+    if buf.dtype != torch.uint8 or buf.dim() != 1:
+        raise TypeError(f"match expects a flat uint8 slab, got {buf.dtype} "
+                        f"{tuple(buf.shape)}")
+    if buf.device.type == "cpu":
+        return match_plain(buf, np.asarray(starts, dtype=np.int64).ravel(),
+                           np.asarray(ends, dtype=np.int64).ravel())
+    if buf.device.type != "cuda":
+        raise ValueError(f"unsupported device {buf.device}")
+    launch, out, rows = match_launch(buf, starts, ends)
+    if launch is None:
+        return _EMPTY
+    launch()
+    build.LAUNCHES["lz4_match"] += 1
+    return match_result(out, rows)

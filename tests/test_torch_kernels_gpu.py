@@ -21,6 +21,7 @@ from repro_torch.kernels import (  # noqa: E402
     pnm_score,
 )
 from repro_torch.models.model import init_params  # noqa: E402
+import torch_lz4_cases  # noqa: E402
 from repro_torch.runtime import LOSSLESS_POLICY, ServeEngine  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -86,6 +87,56 @@ def test_match_pipeline_on_card_matches_numpy_twin(card):
     got = lz4.match_events_slab(torch.from_numpy(buf).to(card), starts, ends)
     for r, g in zip(ref, got):
         np.testing.assert_array_equal(r, g)
+
+
+LZ4_CASES = ["kv_slab", "kv_slab_prescreened", "lengths", "gapped",
+             "periodic_3900", "long_65537", "far_repeat", "hash_collision",
+             "runs", "next_stream", "long_131072"]
+
+
+@pytest.fixture(scope="module")
+def lz4_slabs():
+    out = torch_lz4_cases.cases()
+    rng = np.random.default_rng(7)
+    big = rng.integers(0, 4, 140000, dtype=np.uint8)
+    big[1000:90000] = 0
+    big[100000:101000] = big[95000:96000]
+    out["long_131072"] = (big, np.array([0, 131072]),
+                          np.array([131072, 140000]))
+    return out
+
+
+@pytest.mark.parametrize("name", LZ4_CASES)
+def test_match_kernel_matches_plain(card, lz4_slabs, name):
+    """lz4_match.cu against the plain pipeline on the card and the numpy
+    twin, event for event: main-path slabs, stream lengths 0-4096, streams
+    of 65537 bytes and more (the global-scratch path), the 0xFFFF window,
+    hash collisions, runs and cursors that reach the next stream.  One
+    launch of each kernel per call."""
+    buf, starts, ends = lz4_slabs[name]
+    d = torch.from_numpy(buf).to(card)
+    before = dict(build.LAUNCHES)
+    got = lz4.lz4_match(d, starts, ends)
+    assert build.LAUNCHES["lz4_match"] == before["lz4_match"] + 1
+    assert build.LAUNCHES["lz4_prep"] == before["lz4_prep"] + 1
+    want = lz4.match_events_slab(buf, starts, ends, force="numpy")
+    for g, w in zip(got, want):
+        assert g.dtype == np.int64
+        np.testing.assert_array_equal(g, w)
+    if name != "long_131072":     # the plain rounds take minutes there
+        for g, p in zip(got, lz4.match_plain(d, starts, ends)):
+            np.testing.assert_array_equal(g, p)
+
+
+def test_match_kernel_rejects_what_it_cannot_take(card, lz4_slabs):
+    buf, starts, ends = lz4_slabs["gapped"]
+    d = torch.from_numpy(np.repeat(buf, 2)).to(card)
+    with pytest.raises(ValueError):
+        lz4.lz4_match(d[::2], starts, ends)
+    with pytest.raises(TypeError):
+        lz4.lz4_match(d.to(torch.int16), starts, ends)
+    with pytest.raises(ValueError):
+        lz4.lz4_match(d[: buf.size], starts[::-1].copy(), ends[::-1].copy())
 
 
 @pytest.mark.parametrize("kv", [torch.bfloat16, torch.float8_e4m3fn])

@@ -436,25 +436,95 @@ def models(smoke_model):
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("async_io", [False, True])
-@pytest.mark.parametrize("shards", [1, 4])
-def test_pnm_covering_k_decodes_identical(models, async_io, shards):
+@pytest.mark.parametrize("async_io,shards,batch", [
+    pytest.param(a, s, 1, id=f"{s}-{a}") for s in (1, 4)
+    for a in (False, True)] + [
+    pytest.param(False, 1, 2, id="1-False-batch2"),
+    pytest.param(True, 4, 2, id="4-True-batch2")])
+def test_pnm_covering_k_decodes_identical(models, async_io, shards, batch):
     """pnm_topk covering the spill reads back exactly what classic
-    readback does: identical greedy tokens, on 1 and on 4 shards."""
+    readback does: identical greedy tokens, on 1 and on 4 shards, at batch
+    1 and 2."""
     _, _, tcfg, tparams = models
-    prompt = (np.arange(48, dtype=np.int32).reshape(1, 48) * 3) % tcfg.vocab
+    prompt = (np.arange(48 * batch, dtype=np.int32).reshape(batch, 48)
+              * 3) % tcfg.vocab
     runs = []
     for pnm in (None, 1_000):
         dev = ttier.make_device("trace", shards=shards, sanitize=True,
                                 device="cpu")
         eng = TServe(tcfg, tparams, device_kind=dev, async_io=async_io,
                      pnm_topk=pnm, policy=tpaging.PAPER_POLICY,
-                     device="cpu", **ENGINE)
+                     device="cpu", **dict(ENGINE, batch=batch))
         runs.append((eng.generate(prompt, 10), eng))
     (t_base, e_base), (t_pnm, e_pnm) = runs
     np.testing.assert_array_equal(t_base, t_pnm)
     assert e_pnm.stats().tier_device_compute_s > 0
     assert e_pnm.pool.pages_gathered == e_base.pool.pages_read > 0
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("pos", [40, 48, 70])
+def test_digest_and_attention_masses_on_the_same_cache(models, batch, pos):
+    """The port's query digest and attention masses against the
+    reference's on one cache array (the same bf16 bits in both engines):
+    the tier and importance logic apart from the two models' rounding."""
+    rcfg, rparams, tcfg, tparams = models
+    kw = dict(ENGINE, batch=batch, pnm_topk=2, importance="attention")
+    teng = TServe(tcfg, tparams, device="cpu", **kw)
+    reng = RServe(rcfg, rparams, **kw)
+    rng = np.random.default_rng(pos + batch)
+    for kind in ("k", "v"):
+        shape = tuple(teng.cache["layers"][kind].shape)
+        x = (rng.standard_normal(shape) * 0.7).astype(np.float32)
+        teng.cache["layers"][kind] = torch.from_numpy(x).to(torch.bfloat16)
+        reng.cache["layers"][kind] = jax.numpy.asarray(
+            x, dtype=reng.cache["layers"][kind].dtype)
+    assert np.array_equal(
+        teng.cache["layers"]["k"].float().numpy(),
+        np.asarray(reng.cache["layers"]["k"], np.float32))
+    teng.pos = reng.pos = pos
+    for kind in ("k", "v"):
+        np.testing.assert_allclose(teng._digest(kind).numpy(),
+                                   reng._query_digest(kind), rtol=1e-5,
+                                   atol=1e-6)
+    got, want = teng._attention_masses(), reng._attention_masses()
+    assert sorted(got) == sorted((layer, start)
+                                 for kind, layer, start in want)
+    for (layer, start), m in got.items():
+        assert m == pytest.approx(want[("k", layer, start)], rel=1e-4,
+                                  abs=1e-7)
+
+
+def _score_view_shift(tdev, rdev, keys, digest) -> np.ndarray:
+    """Per page: the largest row's sum of |digest_c| * |q_t - q_r| where
+    q_t, q_r are the two engines' values at the score view (sign and
+    exponent, mantissa truncated) — how far the engines' stored KV alone
+    moves the page's score.
+
+    First the two stored pages must agree element by element within 4
+    bf16 ulps of the page's largest value, the two models' bf16 rounding
+    (up to 2.9 ulps on these requests): a fault in the stored KV fails
+    here instead of widening the score tolerance."""
+    def pages(recs):
+        for rec in recs:
+            u = np.asarray(rec.data, np.uint16).reshape(-1, digest.size)
+            yield (u.astype(np.uint32) << 16).view(np.float32)
+
+    def score_view(x):
+        return (x.view(np.uint32) & np.uint32(0xFF800000)).view(np.float32)
+
+    reads = [(ttier.ReadReq(k, kind=ttier.KV, view=tprec.FULL),
+              rtier.ReadReq(k, kind=rtier.KV, view=rprec.FULL))
+             for k in keys]
+    mine = pages(tdev.submit([t for t, _ in reads]))
+    theirs = pages(rdev.submit([r for _, r in reads]))
+    shift = []
+    for a, b in zip(mine, theirs):
+        np.testing.assert_allclose(
+            a, b, rtol=0, atol=4 * 2.0 ** -8 * float(np.abs(b).max()))
+        dq = np.abs(score_view(a) - score_view(b))
+        shift.append(float((dq * np.abs(digest)).sum(1).max()))
+    return np.asarray(shift)
 
 
 def _recording(dev):
@@ -478,21 +548,36 @@ def _forced(eng, toks, n_prompt):
 
 
 @pytest.mark.slow
-def test_pnm_attention_importance_tracks_reference_engine(models):
+@pytest.mark.parametrize("batch", [pytest.param(1, id="batch1"),
+                                   pytest.param(2, id="batch2")])
+def test_pnm_attention_importance_tracks_reference_engine(models, batch):
     """Bounded pnm_topk with importance="attention" against the JAX
-    engine fed the same weights and tokens.  The two models' KV differs
-    by bf16 rounding, so scores agree to a bf16 tolerance (4 ulps of the
-    page's largest score); winners must agree wherever the reference's
-    k-th and (k+1)-th scores are further apart than that, and the logits
-    pass the margin-aware bound of tests/test_kv_dtype.py."""
+    engine fed the same weights and tokens, at batch 1 and 2.  The two
+    models' KV differs by bf16 rounding, so scores agree to a bf16
+    tolerance (4 ulps of the page's largest score); winners must agree
+    wherever the reference's k-th and (k+1)-th scores are further apart
+    than the two pages' tolerances, and the logits pass the margin-aware
+    bound of tests/test_kv_dtype.py.
+
+    The score view keeps sign and exponent only (truncated), so a KV value
+    a few bf16 ulps from a power of two may truncate to another exponent
+    in one engine than in the other.  At batch 2 (twice the rows a page)
+    that moves scores past the bf16 tolerance, so there a page's
+    tolerance adds the shift the two engines' stored pages make at the
+    score view (``_score_view_shift``, which first holds the stored pages
+    to each other within 4 bf16 ulps of the page's largest value); the
+    logic itself is held on one cache array by
+    test_digest_and_attention_masses_on_the_same_cache."""
     rcfg, rparams, tcfg, tparams = models
-    kw = dict(ENGINE, async_io=False, pnm_topk=2, importance="attention")
+    kw = dict(ENGINE, async_io=False, pnm_topk=2, importance="attention",
+              batch=batch)
     tdev = ttier.make_device("trace", shards=1, device="cpu")
     rdev = rtier.make_device("trace", shards=1)
     tlog, rlog = _recording(tdev), _recording(rdev)
     teng = TServe(tcfg, tparams, device_kind=tdev, device="cpu", **kw)
     reng = RServe(rcfg, rparams, device_kind=rdev, **kw)
-    toks = (np.arange(72, dtype=np.int32).reshape(1, 72) * 7) % tcfg.vocab
+    toks = (np.arange(72 * batch, dtype=np.int32).reshape(batch, 72)
+            * 7) % tcfg.vocab
     got = _forced(teng, toks, 48)
     ref = _forced(reng, toks, 48)
     assert len(tlog) == len(rlog) >= 4
@@ -501,10 +586,18 @@ def test_pnm_attention_importance_tracks_reference_engine(models):
         assert tq.keys == rq.keys
         assert [v.name for v in tq.views] == [v.name for v in rq.views]
         tol = 4 * 2.0 ** -8 * float(np.abs(rr.gather.scores).max())
-        np.testing.assert_allclose(tr.gather.scores, rr.gather.scores,
-                                   atol=tol, rtol=0)
-        srt = np.sort(rr.gather.scores)[::-1]
-        if len(srt) > 2 and srt[1] - srt[2] > 2 * tol:
+        if batch == 1:
+            np.testing.assert_allclose(tr.gather.scores, rr.gather.scores,
+                                       atol=tol, rtol=0)
+        else:   # a tolerance per page
+            tol = tol + _score_view_shift(tdev, rdev, rq.keys, rq.digest)
+            diff = np.abs(tr.gather.scores - rr.gather.scores)
+            assert (diff <= tol).all(), (diff, tol)
+        tol = np.broadcast_to(tol, rr.gather.scores.shape)
+        order = np.argsort(-rr.gather.scores, kind="stable")
+        if len(order) > 2 and (rr.gather.scores[order[1]]
+                               - rr.gather.scores[order[2]]
+                               > tol[order[1]] + tol[order[2]]):
             assert tr.gather.keys == rr.gather.keys
             compared += 1
     assert compared > 0

@@ -100,15 +100,20 @@ def _teacher_forced(eng, tokens, n_prompt):
     return np.stack([np.asarray(x, np.float32) for x in logits], 1)
 
 
-@pytest.mark.parametrize("policy", ["paper", "lossless"])
-def test_engine_tracks_reference_engine(models, policy):
+@pytest.mark.parametrize("policy,batch", [
+    pytest.param("paper", 1, id="paper"),
+    pytest.param("lossless", 1, id="lossless"),
+    pytest.param("paper", 2, id="paper-batch2")])
+def test_engine_tracks_reference_engine(models, policy, batch):
     rcfg, rparams, tcfg, tparams = models
     tpol, rpol = {"paper": (tpaging.PAPER_POLICY, rpaging.PAPER_POLICY),
                   "lossless": (tpaging.LOSSLESS_POLICY,
                                rpaging.LOSSLESS_POLICY)}[policy]
-    teng = TServe(tcfg, tparams, policy=tpol, device="cpu", **ENGINE)
-    reng = RServe(rcfg, rparams, policy=rpol, **ENGINE)
-    toks = (np.arange(60, dtype=np.int32).reshape(1, 60) * 7) % tcfg.vocab
+    kw = dict(ENGINE, batch=batch)
+    teng = TServe(tcfg, tparams, policy=tpol, device="cpu", **kw)
+    reng = RServe(rcfg, rparams, policy=rpol, **kw)
+    toks = (np.arange(60 * batch, dtype=np.int32).reshape(batch, 60)
+            * 7) % tcfg.vocab
     got = _teacher_forced(teng, toks, 48)
     ref = _teacher_forced(reng, toks, 48)
     ts, rs = teng.stats(), reng.stats()
@@ -128,9 +133,10 @@ def test_engine_tracks_reference_engine(models, policy):
     assert np.corrcoef(ref.ravel(), got.ravel())[0, 1] > 0.99
     # free-running generation stays in vocab and retires cleanly
     eng = TServe(tcfg, tparams, policy=tpol, device="cpu", key_prefix="g.",
-                 **ENGINE)
+                 **kw)
     gen = eng.generate(toks[:, :48], 8)
-    assert gen.shape == (1, 8) and 0 <= gen.min() and gen.max() < tcfg.vocab
+    assert gen.shape == (batch, 8) and 0 <= gen.min() \
+        and gen.max() < tcfg.vocab
     assert eng.retire() > 0 and eng.pool.tier.resident_bytes("g") == 0
 
 
