@@ -25,7 +25,9 @@ Phases (any failure exits non-zero and prints no result line):
    stream; streams past 65536 bytes at the 0xFFFF window) — and time
    kernel, plain version and the one PyTorch call computing the same
    function where there is one (SDPA under each backend that takes the
-   shape, the fastest reported; torch.matmul at M = 1 and 16), decode
+   shape, the fastest reported; torch.matmul at M = 1 and 16), page
+   scoring at 2048 pages and the KV forward at 2048 windows (long
+   context; checked too, and timed also from a cold L2 cache), decode
    attention at 4096 and 32768 cached positions, the elastic matmul at
    each view beside its byte bound, the fused KV read beside the
    two-launch chain it replaces, and the match launch beside the wrapper
@@ -48,7 +50,7 @@ Phases (any failure exits non-zero and prints no result line):
    per case: (a) classic readback, (b) a gather covering every candidate
    (tokens identical to a), (c) top-16 gathers with attention importance
    (fewer link bytes than a), (d) c on a 4-shard fleet (tokens identical
-   to c);
+   to c), with the page-scoring wrapper's wall time per gather;
 7. profile one more classic request (host split from cProfile, device
    busy time from ``torch.profiler``) and one PNM request (cProfile).
 
@@ -88,6 +90,9 @@ D_MODEL, D_FF = 896, 4864    # the MLP up-projection of qwen2-0.5b
 HEADS, KV_HEADS, HEAD_DIM = 14, 2, 64
 MAX_SEQ, VALID_LEN = 512 + 64 + 64, 576
 PAGES, PAGE_ROWS = 64, 64    # gather candidates per KV kind at prefill
+# long context (128 k tokens): the pages a gather scores per layer and
+# kind, the windows of a flush
+LONG_PAGES = LONG_WINDOWS = 2048
 CHANNELS = KV_HEADS * HEAD_DIM
 VOCAB = 151936
 
@@ -153,6 +158,41 @@ def timed(torch, fn, iters: int = 50) -> dict:
     dev = device_ms(torch, fn, min(20, iters))
     return {"ms": call if dev is None else dev, "call_ms": call,
             "ms_from": "events" if dev is None else "profiler"}
+
+
+def cold_ms(torch, fn, kernel: str, iters: int = 10):
+    """Device time per call of the kernels of ``fn`` whose name holds
+    ``kernel``, each call after a 128 MiB write has pushed its inputs out
+    of the 50 MB L2 cache (profiler; None when it sees no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(1 << 25, dtype=torch.int32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.fill_(1)
+            fn()
+        torch.cuda.synchronize()
+    us = sum(_self_device_us(e) for e in prof.key_averages()
+             if kernel in e.key)
+    return us / 1e3 / iters if us > 0 else None
+
+
+def long_context_line(torch, what: str, kernel: str, fn, plain,
+                      nbytes: float, flops: float) -> None:
+    """Time a kernel at a long-context shape (back to back, inputs in L2
+    where they fit, and from a cold L2) beside its plain version and its
+    bound, and print it."""
+    warm = timed(torch, fn, 20)
+    cold = cold_ms(torch, fn, kernel)
+    b, by = bound_ms(nbytes, flops)
+    cold_s = "not measured" if cold is None else \
+        f"{cold * 1e3:.2f} us ({100 * b / cold:.1f}% of the bound)"
+    print(f"[kernel] {what}: {warm['ms'] * 1e3:.2f} us device back to back "
+          f"({warm['ms_from']}; {100 * b / warm['ms']:.1f}% of the bound), "
+          f"cold L2 {cold_s}; bound {b * 1e3:.3f} us by {by}; plain "
+          f"{timed(torch, plain, 5)['ms'] * 1e3:.2f} us", flush=True)
 
 
 def bound_ms(nbytes: float, flops: float, peak: float = F32_FLOPS_S) -> tuple:
@@ -221,8 +261,7 @@ def check_pnm_score(torch, k_pnm, results):
                       for p in pages_np])
     if batch.tobytes() != alone.tobytes():
         raise AssertionError("pnm_score depends on the batch a page is in")
-    nbytes = PAGES * PAGE_ROWS * CHANNELS * 2 + CHANNELS * 4 + PAGES * 8
-    b, by = bound_ms(nbytes, 2 * PAGES * PAGE_ROWS * CHANNELS)
+    b, by = bound_ms(score_bytes(PAGES), 2 * PAGES * PAGE_ROWS * CHANNELS)
     results["pnm_score"] = dict(
         name="pnm_score", route="cuda", source="src/repro_torch/csrc/pnm_score.cu",
         replaces="src/repro/kernels/pnm_score.py:66", max_abs_err=0.0,
@@ -230,6 +269,35 @@ def check_pnm_score(torch, k_pnm, results):
         plain_ms=timed(torch, lambda: k_pnm.page_scores_plain(
             pages, full, digest))["ms"],
         bound_ms=b, bound_by=by, library_ms=None)
+
+    # long context: a 128 k-token gather scores 2048 pages a layer and kind
+    x = rng.standard_normal((LONG_PAGES, PAGE_ROWS, CHANNELS),
+                            dtype=np.float32) * 0.7
+    u = (x.view(np.uint32) >> 16).astype(np.uint16)
+    u[7, 3, 5] = 0x7FC0                    # NaN in a valid row
+    u[9, PAGE_ROWS - 1, 0] = 0x7FC0        # NaN past valid below
+    big = torch.from_numpy(u.view(np.int16)).cuda()
+    vbig = torch.full((LONG_PAGES,), PAGE_ROWS, dtype=torch.int32,
+                      device="cuda")
+    full_long = vbig.clone()
+    vbig[9] = PAGE_ROWS - 1
+    got = k_pnm.page_scores(big, vbig, digest)
+    if not (same_scores(torch, got, k_pnm.page_scores_plain(big, vbig, digest))
+            and bool(torch.isnan(got[7])) and bool(torch.isfinite(got[9]))):
+        raise AssertionError("pnm_score at 2048 pages differs from its "
+                             "plain version")
+    long_context_line(
+        torch, f"pnm_score long context ({LONG_PAGES} x {PAGE_ROWS} x "
+        f"{CHANNELS})", "pnm_score_kernel",
+        lambda: k_pnm.page_scores(big, full_long, digest),
+        lambda: k_pnm.page_scores_plain(big, full_long, digest),
+        score_bytes(LONG_PAGES), 2 * LONG_PAGES * PAGE_ROWS * CHANNELS)
+
+
+def score_bytes(pages: int) -> int:
+    """Bytes page scoring must move: every row, the digest, and per page
+    its valid count and its score."""
+    return pages * PAGE_ROWS * CHANNELS * 2 + CHANNELS * 4 + pages * 8
 
 
 def kv_windows(torch, B: int, n: int, seed: int) -> "torch.Tensor":
@@ -299,6 +367,20 @@ def check_kv_and_unpack(torch, build, k_bitplane, k_kv, results):
         **timed(torch, lambda: k_kv.kv_forward(x)),
         plain_ms=timed(torch, lambda: k_kv.kv_forward_plain(x))["ms"],
         bound_ms=b, bound_by=by, library_ms=None)
+    # long context: a flush of 2048 windows
+    xl = kv_windows(torch, LONG_WINDOWS, WINDOW, 7)
+    got, beta = k_kv.kv_forward(xl)
+    want, want_beta = k_kv.kv_forward_plain(xl)
+    if not (torch.equal(beta, want_beta) and torch.equal(got, want)):
+        raise AssertionError(f"kv_delta_fwd {tuple(xl.shape)} differs from "
+                             "its plain version")
+    elems = LONG_WINDOWS * WINDOW * CHANNELS
+    long_context_line(
+        torch, f"kv_delta_fwd long context ({LONG_WINDOWS} x {WINDOW} x "
+        f"{CHANNELS})", "kv_fwd_kernel", lambda: k_kv.kv_forward(xl),
+        lambda: k_kv.kv_forward_plain(xl),
+        4 * elems + LONG_WINDOWS * CHANNELS, 12 * elems)
+    del xl, got, want
 
     # -- read path on one decode slab: 8 windows, packed as the tier packs ---
     nwin = DECODE_ELEMS // (WINDOW * CHANNELS)
@@ -1011,10 +1093,25 @@ def pnm_path(torch, serve, build, params):
         "d c on 4 shards": dict(pnm_topk=16, importance="attention",
                                 shards=4, placement="hash-stripe"),
     }
+    from repro_torch.kernels import pnm_score as k_pnm
+
     reps, total = {}, {name: 0 for name in build.KERNELS}
+    score_wall = []
+    wrapper = k_pnm.page_scores_u16
+
+    def timed_scores(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = wrapper(*args, **kwargs)       # returns on the host: synced
+        score_wall.append(time.perf_counter() - t0)
+        return out
+
     for case, extra in cases.items():
         build.reset_launches()
-        rep = serve(**kw, **extra)
+        k_pnm.page_scores_u16 = timed_scores
+        try:
+            rep = serve(**kw, **extra)
+        finally:
+            k_pnm.page_scores_u16 = wrapper
         torch.cuda.synchronize()
         launches = dict(build.LAUNCHES)
         toks = rep.tokens[0]
@@ -1055,7 +1152,11 @@ def pnm_path(torch, serve, build, params):
     print(f"[pnm] b == a tokens, d == c tokens; c ships "
           f"{c.tier_link_out / a.tier_link_out:.4f}x a's link bytes; "
           f"pnm_score {total['pnm_score'] / tokens:.4f} launches per token "
-          f"over b-d ({total['pnm_score']} in {tokens} tokens)", flush=True)
+          f"over b-d ({total['pnm_score']} in {tokens} tokens); the "
+          f"page_scores_u16 wrapper "
+          f"{1e3 * sum(score_wall) / len(score_wall):.3f} ms wall per "
+          f"gather and shard (mean of {len(score_wall)}, min "
+          f"{1e3 * min(score_wall):.3f})", flush=True)
     return total
 
 

@@ -1,9 +1,15 @@
-"""Design alternatives of the port's decode attention, elastic matmul and
-fused KV read, timed on one NVIDIA GPU beside the shipped choice.
+"""Design alternatives of the port's decode attention, elastic matmul,
+fused KV read, LZ4 match, page scoring and KV forward, timed on one
+NVIDIA GPU beside the shipped choice.
 
 Run from the repository root on a machine with a card:
 
-    python3 chip_variants.py
+    python3 chip_variants.py [--only score,forward,...] [--parent CSRC]
+
+``--only`` runs the named sweeps (attention, matmul, kv_read, inverse,
+match, score, forward; default all); ``--parent`` names another
+checkout's ``src/repro_torch/csrc``, whose ``pnm_score.cu`` and
+``kv_delta.cu`` then join the scoring and forward sweeps as ``parent``.
 
 - Decode attention, q (1, 14, 64) over a (1, S, 2, 64) bf16 cache: at
   each valid length, every block size (``chunk``) of 2 to 64 blocks a
@@ -38,6 +44,23 @@ Run from the repository root on a machine with a card:
   segments (shipped: 4), a warp or 2-8 warps per stream (shipped: 16),
   1-8 streams per block, and the lanes' length and mask-scan reach; then
   the shipped kernel's clocks per phase (``PHASE_CLOCKS``).
+- Page scoring at the served gather (64 pages x 64 rows x 128
+  channels) and at a long-context one (2048 pages): the shipped
+  ``pnm_score.cu`` against variants (``SCORE_VARIANTS``): a cluster of 2
+  or 4 blocks a page (``pages_by_cluster``; shipped: a block a page), 3
+  or 4 stages (shipped 2), 8 or 16
+  values a lane in flight (rows summed at once; shipped 32), 2 or 3
+  blocks an SM in the persistent grid (shipped 4), 8 KiB stages
+  (shipped 16), 512 threads a block (shipped 256).
+- KV forward at the served flush (128 windows x 64 x 128) and at 2048
+  windows: the shipped ``kv_delta.cu`` forward against variants
+  (``FORWARD_VARIANTS``): 64 channels a block, 4 or 16 token groups
+  (shipped 32 channels, 8 groups), registers capped for 1 or 6 resident
+  blocks an SM
+  (``__launch_bounds__``; shipped 4), and the mode found by a warp per
+  channel walking its
+  distinct exponents in increasing order (``MODE_BY_WARP``) instead of
+  the counted bins.
 
 Every call is held to its plain version (the tolerances of
 ``chip_smoke.py``); times are device time per call from
@@ -69,6 +92,11 @@ VALID_LENS = (576, 1024, 1536, 2048, 3072, 4096, 4097, 8192, 16384,
               32768)
 CHUNKS = (32, 64, 96, 128, 160, 192, 256, 320, 384, 512, 768, 1024)
 KERNEL_SPLITS = 64           # blocks a row the kernel takes (kMaxSplits)
+
+
+def in_turns(variants: dict) -> list:
+    """Shipped, each variant twice, shipped."""
+    return ["shipped"] + [v for v in variants for _ in (0, 1)] + ["shipped"]
 
 
 def attention_sweep() -> None:
@@ -272,10 +300,10 @@ MATCH_VARIANTS = {
 }
 
 
-def variant_libs(source: str, variants: dict) -> dict:
-    """Build every variant of ``csrc/<source>.cu``, one nvcc each,
+def variant_libs(source: str, variants: dict, csrc=build.CSRC) -> dict:
+    """Build every variant of ``<csrc>/<source>.cu``, one nvcc each,
     together: {variant: library, its C launchers' signatures set}."""
-    src = (build.CSRC / f"{source}.cu").read_text()
+    src = (csrc / f"{source}.cu").read_text()
     out = build.BUILD_DIR / "variants"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -289,7 +317,7 @@ def variant_libs(source: str, variants: dict) -> dict:
         cu.write_text(text)
         so = out / f"lib{source}_{name}.so"
         procs[name] = (so, subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o",
+            [build._nvcc(), *build.NVCC_FLAGS, "-I", str(csrc), "-o",
              str(so), str(cu)]))
     libs = {}
     for name, (so, proc) in procs.items():
@@ -365,8 +393,7 @@ def kv_read(variants: dict) -> None:
             rows, ids, starts.tolist(), n, C, beta, view)
         flat_want = k_bitplane.unpack_planes_plain(rows, ids)
         times, unpack_times = [], []
-        order = ["shipped"] + [v for v in variants for _ in (0, 1)] \
-            + ["shipped"]
+        order = in_turns(variants)
         for name in order:
             lib = libs[name]
             out = torch.empty((nwin, n, C), dtype=torch.int16, device="cuda")
@@ -408,8 +435,7 @@ def inverse(variants: dict) -> None:
     want = k_kv.kv_inverse_plain(cm, beta, precision.MAN4)
     libs = dict(shipped=build.load("kv_delta"), **variants)
     times = []
-    for name in ["shipped"] + [v for v in variants for _ in (0, 1)] \
-            + ["shipped"]:
+    for name in in_turns(variants):
         lib = libs[name]
         out = torch.empty((nwin, n, C), dtype=torch.int16, device="cuda")
 
@@ -536,8 +562,7 @@ def match_sweep_at(variants: dict, what: str, slab, st, en) -> None:
     want = k_lz4.match_events_slab(slab.cpu().numpy(), st, en, force="numpy")
     libs = dict(shipped=build.load("lz4_match"), **variants)
     times = []
-    for name in ["shipped"] + [v for v in variants for _ in (0, 1)] \
-            + ["shipped"]:
+    for name in in_turns(variants):
         call, out, rows = k_lz4.match_launch(slab, st, en, lib=libs[name])
         call()
         got = k_lz4.match_result(out, rows)
@@ -548,21 +573,295 @@ def match_sweep_at(variants: dict, what: str, slab, st, en) -> None:
           f"{want[0].size} events), us: " + ", ".join(times), flush=True)
 
 
+def pages_by_cluster(k: int) -> tuple:
+    """pnm_score.cu with a cluster of ``k`` blocks a page: block r of a
+    cluster takes chunks r, r + k, .. of each page, and at the end the
+    blocks push their maxima into block 0's shared memory (distributed
+    shared memory, one remote mbarrier arrival each), which merges them."""
+    return (
+        ("#include <cuda_runtime.h>\n",
+         "#include <cooperative_groups.h>\n#include <cuda_runtime.h>\n"),
+        ("constexpr int kMaxSlots = 1024;      // pages a block takes, at most\n",
+         "constexpr int kMaxSlots = 1024;      // pages a block takes, at most\n"
+         f"constexpr int kCtasPerPage = {k};\n"
+         "namespace cg = cooperative_groups;\n"
+         "__device__ __forceinline__ void cluster_arrive() {\n"
+         '  asm volatile("barrier.cluster.arrive.relaxed.aligned;\\n" ::: '
+         '"memory");\n}\n'
+         "__device__ __forceinline__ void cluster_wait() {\n"
+         '  asm volatile("barrier.cluster.wait.aligned;\\n" ::: "memory");\n'
+         "}\n"),
+        ("  const int blocks = gridDim.x;\n  const int blk = blockIdx.x;\n",
+         "  constexpr int K = kCtasPerPage;\n"
+         "  __shared__ __align__(8) uint64_t merged;  // block 0: the pushes\n"
+         "  __shared__ float inbox[K - 1][kMaxSlots]; // block 0: peers' maxima\n"
+         "  const int rank = static_cast<int>(cg::this_cluster().block_rank());\n"
+         "  const int blocks = gridDim.x / K;\n  const int blk = blockIdx.x / K;\n"),
+        ("  const int chunks = slots * per_page;\n"
+         "  auto chunk_page = [&](int i) { return i / per_page; };\n"
+         "  auto chunk_row = [&](int i) { return (i % per_page) * R; };\n",
+         "  const int mine = per_page > rank ? (per_page - rank - 1) / K + 1 : 0;\n"
+         "  const int chunks = slots * mine;\n"
+         "  auto chunk_page = [&](int i) { return i / mine; };\n"
+         "  auto chunk_row = [&](int i) { return (rank + K * (i % mine)) * R; };\n"),
+        ("    for (int s = 0; s < kStages; ++s) mbar_init(&full[s]);\n",
+         "    for (int s = 0; s < kStages; ++s) mbar_init(&full[s]);\n"
+         "    if (rank == 0)\n"
+         '      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\\n" ::"r"(\n'
+         '                       smem_addr(&merged)), "r"(K - 1) : "memory");\n'),
+        ("  for (int i = tid; i < slots; i += kThreads) {\n    vl[i]",
+         "  cluster_arrive();        // peers push once block 0 runs\n"
+         "  for (int i = tid; i < slots; i += kThreads) {\n    vl[i]"),
+        ("  for (int i = tid; i < slots; i += kThreads)\n"
+         "    out[blk + (long long)i * blocks] = pm[i];\n}\n",
+         "  cluster_wait();\n"
+         "  if (rank != 0) {\n"
+         "    float* box = cg::this_cluster().map_shared_rank(inbox[rank - 1], 0);\n"
+         "    for (int i = tid; i < slots; i += kThreads) box[i] = pm[i];\n"
+         "    __syncthreads();\n"
+         "    if (tid == 0) {\n"
+         "      uint32_t remote;\n"
+         '      asm volatile("mapa.shared::cluster.u32 %0, %1, 0;\\n"\n'
+         '                   : "=r"(remote) : "r"(smem_addr(&merged)));\n'
+         '      asm volatile("fence.acq_rel.cluster;\\n"\n'
+         '                   "mbarrier.arrive.release.cluster.shared::cluster.b64 _, "\n'
+         '                   "[%0];\\n" ::"r"(remote) : "memory");\n'
+         "    }\n"
+         "    return;\n"
+         "  }\n"
+         "  uint32_t done = 0;\n"
+         "  while (!done) {\n"
+         "    asm volatile(\n"
+         '        "{\\n.reg .pred p;\\n"\n'
+         '        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "\n'
+         '        "0;\\nselp.u32 %0, 1, 0, p;\\n}\\n"\n'
+         '        : "=r"(done) : "r"(smem_addr(&merged)) : "memory");\n'
+         "  }\n"
+         "  for (int i = tid; i < slots; i += kThreads) {\n"
+         "    float m = pm[i];\n"
+         "    for (int r = 1; r < K; ++r) m = nan_max(m, inbox[r - 1][i]);\n"
+         "    out[blk + (long long)i * blocks] = m;\n"
+         "  }\n}\n"),
+        ("  const int R = max(1, min(kStageBytes / (2 * C), T));\n",
+         "  const int R = max(1, min(kStageBytes / (2 * C),\n"
+         "                           (T + kCtasPerPage - 1) / kCtasPerPage));\n"),
+        ("  const int blocks = max(min(P, kCtasPerSm * sms), (P + kMaxSlots - 1) /\n"
+         "                                                       kMaxSlots);\n",
+         "  const int blocks = max(min(P, max(1, kCtasPerSm * sms / kCtasPerPage)),\n"
+         "                         (P + kMaxSlots - 1) / kMaxSlots);\n"),
+        ("  kern<<<blocks, kThreads, smem, stream>>>(x, vl, dg, o, P, T, C, R, bulk);\n"
+         "  return cudaSuccess;\n",
+         "  cudaLaunchConfig_t cfg = {};\n"
+         "  cfg.gridDim = dim3(blocks * kCtasPerPage);\n"
+         "  cfg.blockDim = dim3(kThreads);\n"
+         "  cfg.dynamicSmemBytes = smem;\n"
+         "  cfg.stream = stream;\n"
+         "  cudaLaunchAttribute attr[1];\n"
+         "  attr[0].id = cudaLaunchAttributeClusterDimension;\n"
+         "  attr[0].val.clusterDim.x = kCtasPerPage;\n"
+         "  attr[0].val.clusterDim.y = 1;\n"
+         "  attr[0].val.clusterDim.z = 1;\n"
+         "  cfg.attrs = attr;\n"
+         "  cfg.numAttrs = 1;\n"
+         "  return cudaLaunchKernelEx(&cfg, kern, x, vl, dg, o, P, T, C, R, bulk);\n"),
+    )
+
+
+# Variants of pnm_score.cu (shipped: a block a page, 2 stages of at most
+# 16 KiB, 32 values a lane in flight, 4 blocks an SM, 256 threads).
+SCORE_VARIANTS = {
+    **{f"k{k}": pages_by_cluster(k) for k in (2, 4)},
+    **{f"s{n}": const_variant("pnm_score", kStages=n) for n in (3, 4)},
+    **{f"v{n}": const_variant("pnm_score", kRowValues=n) for n in (8, 16)},
+    **{f"sm{n}": const_variant("pnm_score", kCtasPerSm=n) for n in (2, 3)},
+    "b8k": const_variant("pnm_score", kStageBytes=8192),
+    "t512": const_variant("pnm_score", kThreads=512),
+}
+
+# kv_delta.cu with the mode of each channel found by one warp walking the
+# channel's distinct exponents in increasing order: a warp minimum of
+# the exponents above the last one found, then a warp count of it; the
+# first of the largest counts wins, so ties go to the smallest exponent.
+MODE_BY_WARP = (
+    ("""__device__ __forceinline__ void window_modes(const Words<S>& w,""",
+     """__device__ __forceinline__ void window_modes(const uint16_t* tile,
+                                             const Words<S>& w,"""),
+    ("window_modes(w, bins,", "window_modes(tile, w, bins,"),
+    ("""  if (ci < tc) {
+#pragma unroll
+    for (int j = 0; j < S; ++j)
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        if (8 * (g + kFwdGroups * j) + k < n)
+          bins[exponent(w[j][k]) * kFwdChannels + ci] = 0;
+  }
+  __syncthreads();
+  Key mine = 0;
+  if (ci < tc) {
+    count_words(w, bins, n, ci, g, mine);
+    atomicMax(&best[ci], mine);
+  }
+""", """  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int cc = warp; cc < tc; cc += kFwdThreads / 32) {
+    int last = -1;
+    Key top = 0;
+    while (true) {
+      unsigned lo = 256;
+      for (int t = lane; t < n; t += 32) {
+        const int e = exponent(tile[t * kFwdChannels + cc]);
+        if (e > last && e < (int)lo) lo = e;
+      }
+      lo = __reduce_min_sync(0xffffffffu, lo);
+      if (lo == 256) break;
+      unsigned cnt = 0;
+      for (int t = lane; t < n; t += 32)
+        cnt += exponent(tile[t * kFwdChannels + cc]) == (int)lo;
+      cnt = __reduce_add_sync(0xffffffffu, cnt);
+      const Key k = mode_key<Key>(cnt, lo);
+      top = k > top ? k : top;
+      last = lo;
+    }
+    if (lane == 0) best[cc] = top;
+  }
+"""),
+)
+
+# Variants of kv_delta.cu's forward (shipped: 32 channels and 8 token
+# groups a block, registers for 4 blocks an SM, the counted bins).
+FORWARD_VARIANTS = {
+    "fwd-c64g4": const_variant("kv_delta", kFwdChannels=64, kFwdGroups=4),
+    "fwd-c64g8": const_variant("kv_delta", kFwdChannels=64, kFwdGroups=8),
+    "fwd-c32g4": const_variant("kv_delta", kFwdGroups=4),
+    "fwd-c32g16": const_variant("kv_delta", kFwdGroups=16),
+    **{f"fwd-mb{n}": const_variant("kv_delta", kFwdMinBlocks=n)
+       for n in (1, 6)},
+    "fwd-warp-mode": MODE_BY_WARP,
+}
+
+
+def score_sweep(variants: dict) -> None:
+    """Page scoring at the served and a long-context gather, shipped and
+    variants, each call held bit-equal to the plain version."""
+    import numpy as np
+
+    from repro_torch.kernels import pnm_score as k_pnm
+
+    libs = dict(shipped=build.load("pnm_score"), **variants)
+    rng = np.random.default_rng(21)
+    C = cs.CHANNELS
+    digest = torch.from_numpy(rng.standard_normal(C).astype(np.float32)).cuda()
+    for P in (cs.PAGES, cs.LONG_PAGES):
+        T = cs.PAGE_ROWS
+        x = rng.standard_normal((P, T, C), dtype=np.float32) * 0.7
+        pages = torch.from_numpy(((x.view(np.uint32) >> 16).astype(
+            np.uint16)).view(np.int16)).cuda()
+        valid = torch.full((P,), T, dtype=torch.int32, device="cuda")
+        want = k_pnm.page_scores_plain(pages, valid, digest)
+        b, _ = cs.bound_ms(cs.score_bytes(P), 2 * P * T * C)
+        times = []
+        for name in in_turns(variants):
+            out = torch.empty(P, dtype=torch.float32, device="cuda")
+
+            def call(lib=libs[name], out=out):
+                build.check(lib.pnm_score(
+                    pages.data_ptr(), valid.data_ptr(), digest.data_ptr(),
+                    out.data_ptr(), P, T, C, 0,
+                    torch.cuda.current_stream().cuda_stream), "pnm_score")
+
+            call()
+            torch.cuda.synchronize()
+            if not cs.same_scores(torch, out, want):
+                raise AssertionError(f"pnm_score {name} ({P} pages) differs "
+                                     "from its plain version")
+            times.append(f"{name} {cs.timed(torch, call)['ms'] * 1e3:.2f}")
+        print(f"[variant] pnm_score {P} x {T} x {C} (bound "
+              f"{b * 1e3:.3f}), us: " + ", ".join(times), flush=True)
+
+
+def forward_sweep(variants: dict) -> None:
+    """The KV forward (finding beta) at the served and a long-context
+    flush, shipped and variants, each call held bit-equal to the plain
+    version."""
+    libs = dict(shipped=build.load("kv_delta"), **variants)
+    n, C = cs.WINDOW, cs.CHANNELS
+    for B in (cs.FLUSH_WINDOWS, cs.LONG_WINDOWS):
+        x = cs.kv_windows(torch, B, n, 22)
+        want, want_beta = k_kv.kv_forward_plain(x)
+        elems = B * n * C
+        b, _ = cs.bound_ms(4 * elems + B * C, 12 * elems)
+        times = []
+        for name in in_turns(variants):
+            out = torch.empty((B, C, n), dtype=torch.int16, device="cuda")
+            beta = torch.empty((B, C), dtype=torch.uint8, device="cuda")
+
+            def call(lib=libs[name], out=out, beta=beta):
+                build.check(lib.kv_delta_fwd(
+                    x.data_ptr(), out.data_ptr(), beta.data_ptr(), B, n, C,
+                    1, 0, torch.cuda.current_stream().cuda_stream),
+                    "kv_delta_fwd")
+
+            call()
+            torch.cuda.synchronize()
+            if not (torch.equal(out, want) and torch.equal(beta, want_beta)):
+                raise AssertionError(f"kv_delta_fwd {name} ({B} windows) "
+                                     "differs from its plain version")
+            times.append(f"{name} {cs.timed(torch, call)['ms'] * 1e3:.2f}")
+        print(f"[variant] kv_delta_fwd {B} x {n} x {C} (bound "
+              f"{b * 1e3:.3f}), us: " + ", ".join(times), flush=True)
+
+
+SWEEPS = ("attention", "matmul", "kv_read", "inverse", "match", "score",
+          "forward")
+
+
 def main() -> None:
+    import argparse
+    from pathlib import Path
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", default=",".join(SWEEPS),
+                    help="comma-separated sweeps to run")
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="another checkout's src/repro_torch/csrc")
+    args = ap.parse_args()
+    only = set(args.only.split(","))
+    if only - set(SWEEPS):
+        cs.fail(f"unknown sweeps {sorted(only - set(SWEEPS))}")
     if not torch.cuda.is_available():
         cs.fail("no CUDA device")
     print(cs.card_line(), flush=True)
     build.build_all(("decode_attn", "elastic_matmul", "bitplane_unpack",
-                     "kv_delta", "bitplane_pack", "lz4_prep", "lz4_match"))
-    matmul = variant_libs("elastic_matmul", MATMUL_VARIANTS)
-    kv = variant_libs("bitplane_unpack", KV_READ_VARIANTS)
-    inv = variant_libs("kv_delta", INVERSE_VARIANTS)
-    match = variant_libs("lz4_match", MATCH_VARIANTS)
-    attention_sweep()
-    matmul_m1(matmul)
-    kv_read(kv)
-    inverse(inv)
-    match_sweep(match)
+                     "kv_delta", "bitplane_pack", "lz4_prep", "lz4_match",
+                     "pnm_score"))
+
+    def libs(source, variants, sweep):
+        if sweep not in only:
+            return {}
+        out = variant_libs(source, variants)
+        if args.parent is not None and sweep in ("score", "forward"):
+            out.update(variant_libs(source, {"parent": ()}, args.parent))
+        return out
+
+    matmul = libs("elastic_matmul", MATMUL_VARIANTS, "matmul")
+    kv = libs("bitplane_unpack", KV_READ_VARIANTS, "kv_read")
+    inv = libs("kv_delta", INVERSE_VARIANTS, "inverse")
+    match = libs("lz4_match", MATCH_VARIANTS, "match")
+    score = libs("pnm_score", SCORE_VARIANTS, "score")
+    fwd = libs("kv_delta", FORWARD_VARIANTS, "forward")
+    if "attention" in only:
+        attention_sweep()
+    if "matmul" in only:
+        matmul_m1(matmul)
+    if "kv_read" in only:
+        kv_read(kv)
+    if "inverse" in only:
+        inverse(inv)
+    if "match" in only:
+        match_sweep(match)
+    if "score" in only:
+        score_sweep(score)
+    if "forward" in only:
+        forward_sweep(fwd)
 
 
 if __name__ == "__main__":

@@ -21,6 +21,7 @@ from repro_torch.kernels import (  # noqa: E402
     pnm_score,
 )
 from repro_torch.models.model import init_params  # noqa: E402
+import torch_kv_score_cases as kv_score_cases  # noqa: E402
 import torch_lz4_cases  # noqa: E402
 from repro_torch.runtime import LOSSLESS_POLICY, ServeEngine  # noqa: E402
 
@@ -273,6 +274,46 @@ def test_pnm_score_batch_independent_and_ties(card):
     for other in (big, alone, cpu):
         assert other.tobytes() == batch.tobytes()
     assert batch[0] == batch[4]
+
+
+@pytest.mark.parametrize("P,T,C", kv_score_cases.SCORE_SHAPES_CARD)
+def test_pnm_score_kernel_edge_pages(card, P, T, C):
+    """The served and long-context gathers, P above the SM count and past
+    a full grid's slots, T a multiple of no row group, C from 1 to 1024:
+    bit-equal to the plain version, one launch, -inf for the empty page,
+    NaN and inf past valid ignored."""
+    u, valid, digest = kv_score_cases.score_case(P, T, C, seed=P + T + C)
+    pages = torch.from_numpy(u.view(np.int16)).to(card)
+    v = torch.from_numpy(valid).to(card)
+    d = torch.from_numpy(digest).to(card)
+    before = build.LAUNCHES["pnm_score"]
+    got = pnm_score.page_scores(pages, v, d)
+    assert build.LAUNCHES["pnm_score"] == before + 1
+    assert _scores_equal(got, pnm_score.page_scores_plain(pages, v, d))
+    assert float(got[0]) == float("-inf") and bool(torch.isnan(got[1]))
+    if P > 4:
+        assert bool(torch.isfinite(got[3:5]).all()) or T == 1
+
+
+@pytest.mark.parametrize("P,T,C", [(64, 64, 128), (6, 9, 40), (3, 4, 1024),
+                                   (5, 7, 1)])
+def test_pnm_score_kernel_offset_views(card, P, T, C):
+    """Inputs at an offset into larger buffers (pages 2 bytes past a
+    16-byte boundary: no bulk copy) score as the aligned ones do."""
+    u, valid, digest = kv_score_cases.score_case(P, T, C, seed=P * C)
+    pages = torch.from_numpy(u.view(np.int16)).to(card)
+    v = torch.from_numpy(valid).to(card)
+    d = torch.from_numpy(digest).to(card)
+    want = pnm_score.page_scores(pages, v, d)
+    big = torch.zeros(pages.numel() + 1, dtype=torch.int16, device=card)
+    big[1:] = pages.reshape(-1)
+    vbig = torch.zeros(P + 1, dtype=torch.int32, device=card)
+    vbig[1:] = v
+    dbig = torch.zeros(C + 1, dtype=torch.float32, device=card)
+    dbig[1:] = d
+    got = pnm_score.page_scores(big[1:].view(P, T, C), vbig[1:], dbig[1:])
+    assert _scores_equal(got, want)
+    assert _scores_equal(got, pnm_score.page_scores_plain(pages, v, d))
 
 
 def test_pnm_gather_on_card_identical_to_cpu(card):
@@ -545,6 +586,57 @@ def test_kv_forward_kernel_matches_plain(card, B, n, C):
     got, _ = kv_delta.kv_forward(x, arb)
     assert torch.equal(got, kv_delta.kv_forward_plain(x, arb)[0])
     assert torch.equal(kv_delta.kv_inverse(got, arb), x)
+
+
+@pytest.mark.parametrize("B,n,C", kv_score_cases.KV_SHAPES_CARD)
+def test_kv_forward_kernel_edge_windows(card, B, n, C):
+    """The served and long-context flushes, n across a token group and
+    the tile, B from 1 to 2048, C from 1 to 1024, a many-way tie, an
+    all-distinct channel, exponents 0 and 255 tied: out and beta
+    bit-equal to the plain version, in one launch; the given-beta path
+    too."""
+    x = torch.from_numpy(kv_score_cases.kv_case(B, n, C, seed=B + n + C)
+                         .view(np.int16)).to(card)
+    before = build.LAUNCHES["kv_delta_fwd"]
+    got, beta = kv_delta.kv_forward(x)
+    assert build.LAUNCHES["kv_delta_fwd"] == before + 1
+    want, want_beta = kv_delta.kv_forward_plain(x)
+    assert torch.equal(beta, want_beta) and torch.equal(got, want)
+    if n >= 4:
+        assert int(beta[0, 0]) == kv_score_cases.tie_winner(n)
+    given, _ = kv_delta.kv_forward(x, beta)
+    assert torch.equal(given, want)
+
+
+@pytest.mark.parametrize("B,n,C", [(128, 64, 128), (3, 37, 40), (2, 300, 40),
+                                   (1, 17, 1)])
+def test_kv_forward_kernel_offset_view(card, B, n, C):
+    """Windows 2 bytes past a 16-byte boundary (no vector loads) and a
+    given beta at an odd offset: as from aligned buffers."""
+    u = kv_score_cases.kv_case(B, n, C, seed=n)
+    x = torch.from_numpy(u.view(np.int16)).to(card)
+    big = torch.zeros(x.numel() + 1, dtype=torch.int16, device=card)
+    big[1:] = x.reshape(-1)
+    got, beta = kv_delta.kv_forward(big[1:].view(B, n, C))
+    want, want_beta = kv_delta.kv_forward_plain(x)
+    assert torch.equal(beta, want_beta) and torch.equal(got, want)
+    bbig = torch.zeros(B * C + 1, dtype=torch.uint8, device=card)
+    bbig[1:] = beta.reshape(-1)
+    given, _ = kv_delta.kv_forward(big[1:].view(B, n, C), bbig[1:].view(B, C))
+    assert torch.equal(given, want)
+
+
+def test_kv_forward_kernel_counts_past_24_bits(card):
+    """A channel whose modal count needs more than 24 bits (the wide-key
+    kernel): the mode still wins over an exponent seen less often."""
+    n = (1 << 24) + 3
+    u = np.full((1, n, 1), 0x3F80, np.uint16)          # exponent 127
+    u[0, : (1 << 23)] = 0x4000                          # exponent 128
+    x = torch.from_numpy(u.view(np.int16)).to(card)
+    got, beta = kv_delta.kv_forward(x)
+    want, want_beta = kv_delta.kv_forward_plain(x)
+    assert int(beta[0, 0]) == 127
+    assert torch.equal(beta, want_beta) and torch.equal(got, want)
 
 
 @pytest.mark.parametrize("view", [None] + VIEWS,

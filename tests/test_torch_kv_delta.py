@@ -7,8 +7,12 @@ tensors) against the reference's Pallas kernels in interpret mode
 oracles and the numpy chain ``repro.core.kv_transform``; the modal beta
 with ties to the smallest exponent; any beta round-tripping with
 specials; and the inverse's view round against ``reconstruct_u16`` of
-the exact inverse, for every view the tier produces.  The CUDA kernels
-themselves run only on the card (``tests/test_torch_kernels_gpu.py``).
+the exact inverse, for every view the tier produces; the windows of
+``tests/torch_kv_score_cases.py`` (many-way ties, all-distinct channels,
+n across a token group and past the kernel's 256-token tile, C from 1
+to 1024) byte-identical to the numpy batch.  The CUDA kernels themselves
+run only on the card (``tests/test_torch_kernels_gpu.py``), on the same
+windows.
 """
 
 import numpy as np
@@ -26,6 +30,7 @@ from repro.kernels import ref as rref  # noqa: E402
 from repro_torch.core import precision as tprec  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import kv_delta as tkv  # noqa: E402
+import torch_kv_score_cases as cases  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -94,6 +99,32 @@ def test_batch_matches_numpy_batch(B, n, C):
                                                           for m in metas]))
     np.testing.assert_array_equal(_u(tkv.kv_inverse(out, beta)),
                                   rkv.kv_inverse_batch(streams, metas))
+
+
+@pytest.mark.parametrize("B,n,C", cases.KV_SHAPES_CPU)
+def test_forward_edge_windows_match_numpy_batch(B, n, C):
+    """The card tests' windows: the plain forward byte-identical to
+    ``kv_forward_batch`` (modal beta, ties to the smallest exponent), and
+    window 0 with that beta to the Pallas kernel (the jnp oracle where
+    its channel block does not divide C)."""
+    w = cases.kv_case(B, n, C, seed=B * n + C)
+    streams, metas = rkv.kv_forward_batch(w)
+    out, beta = tkv.kv_forward(_t(w))
+    want_beta = np.stack([m.beta for m in metas])
+    np.testing.assert_array_equal(beta.numpy(), want_beta)
+    np.testing.assert_array_equal(_u(out).reshape(B, -1), streams)
+    if n >= 4:
+        assert int(beta[0, 0]) == cases.tie_winner(n)
+    if C >= 3 and n >= 2:
+        assert int(beta[0, 2]) == 0                  # 0 and 255 tie
+    jb = jnp.asarray(want_beta[0].astype(np.int32))
+    # the Pallas kernel takes C a multiple of its 128-channel block (or
+    # less); the jnp oracle any C
+    twin = rops.kv_transform if C % min(128, C) == 0 else rref.kv_delta_ref
+    np.testing.assert_array_equal(
+        _u(out[0]), np.asarray(twin(jnp.asarray(w[0]), jb)))
+    given, _ = tkv.kv_forward(_t(w), beta)
+    assert torch.equal(given, out)
 
 
 def test_modal_beta_ties_go_to_the_smallest_exponent():

@@ -4,7 +4,9 @@
   reference's numpy twin and its Pallas kernel (interpret mode), within
   the f32 summation bound ``C * eps32 * max_t sum_c |row_tc * digest_c|``
   (the two sum each dot in different orders); ragged pages, the ``-inf``
-  page, NaN rows, and a page's score bitwise the same in any batch;
+  page, NaN rows, and a page's score bitwise the same in any batch; the
+  card tests' pages (``tests/torch_kv_score_cases.py``: C from 1 to 1024,
+  NaN and inf only past ``valid``);
 * ``topk_select`` against the JAX tie-break;
 * tier gathers: receipts identical to the reference's field by field
   except ``gather.scores`` (the bound above), winners and their bytes
@@ -42,6 +44,7 @@ from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import model as tm  # noqa: E402
 from repro_torch.runtime import ServeEngine as TServe  # noqa: E402
 from repro_torch.runtime import paging as tpaging  # noqa: E402
+import torch_kv_score_cases as cases  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -98,6 +101,29 @@ def test_page_scores_match_reference_numpy_and_pallas(C):
         assert got[4] == ref[4] == -np.inf
         live = valid > 0
         assert (np.abs(got[live] - ref[live]) <= bound[live]).all(), force
+
+
+@pytest.mark.parametrize("P,T,C", cases.SCORE_SHAPES_CPU)
+def test_page_scores_edge_pages_match_reference(P, T, C):
+    """The card tests' pages: NaN where the reference has NaN, -inf
+    exactly where it has -inf, the rest within the summation bound (or
+    equal, for inf); NaN and inf past valid change nothing."""
+    u16, valid, digest = cases.score_case(P, T, C, seed=P * T + C)
+    got = _plain(u16, valid, digest)
+    bound = _score_bound([u16[i, :v] for i, v in enumerate(valid)], digest)
+    for force in ("numpy", "pallas"):
+        ref = rpnm.page_scores(_f32(u16), valid, digest, force=force)
+        nan = np.isnan(ref)
+        assert (np.isnan(got) == nan).all(), force
+        assert ((got == -np.inf) == (ref == -np.inf)).all(), force
+        live = ~nan
+        close = (got[live] == ref[live]) | (
+            np.abs(got[live] - ref[live]) <= bound[live])
+        assert close.all(), force
+    assert got[0] == -np.inf and np.isnan(got[1])
+    if P > 4:
+        assert np.isfinite(got[3]) or valid[3] == 0
+        assert np.isfinite(got[4]) or valid[4] == 0
 
 
 def test_page_scores_u16_ragged_matches_reference():
