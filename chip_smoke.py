@@ -25,9 +25,12 @@ Phases (any failure exits non-zero and prints no result line):
    stream; streams past 65536 bytes at the 0xFFFF window) — and time
    kernel, plain version and the one PyTorch call computing the same
    function where there is one (SDPA under each backend that takes the
-   shape, the fastest reported; torch.matmul at M = 1 and 16), page
-   scoring at 2048 pages and the KV forward at 2048 windows (long
-   context; checked too, and timed also from a cold L2 cache), decode
+   shape, the fastest reported; torch.matmul at M = 1 and 16), after the
+   floor of one launch (a 16-byte ``zero_()``); the pack at the flush slab
+   and at a 896 x 4864 weight and the prep over each one's planes with and
+   without run flags, page scoring at 2048 pages and the KV forward at
+   2048 windows (long context) — each checked too, and timed back to back
+   and from a cold L2 cache; decode
    attention at 4096 and 32768 cached positions, the elastic matmul at
    each view beside its byte bound, the fused KV read beside the
    two-launch chain it replaces, and the match launch beside the wrapper
@@ -44,8 +47,8 @@ Phases (any failure exits non-zero and prints no result line):
    qwen2-0.5b with random weights, KV spilling to a ``trace`` tier, with
    the kernel launch counts set to 0 just before and read just after
    (the KV read goes through the fused kernel alone: the standalone
-   inverse must not launch; every flush launches the prep and the match
-   kernel once each);
+   inverse must not launch; every flush launches the prep, without run
+   flags, and the match kernel once each);
 6. the PNM path at full width, one request per case, launch counts read
    per case: (a) classic readback, (b) a gather covering every candidate
    (tokens identical to a), (c) top-16 gathers with attention importance
@@ -93,6 +96,7 @@ PAGES, PAGE_ROWS = 64, 64    # gather candidates per KV kind at prefill
 # long context (128 k tokens): the pages a gather scores per layer and
 # kind, the windows of a flush
 LONG_PAGES = LONG_WINDOWS = 2048
+PACK_LONG = D_MODEL * D_FF   # a weight's pack: the MLP up-projection
 CHANNELS = KV_HEADS * HEAD_DIM
 VOCAB = 151936
 
@@ -179,20 +183,24 @@ def cold_ms(torch, fn, kernel: str, iters: int = 10):
     return us / 1e3 / iters if us > 0 else None
 
 
-def long_context_line(torch, what: str, kernel: str, fn, plain,
-                      nbytes: float, flops: float) -> None:
-    """Time a kernel at a long-context shape (back to back, inputs in L2
-    where they fit, and from a cold L2) beside its plain version and its
-    bound, and print it."""
+def warm_cold_line(torch, what: str, kernel: str, fn, plain,
+                   nbytes: float, flops: float) -> dict:
+    """Time a kernel (back to back, inputs in L2 where they fit, and from a
+    cold L2) beside its plain version and its bound, and print it.
+    Returns :func:`timed`'s keys with ``cold_ms``, ``plain_ms``,
+    ``bound_ms`` and ``bound_by``."""
     warm = timed(torch, fn, 20)
     cold = cold_ms(torch, fn, kernel)
     b, by = bound_ms(nbytes, flops)
+    plain_ms = timed(torch, plain, 5)["ms"]
     cold_s = "not measured" if cold is None else \
         f"{cold * 1e3:.2f} us ({100 * b / cold:.1f}% of the bound)"
     print(f"[kernel] {what}: {warm['ms'] * 1e3:.2f} us device back to back "
           f"({warm['ms_from']}; {100 * b / warm['ms']:.1f}% of the bound), "
           f"cold L2 {cold_s}; bound {b * 1e3:.3f} us by {by}; plain "
-          f"{timed(torch, plain, 5)['ms'] * 1e3:.2f} us", flush=True)
+          f"{plain_ms * 1e3:.2f} us", flush=True)
+    return dict(**warm, cold_ms=cold, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by)
 
 
 def bound_ms(nbytes: float, flops: float, peak: float = F32_FLOPS_S) -> tuple:
@@ -286,7 +294,7 @@ def check_pnm_score(torch, k_pnm, results):
             and bool(torch.isnan(got[7])) and bool(torch.isfinite(got[9]))):
         raise AssertionError("pnm_score at 2048 pages differs from its "
                              "plain version")
-    long_context_line(
+    warm_cold_line(
         torch, f"pnm_score long context ({LONG_PAGES} x {PAGE_ROWS} x "
         f"{CHANNELS})", "pnm_score_kernel",
         lambda: k_pnm.page_scores(big, full_long, digest),
@@ -375,7 +383,7 @@ def check_kv_and_unpack(torch, build, k_bitplane, k_kv, results):
         raise AssertionError(f"kv_delta_fwd {tuple(xl.shape)} differs from "
                              "its plain version")
     elems = LONG_WINDOWS * WINDOW * CHANNELS
-    long_context_line(
+    warm_cold_line(
         torch, f"kv_delta_fwd long context ({LONG_WINDOWS} x {WINDOW} x "
         f"{CHANNELS})", "kv_fwd_kernel", lambda: k_kv.kv_forward(xl),
         lambda: k_kv.kv_forward_plain(xl),
@@ -633,43 +641,72 @@ def kernel_api_path(torch, build, ops, k_mm):
     return launches
 
 
+def launch_floor(torch) -> dict:
+    """:func:`timed` of the smallest launch, a 16-byte ``zero_()``: the
+    device time no kernel's launch goes below."""
+    t = torch.ones(4, dtype=torch.int32, device="cuda")
+    return timed(torch, t.zero_)
+
+
+def check_pack_and_prep(torch, k_bitplane, k_lz4, gen, results):
+    """The pack at one flush slab and at a 896 x 4864 weight, then the prep
+    over each one's planes with and without run flags: bit-equal to the
+    plain versions and across two calls, each timed back to back and from
+    a cold L2 beside its bound, after the floor of one launch.  The JSON
+    rows are the flush slab's: the pack, and the prep as the match path
+    calls it (no run flags)."""
+    floor = launch_floor(torch)
+    print(f"[kernel] launch floor: a 16-byte zero_() {floor['ms'] * 1e3:.2f} "
+          f"us device ({floor['ms_from']}), {floor['call_ms'] * 1e3:.2f} us "
+          "per call back to back", flush=True)
+    for n, label in ((SLAB_ELEMS, "flush slab"),
+                     (PACK_LONG, f"{D_MODEL} x {D_FF} weight")):
+        x = kv_like(torch, n, gen)
+        got = k_bitplane.pack_planes_u16(x)
+        if not (torch.equal(got, k_bitplane.pack_planes_plain(x))
+                and torch.equal(got, k_bitplane.pack_planes_u16(x))):
+            raise AssertionError(f"bitplane_pack at {n} elements differs from "
+                                 "its plain version")
+        pack = warm_cold_line(
+            torch, f"bitplane_pack at the {label} ({n} elements)",
+            "pack_planes_kernel", lambda: k_bitplane.pack_planes_u16(x),
+            lambda: k_bitplane.pack_planes_plain(x), 4 * n, 64 * n)
+        slab = got.reshape(-1)
+        m = slab.numel()
+        for runb in (True, False):
+            out = k_lz4.lz4_prep(slab, runb=runb)
+            want = k_lz4.prep_plain(slab, runb=runb)
+            again = k_lz4.lz4_prep(slab, runb=runb)
+            if (out[2] is None) == runb or not all(
+                    torch.equal(g, w) and torch.equal(a, g)
+                    for g, w, a in zip(out, want, again) if w is not None):
+                raise AssertionError(f"lz4_prep ({m} B, runb {runb}) differs "
+                                     "from its plain version")
+            prep = warm_cold_line(
+                torch, f"lz4_prep over its planes ({m} B) "
+                + ("with run flags (13 B a position)" if runb else
+                   "without run flags, as the match path calls it (9 B)"),
+                "lz4_prep_kernel", lambda: k_lz4.lz4_prep(slab, runb=runb),
+                lambda: k_lz4.prep_plain(slab, runb=runb),
+                (13 if runb else 9) * m, 10 * m)
+        if n != SLAB_ELEMS:
+            continue
+        keep = ("ms", "call_ms", "ms_from", "plain_ms", "bound_ms", "bound_by")
+        results["bitplane_pack"] = dict(
+            name="bitplane_pack", route="cuda",
+            source="src/repro_torch/csrc/bitplane_pack.cu",
+            replaces="src/repro/kernels/bitplane.py:38", max_abs_err=0.0,
+            library_ms=None, **{k: pack[k] for k in keep})
+        results["lz4_prep"] = dict(
+            name="lz4_prep", route="cuda",
+            source="src/repro_torch/csrc/lz4_prep.cu",
+            replaces="src/repro/kernels/lz4.py:486", max_abs_err=0.0,
+            library_ms=None, **{k: prep[k] for k in keep})
+
+
 def check_kernels(torch, k_bitplane, k_lz4, k_attn, results):
     gen = torch.Generator(device="cuda").manual_seed(0)
-
-    # -- bit-plane pack at one full encode slab --------------------------------
-    x = kv_like(torch, SLAB_ELEMS, gen)
-    got = k_bitplane.pack_planes_u16(x)
-    want = k_bitplane.pack_planes_plain(x)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError("bitplane_pack differs from its plain version")
-    b, by = bound_ms(4 * SLAB_ELEMS, 64 * SLAB_ELEMS)
-    results["bitplane_pack"] = dict(
-        name="bitplane_pack", route="cuda",
-        source="src/repro_torch/csrc/bitplane_pack.cu",
-        replaces="src/repro/kernels/bitplane.py:38",
-        max_abs_err=0.0,
-        **timed(torch, lambda: k_bitplane.pack_planes_u16(x)),
-        plain_ms=timed(torch, lambda: k_bitplane.pack_planes_plain(x))["ms"],
-        bound_ms=b, bound_by=by, library_ms=None)
-
-    # -- LZ4 prep over that slab's packed planes -------------------------------
-    slab = got.reshape(-1)
-    n = slab.numel()
-    got3 = k_lz4.lz4_prep(slab)
-    want3 = k_lz4.prep_plain(slab)
-    torch.cuda.synchronize()
-    for g, w, what in zip(got3, want3, ("w", "h", "runb")):
-        if not torch.equal(g, w):
-            raise AssertionError(f"lz4_prep {what} differs from its plain "
-                                 "version")
-    b, by = bound_ms(13 * n, 10 * n)
-    results["lz4_prep"] = dict(
-        name="lz4_prep", route="cuda", source="src/repro_torch/csrc/lz4_prep.cu",
-        replaces="src/repro/kernels/lz4.py:486", max_abs_err=0.0,
-        **timed(torch, lambda: k_lz4.lz4_prep(slab)),
-        plain_ms=timed(torch, lambda: k_lz4.prep_plain(slab))["ms"],
-        bound_ms=b, bound_by=by, library_ms=None)
+    check_pack_and_prep(torch, k_bitplane, k_lz4, gen, results)
 
     # -- decode attention: bf16 and fp8 caches ----------------------------------
     q = torch.randn((1, HEADS, HEAD_DIM), generator=gen, device="cuda").to(
@@ -1178,15 +1215,16 @@ def _to(tree, dev):
 
 class ShapeRecorder:
     """Record the input shapes of ``module.name`` (which still runs) —
-    how the main path batches a kernel's work."""
+    how the main path batches a kernel's work — or, with ``key``, what
+    ``key(*args, **kw)`` says of each call."""
 
-    def __init__(self, module, name):
+    def __init__(self, module, name, key=None):
         self.original = getattr(module, name)
         self.counts = {}
 
         def wrapped(x, *args, **kw):
-            key = "x".join(map(str, x.shape))
-            self.counts[key] = self.counts.get(key, 0) + 1
+            k = key(x, *args, **kw) if key else "x".join(map(str, x.shape))
+            self.counts[k] = self.counts.get(k, 0) + 1
             return self.original(x, *args, **kw)
         setattr(module, name, wrapped)
 
@@ -1254,6 +1292,8 @@ def main():
 
     params = init_params(ARCHS["qwen2-0.5b"], seed=0, device="cuda")
     fwd_shapes = ShapeRecorder(k_kv, "kv_forward")
+    prep_calls = ShapeRecorder(k_lz4, "lz4_prep",
+                               lambda buf, runb=True: f"runb={runb}")
     build.reset_launches()
     rep = serve(arch="qwen2-0.5b", smoke=False, device="trace",
                 prompt_len=512, n_tokens=64, batch=1, requests=3,
@@ -1268,6 +1308,10 @@ def main():
         raise AssertionError(f"no spill/readback: {rep.spilled_pages} "
                              f"spilled, {rep.readback_pages} read back")
     k_kv.kv_forward = fwd_shapes.original
+    k_lz4.lz4_prep = prep_calls.original
+    if prep_calls.counts != {"runb=False": launches["lz4_prep"]}:
+        raise AssertionError(f"prep calls {prep_calls.counts} are not one "
+                             "launch each without run flags")
     if f"{FLUSH_WINDOWS}x{WINDOW}x{CHANNELS}" not in fwd_shapes.counts:
         raise AssertionError(f"the [kernel] check's prefill flush is not one "
                              f"the main path ran: {fwd_shapes.counts}")
@@ -1287,7 +1331,8 @@ def main():
     print(f"[main] wall tok/s {rep.tok_s:.3f}; compression ratio "
           f"{rep.kv_compression_ratio:.4f}; spilled {rep.spilled_pages}, "
           f"read back {rep.readback_pages}; launches {launches}; KV "
-          f"forward batches {fwd_shapes.counts}", flush=True)
+          f"forward batches {fwd_shapes.counts}; prep calls "
+          f"{prep_calls.counts}", flush=True)
     phase("main path")
     pnm_launches = pnm_path(torch, serve, build, params)
     results["pnm_score"]["launches"] = pnm_launches["pnm_score"]

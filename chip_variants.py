@@ -7,9 +7,10 @@ Run from the repository root on a machine with a card:
     python3 chip_variants.py [--only score,forward,...] [--parent CSRC]
 
 ``--only`` runs the named sweeps (attention, matmul, kv_read, inverse,
-match, score, forward; default all); ``--parent`` names another
-checkout's ``src/repro_torch/csrc``, whose ``pnm_score.cu`` and
-``kv_delta.cu`` then join the scoring and forward sweeps as ``parent``.
+match, score, forward, pack, prep; default all); ``--parent`` names
+another checkout's ``src/repro_torch/csrc``, whose ``pnm_score.cu``,
+``kv_delta.cu``, ``bitplane_pack.cu`` and ``lz4_prep.cu`` then join the
+scoring, forward, pack and prep sweeps as ``parent``.
 
 - Decode attention, q (1, 14, 64) over a (1, S, 2, 64) bf16 cache: at
   each valid length, every block size (``chunk``) of 2 to 64 blocks a
@@ -61,6 +62,17 @@ checkout's ``src/repro_torch/csrc``, whose ``pnm_score.cu`` and
   channel walking its
   distinct exponents in increasing order (``MODE_BY_WARP``) instead of
   the counted bins.
+- Bit-plane pack at the flush slab (131072 elements) and at a 896 x 4864
+  weight: the shipped ``bitplane_pack.cu`` against variants
+  (``PACK_VARIANTS``): 64-256 threads a block (shipped 32), 2 or 8 runs
+  of 8 elements a thread (shipped 4), and the planes by a warp ballot
+  per plane over 32 consecutive elements (``PACK_BY_BALLOT``) instead of
+  the register transpose; back to back and from a cold L2, after the
+  floor of one launch.
+- LZ4 prep over those slabs' planes, with and without run flags: the
+  shipped ``lz4_prep.cu`` against variants (``PREP_VARIANTS``): 8 or 16
+  positions a lane (shipped 4) and 128 or 512 threads a block (shipped
+  256); back to back and from a cold L2.
 
 Every call is held to its plain version (the tolerances of
 ``chip_smoke.py``); times are device time per call from
@@ -739,6 +751,157 @@ FORWARD_VARIANTS = {
 }
 
 
+# bitplane_pack.cu with the planes by ballot: a warp per 1024 elements (the
+# shipped grid at 4 runs a thread), lane l holding element 32 r + l in
+# round r; __ballot_sync of bit p gives 4 bytes of plane p's row (element
+# 32 r + l in bit l, so __brev and a byte swap put each byte's first
+# element in its MSB), and lane r keeps round r's words to store.
+PACK_BY_BALLOT = const_variant("bitplane_pack", kGroups=4) + (
+    ("}  // namespace\n", """\
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
+pack_by_ballot(const uint4* __restrict__ x4, uint8_t* __restrict__ out,
+               long long n8) {
+  const uint16_t* x = reinterpret_cast<const uint16_t*>(x4);
+  const long long n = 8 * n8;
+  const int lane = threadIdx.x & 31;
+  const long long e0 =
+      ((blockIdx.x * (long long)kThreads + threadIdx.x) >> 5) * 1024;
+  if (e0 >= n) return;
+  uint32_t e[32];
+#pragma unroll
+  for (int r = 0; r < 32; ++r) {
+    const long long i = e0 + 32 * r + lane;
+    e[r] = i < n ? x[i] : 0u;
+  }
+  uint32_t mine[16];
+#pragma unroll
+  for (int r = 0; r < 32; ++r)
+#pragma unroll
+    for (int p = 0; p < 16; ++p) {
+      const uint32_t m = __ballot_sync(0xFFFFFFFFu, (e[r] >> p) & 1u);
+      if (lane == r) mine[p] = __byte_perm(__brev(m), 0, 0x0123);
+    }
+  const long long c = e0 / 8 + 4 * lane;
+#pragma unroll
+  for (int p = 0; p < 16; ++p) {
+    if (VEC && c + 4 <= n8) {
+      *reinterpret_cast<uint32_t*>(out + p * n8 + c) = mine[p];
+      continue;
+    }
+    for (int b = 0; b < 4; ++b)
+      if (c + b < n8)
+        out[p * n8 + c + b] = static_cast<uint8_t>(mine[p] >> (8 * b));
+  }
+}
+
+}  // namespace
+"""),
+    ("pack_planes_kernel<kGroups, true><<<", "pack_by_ballot<true><<<"),
+    ("pack_planes_kernel<kGroups, false><<<", "pack_by_ballot<false><<<"),
+)
+
+# Variants of bitplane_pack.cu (shipped: 32 threads a block, 4 runs of 8
+# elements a thread, the register transpose) and of lz4_prep.cu (shipped:
+# 256 threads a block, 1 round of 4 positions a lane).
+PACK_VARIANTS = {
+    **{f"t{n}": const_variant("bitplane_pack", kThreads=n)
+       for n in (64, 128, 256)},
+    **{f"g{n}": const_variant("bitplane_pack", kGroups=n) for n in (2, 8)},
+    "ballot": PACK_BY_BALLOT,
+}
+PREP_VARIANTS = {
+    **{f"r{n}": const_variant("lz4_prep", kRounds=n) for n in (2, 4)},
+    **{f"t{n}": const_variant("lz4_prep", kThreads=n) for n in (128, 512)},
+    "r4t128": const_variant("lz4_prep", kRounds=4, kThreads=128),
+}
+
+
+def warm_cold(call, kernel: str) -> str:
+    """``back to back/cold`` device us of ``call`` (the cold time of the
+    kernels whose name holds ``kernel``)."""
+    cold = cs.cold_ms(torch, call, kernel)
+    cold = "-" if cold is None else f"{cold * 1e3:.2f}"
+    return f"{cs.timed(torch, call)['ms'] * 1e3:.2f}/{cold}"
+
+
+def pack_planes_of(n: int, seed: int):
+    """A KV-like slab of ``n`` elements and its planes (the plain pack)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = cs.kv_like(torch, n, gen)
+    return x, k_bitplane.pack_planes_plain(x)
+
+
+def pack_sweep(variants: dict) -> None:
+    """The pack at the flush slab and at a 896 x 4864 weight, shipped and
+    variants, each call held bit-equal to the plain version."""
+    floor = cs.launch_floor(torch)
+    print(f"[variant] launch floor: a 16-byte zero_() {floor['ms'] * 1e3:.2f} "
+          f"us device ({floor['ms_from']})", flush=True)
+    libs = dict(shipped=build.load("bitplane_pack"), **variants)
+    stream = torch.cuda.current_stream().cuda_stream
+    for n in (cs.SLAB_ELEMS, cs.PACK_LONG):
+        x, want = pack_planes_of(n, 23)
+        b, _ = cs.bound_ms(4 * n, 64 * n)
+        times = []
+        for name in in_turns(variants):
+            out = torch.empty_like(want)
+
+            def call(lib=libs[name], out=out):
+                build.check(lib.pack_planes_u16(
+                    x.data_ptr(), out.data_ptr(), n, 0, stream),
+                    "bitplane_pack")
+
+            call()
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                raise AssertionError(f"bitplane_pack {name} ({n} elements) "
+                                     "differs from its plain version")
+            times.append(f"{name} {warm_cold(call, 'pack')}")
+        print(f"[variant] bitplane_pack {n} elements (bound {b * 1e3:.3f}), "
+              "us back to back/cold: " + ", ".join(times), flush=True)
+
+
+def prep_sweep(variants: dict) -> None:
+    """The prep over the planes of the flush slab and of a 896 x 4864
+    weight, with and without run flags, shipped and variants (the parent
+    only with them: its kernel has no way to skip them), each call held
+    bit-equal to the plain version."""
+    libs = dict(shipped=build.load("lz4_prep"), **variants)
+    stream = torch.cuda.current_stream().cuda_stream
+    for n in (cs.SLAB_ELEMS, cs.PACK_LONG):
+        buf = pack_planes_of(n, 24)[1].reshape(-1)
+        m = buf.numel()
+        want = k_lz4.prep_plain(buf)
+        for runb in (True, False):
+            b, _ = cs.bound_ms((13 if runb else 9) * m, 10 * m)
+            times = []
+            for name in in_turns(variants):
+                if name == "parent" and not runb:
+                    continue
+                outs = [torch.empty(m, dtype=torch.int32, device="cuda")
+                        for _ in range(3)]
+
+                def call(lib=libs[name], outs=outs):
+                    build.check(lib.lz4_prep(
+                        buf.data_ptr(), outs[0].data_ptr(),
+                        outs[1].data_ptr(),
+                        outs[2].data_ptr() if runb else None, m, 0, stream),
+                        "lz4_prep")
+
+                call()
+                torch.cuda.synchronize()
+                if not all(torch.equal(o, w)
+                           for o, w in zip(outs, want[: 2 + runb])):
+                    raise AssertionError(f"lz4_prep {name} ({m} B, runb "
+                                         f"{runb}) differs from its plain "
+                                         "version")
+                times.append(f"{name} {warm_cold(call, 'lz4_prep')}")
+            print(f"[variant] lz4_prep {m} B {'with' if runb else 'without'} "
+                  f"run flags (bound {b * 1e3:.3f}), us back to back/cold: "
+                  + ", ".join(times), flush=True)
+
+
 def score_sweep(variants: dict) -> None:
     """Page scoring at the served and a long-context gather, shipped and
     variants, each call held bit-equal to the plain version."""
@@ -811,7 +974,7 @@ def forward_sweep(variants: dict) -> None:
 
 
 SWEEPS = ("attention", "matmul", "kv_read", "inverse", "match", "score",
-          "forward")
+          "forward", "pack", "prep")
 
 
 def main() -> None:
@@ -838,7 +1001,8 @@ def main() -> None:
         if sweep not in only:
             return {}
         out = variant_libs(source, variants)
-        if args.parent is not None and sweep in ("score", "forward"):
+        if args.parent is not None and sweep in ("score", "forward", "pack",
+                                                 "prep"):
             out.update(variant_libs(source, {"parent": ()}, args.parent))
         return out
 
@@ -848,6 +1012,8 @@ def main() -> None:
     match = libs("lz4_match", MATCH_VARIANTS, "match")
     score = libs("pnm_score", SCORE_VARIANTS, "score")
     fwd = libs("kv_delta", FORWARD_VARIANTS, "forward")
+    pack = libs("bitplane_pack", PACK_VARIANTS, "pack")
+    prep = libs("lz4_prep", PREP_VARIANTS, "prep")
     if "attention" in only:
         attention_sweep()
     if "matmul" in only:
@@ -862,6 +1028,10 @@ def main() -> None:
         score_sweep(score)
     if "forward" in only:
         forward_sweep(fwd)
+    if "pack" in only:
+        pack_sweep(pack)
+    if "prep" in only:
+        prep_sweep(prep)
 
 
 if __name__ == "__main__":

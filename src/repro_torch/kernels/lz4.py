@@ -5,9 +5,10 @@ resolution, LCP extension and greedy selection — over a whole flush
 group's concatenated (plane, block) streams.  On the card it is two
 launches and one copy back:
 
-1. **prep** — 4-byte little-endian words, multiplicative hashes and
-   byte-run boundaries for every position: ``csrc/lz4_prep.cu``
-   (replacing ``src/repro/kernels/lz4.py::_prep_kernel``);
+1. **prep** — 4-byte little-endian words and multiplicative hashes for
+   every position: ``csrc/lz4_prep.cu`` (replacing
+   ``src/repro/kernels/lz4.py::_prep_kernel``; its byte-run boundaries,
+   which only the plain pipeline reads, are skipped here);
 2. **match** — ``csrc/lz4_match.cu`` (replacing the rest of the
    reference's jitted ``_device_match_impl``): per stream the previous
    same-hash position, the candidate filter (window / end-of-block /
@@ -87,11 +88,12 @@ def match_events_slab(slab, starts, ends,
 # prep: Hopper kernel + plain PyTorch version
 # ---------------------------------------------------------------------------
 
-def prep_plain(buf: torch.Tensor):
+def prep_plain(buf: torch.Tensor, runb: bool = True):
     """Plain PyTorch prep over a flat uint8 slab → ``(w, h, runb)`` int32
     tensors of length N (bytes past the end read as 0; ``w`` holds the
-    uint32 word's bits).  int64 arithmetic: the 32x32-bit hash product is
-    split so it never leaves int64's range."""
+    uint32 word's bits; ``runb`` None when not asked for).  int64
+    arithmetic: the 32x32-bit hash product is split so it never leaves
+    int64's range."""
     n = buf.numel()
     b = torch.nn.functional.pad(buf.to(torch.int64), (0, 3))
     b0, b1 = b[:n], b[1 : n + 1]
@@ -101,30 +103,35 @@ def prep_plain(buf: torch.Tensor):
     h = prod >> (32 - HASH_LOG)
     w32 = torch.where(w >= 1 << 31, w - (1 << 32), w)
     return (w32.to(torch.int32), h.to(torch.int32),
-            (b0 != b1).to(torch.int32))
+            (b0 != b1).to(torch.int32) if runb else None)
 
 
-def lz4_prep(buf: torch.Tensor):
-    """Prep of a flat uint8 slab on its device: the CUDA kernel on the
-    card, :func:`prep_plain` on the CPU.  Returns ``(w, h, runb)``."""
+def lz4_prep(buf: torch.Tensor, runb: bool = True):
+    """Prep of a flat uint8 slab (any start) on its device: the CUDA kernel
+    on the card, :func:`prep_plain` on the CPU.  Returns ``(w, h, runb)``;
+    with ``runb=False`` the run flags are neither computed nor written, and
+    ``runb`` is None."""
     if buf.dtype != torch.uint8 or buf.dim() != 1:
         raise TypeError(f"prep expects a flat uint8 slab, got {buf.dtype} "
                         f"{tuple(buf.shape)}")
     if buf.device.type == "cpu":
-        return prep_plain(buf)
+        return prep_plain(buf, runb)
     if buf.device.type != "cuda":
         raise ValueError(f"unsupported device {buf.device}")
     if not buf.is_contiguous():
         raise ValueError("prep kernel needs a contiguous slab")
     n = buf.numel()
-    w, h, runb = (torch.empty(n, dtype=torch.int32, device=buf.device)
-                  for _ in range(3))
+    w, h = (torch.empty(n, dtype=torch.int32, device=buf.device)
+            for _ in range(2))
+    run = torch.empty(n, dtype=torch.int32, device=buf.device) if runb \
+        else None
     rc = build.load("lz4_prep").lz4_prep(
-        buf.data_ptr(), w.data_ptr(), h.data_ptr(), runb.data_ptr(), n,
-        buf.device.index, torch.cuda.current_stream(buf.device).cuda_stream)
+        buf.data_ptr(), w.data_ptr(), h.data_ptr(),
+        None if run is None else run.data_ptr(), n, buf.device.index,
+        torch.cuda.current_stream(buf.device).cuda_stream)
     build.check(rc, "lz4_prep")
     build.LAUNCHES["lz4_prep"] += 1
-    return w, h, runb
+    return w, h, run
 
 
 # ---------------------------------------------------------------------------
@@ -566,7 +573,8 @@ def _scratch_bytes(n: int, table_bytes: int) -> int:
 
 def match_launch(buf: torch.Tensor, starts, ends, lib=None):
     """The match kernel's launch on a contiguous uint8 slab on the card,
-    set up once: checks the stream bounds, runs the prep kernel, uploads
+    set up once: checks the stream bounds, runs the prep kernel (words
+    and hashes; no run flags, which the match kernel never reads), uploads
     the per-stream meta rows (starts, ends, first event row, scratch
     offset) and allocates the output and the long streams' scratch.
     Returns ``(launch, out, rows)``: ``launch()`` runs the match kernel
@@ -609,7 +617,7 @@ def match_launch(buf: torch.Tensor, starts, ends, lib=None):
     scratch = torch.empty(max(int(nscr.sum()), 1), dtype=torch.uint8,
                           device=dev)
     out = torch.empty(S + 3 * E, dtype=torch.int32, device=dev)
-    w, h, _ = lz4_prep(buf)
+    w, h, _ = lz4_prep(buf, runb=False)
 
     def launch():
         build.check(lib.lz4_match(

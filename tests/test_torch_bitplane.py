@@ -52,13 +52,16 @@ def _t(u16):
     return torch.from_numpy(u16.view(np.int16).copy())
 
 
-@pytest.mark.parametrize("n", [256, 4096, 24576])
+# 256, 4096, 24576: whole 256-element rows; 8 .. 131080: lengths that end
+# inside the card kernel's tile of 32 runs of 8 (a warp's 128-byte store)
+@pytest.mark.parametrize("n", [256, 4096, 24576, 8, 24, 248, 264, 131080])
 def test_plain_pack_matches_pallas_and_numpy(n):
     x = _u16(n, seed=n)
     got = tkbit.pack_planes_plain(_t(x)).numpy()
     np.testing.assert_array_equal(got, rbit.pack_planes(x))
-    pallas = rkbit.pack_planes_pallas(jnp.asarray(x.reshape(-1, 256)),
-                                      block_r=1, interpret=True)
+    rows = x.reshape(-1, 256) if n % 256 == 0 else x.reshape(1, n)
+    pallas = rkbit.pack_planes_pallas(jnp.asarray(rows), block_r=1,
+                                      interpret=True)
     np.testing.assert_array_equal(got, np.asarray(pallas).reshape(16, n // 8))
 
 

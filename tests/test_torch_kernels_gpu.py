@@ -58,21 +58,125 @@ def _kv_bits(n, seed):
     return torch.from_numpy(u.view(np.int16).copy())
 
 
-@pytest.mark.parametrize("n", [8, 16, 8000, 131072])
+# the flush slab (131072), a 896 x 4864 weight (4358144), and lengths
+# that end inside a thread's 32 elements or a warp's 1024; at 8, 24 and
+# 131080, n / 8 is not a multiple of 4, so the rows do not start on a word
+PACK_SIZES = [8, 16, 24, 8000, 131072, 131080, 4358144]
+
+
+@pytest.mark.parametrize("n", PACK_SIZES)
 def test_pack_kernel_matches_plain(card, n):
     x = _kv_bits(n, n).to(card)
     before = build.LAUNCHES["bitplane_pack"]
-    assert torch.equal(bitplane.pack_planes_u16(x),
-                       bitplane.pack_planes_plain(x))
+    got = bitplane.pack_planes_u16(x)
+    assert torch.equal(got, bitplane.pack_planes_plain(x))
     assert build.LAUNCHES["bitplane_pack"] == before + 1
+    assert torch.equal(bitplane.pack_planes_u16(x), got)   # deterministic
 
 
-@pytest.mark.parametrize("n", [1, 5, 1000, 262144])
-def test_prep_kernel_matches_plain(card, n):
+@pytest.mark.parametrize("n", [8, 264, 131072, 131080])
+def test_pack_kernel_offset_view_and_guards(card, n):
+    """A 16-byte aligned view 8 elements into a larger slab, packed into
+    rows that sit inside a guarded buffer: the planes are the plain
+    version's and no byte past the last row changes."""
+    big = _kv_bits(n + 16, n + 1).to(card)
+    x = big[8 : 8 + n]
+    assert x.data_ptr() % 16 == 0
+    out = torch.full((16 * (n // 8) + 64,), 0xA5, dtype=torch.uint8,
+                     device=card)
+    build.check(build.load("bitplane_pack").pack_planes_u16(
+        x.data_ptr(), out.data_ptr(), n, card.index,
+        torch.cuda.current_stream(card).cuda_stream), "bitplane_pack")
+    want = bitplane.pack_planes_plain(x).reshape(-1)
+    assert torch.equal(out[: want.numel()], want)
+    assert bool((out[want.numel():] == 0xA5).all())
+    assert torch.equal(bitplane.pack_planes_u16(x), want.view(16, n // 8))
+
+
+def test_pack_kernel_rejects_a_misaligned_slab(card):
+    x = _kv_bits(64, 3).to(card)
+    with pytest.raises(ValueError):
+        bitplane.pack_planes_u16(x[1:57])
+
+
+PREP_SIZES = [1, 2, 3, 4, 5, 15, 16, 17, 1000, 262144, 262147]
+
+
+@pytest.mark.parametrize("runb", [True, False])
+@pytest.mark.parametrize("n", PREP_SIZES)
+def test_prep_kernel_matches_plain(card, n, runb):
     rng = np.random.default_rng(n)
     buf = torch.from_numpy(rng.integers(0, 3, n, dtype=np.uint8)).to(card)
-    for got, want in zip(lz4.lz4_prep(buf), lz4.prep_plain(buf)):
-        assert torch.equal(got, want)
+    before = build.LAUNCHES["lz4_prep"]
+    got = lz4.lz4_prep(buf, runb=runb)
+    assert build.LAUNCHES["lz4_prep"] == before + 1
+    want = lz4.prep_plain(buf, runb=runb)
+    assert (got[2] is None) == (not runb) == (want[2] is None)
+    for g, w in zip(got, want):
+        if w is not None:
+            assert torch.equal(g, w)
+    again = lz4.lz4_prep(buf, runb=runb)                     # deterministic
+    assert all(a is b is None or torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.parametrize("runb", [True, False])
+@pytest.mark.parametrize("off", [1, 2, 3, 4, 5, 17])
+@pytest.mark.parametrize("n", [1, 3, 7, 129, 1000, 262147])
+def test_prep_kernel_at_any_start(card, n, off, runb):
+    """A view starting ``off`` bytes into a larger slab (the bytes around
+    it nonzero): words, hashes and run flags of the view alone."""
+    rng = np.random.default_rng(n + off)
+    raw = torch.from_numpy(rng.integers(1, 4, n + off + 7,
+                                        dtype=np.uint8)).to(card)
+    view = raw[off : off + n]
+    got = lz4.lz4_prep(view, runb=runb)
+    want = lz4.prep_plain(view.clone(), runb=runb)
+    for g, w in zip(got, want):
+        assert (g is None and w is None) or torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n", [5, 262147])
+def test_prep_kernel_writes_only_what_it_is_asked_for(card, n):
+    """Outputs inside guarded buffers: no write past n, and with a null
+    run-flag pointer none at all (the match path's call)."""
+    rng = np.random.default_rng(n)
+    buf = torch.from_numpy(rng.integers(0, 3, n, dtype=np.uint8)).to(card)
+    lib = build.load("lz4_prep")
+    stream = torch.cuda.current_stream(card).cuda_stream
+    want = lz4.prep_plain(buf)
+    for runb in (True, False):
+        outs = [torch.full((n + 64,), -7, dtype=torch.int32, device=card)
+                for _ in range(3)]
+        build.check(lib.lz4_prep(
+            buf.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
+            outs[2].data_ptr() if runb else None, n, card.index, stream),
+            "lz4_prep")
+        for i, o in enumerate(outs):
+            if i < 2 or runb:
+                assert torch.equal(o[:n], want[i])
+                assert bool((o[n:] == -7).all())
+            else:
+                assert bool((o == -7).all())
+
+
+def test_match_path_asks_prep_for_no_run_flags(card, monkeypatch):
+    """``lz4_match`` (serving's match) launches the prep once without run
+    flags: the wrapper allocates and returns none."""
+    seen = []
+    prep = lz4.lz4_prep
+
+    def record(buf, runb=True):
+        out = prep(buf, runb=runb)
+        seen.append(out[2])
+        return out
+
+    monkeypatch.setattr(lz4, "lz4_prep", record)
+    buf, starts, ends = torch_lz4_cases.cases()["kv_slab"]
+    got = lz4.lz4_match(torch.from_numpy(buf).to(card), starts, ends)
+    assert seen == [None]
+    want = lz4.match_events_slab(buf, starts, ends, force="numpy")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
 
 
 def test_match_pipeline_on_card_matches_numpy_twin(card):
