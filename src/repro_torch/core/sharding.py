@@ -21,7 +21,10 @@ path does not make; it comes with the weights path.
 
 A key's whole stream lives on one home shard, and ``shared.<hash>``
 pages route by their ``shared.<hash>`` head, so bytes read back are
-identical to a single device's.  A :class:`GatherReq` scatter-gathers:
+identical to a single device's, and every layer/kind page of one prefix
+window colocates: ``acquire`` / ``release`` / ``refcount`` and
+``truncate_planes`` go to the owning shard, and the fleet refuses to
+truncate a co-owned key before any shard sheds bytes.  A :class:`GatherReq` scatter-gathers:
 each shard ranks its own candidates, and the host merges the local
 winners into the global top-k with the same tie-break.
 """
@@ -35,6 +38,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 
 from ..kernels.pnm_score import topk_select
+from .precision import PrecisionView
 from .tier import (
     DEVICE_KINDS,
     DeviceStats,
@@ -367,19 +371,74 @@ class ShardedTierStore:
         for shard in self.shards:
             shard.kv_window = tokens
 
+    @property
+    def layout(self):
+        return self.shards[0].layout
+
     # -- fleet residency ledger ----------------------------------------------
     def resident_bytes(self, prefix: str = "") -> int:
         """Physical bytes a namespace occupies across the fleet."""
         return sum(s.resident_bytes(prefix) for s in self.shards)
 
+    def compression_ratio(self, prefix: str = "") -> float:
+        """Logical/physical ratio of a namespace over the fleet (each
+        shard's ratio weighted by its physical bytes; 1.0 if empty)."""
+        raw = phys = 0.0
+        for s in self.shards:
+            p = s.resident_bytes(prefix)
+            if p > 0:
+                raw += s.compression_ratio(prefix) * p
+                phys += p
+        return raw / phys if phys > 0 else 1.0
+
+    def truncate_planes(self, keys: Sequence[str],
+                        view: PrecisionView) -> int:
+        """In-place plane truncation on each key's home shard.  Refcounts
+        are checked across the fleet first, so a co-owned page rejects
+        before any shard sheds bytes."""
+        if not self.layout.plane_aligned:
+            raise NotImplementedError(
+                f"layout {self.layout.name!r} stores word-major "
+                "containers; in-place plane truncation needs a "
+                "plane-aligned layout"
+            )
+        for key in keys:
+            refs = self.refcount(key)
+            if refs > 1:
+                raise ValueError(
+                    f"cannot truncate {key!r}: {refs} references "
+                    "hold this shared page"
+                )
+        grouped: Dict[int, List[str]] = {}
+        for key in keys:
+            grouped.setdefault(self.owner(key), []).append(key)
+        return sum(self.shards[s].truncate_planes(sub, view)
+                   for s, sub in grouped.items())
+
+    # -- refcounted shared pages (on the home shard) --------------------------
+    def refcount(self, key: str) -> int:
+        return self.shards[self.owner(key)].refcount(key)
+
+    def acquire(self, key: str) -> int:
+        return self.shards[self.owner(key)].acquire(key)
+
+    def release(self, key: str) -> int:
+        return self.shards[self.owner(key)].release(key)
+
     def delete(self, key: str):
         self.shards[self.owner(key)].delete(key)
 
     def delete_prefix(self, prefix: str) -> int:
-        """Release one namespace fleet-wide; key counts sum over shards."""
+        """Release one namespace fleet-wide; key counts sum over shards.
+        A ``shared.<hash>`` namespace lives on one shard, so co-owned
+        refcounts drop exactly once, there."""
         return sum(shard.delete_prefix(prefix) for shard in self.shards)
 
     # -- fleet view -----------------------------------------------------------
+    def per_device_stats(self) -> List[DeviceStats]:
+        """Each shard's own :class:`DeviceStats`, indexed by device_id."""
+        return [s.stats for s in self.shards]
+
     def fleet_skew(self) -> float:
         """Max over mean of per-shard moved bytes (DRAM + link); 1.0 for
         a balanced fleet or when nothing moved yet."""

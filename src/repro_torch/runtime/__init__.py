@@ -1,5 +1,14 @@
-from .paging import KVPagePool, LOSSLESS_POLICY, PAPER_POLICY, PagePolicy
-from .serving import ServeEngine, ServeStats
+from .paging import (
+    DEFAULT_DEGRADE_LADDER, KVPagePool, LOSSLESS_POLICY, PAPER_POLICY,
+    PagePolicy, PrefixShareIndex,
+)
+from .serving import (
+    MultiStreamEngine, RequestRecord, SchedulerReport, ServeEngine,
+    ServeRequest, ServeScheduler, ServeStats, projected_kv_bytes,
+)
 
-__all__ = ["KVPagePool", "LOSSLESS_POLICY", "PAPER_POLICY", "PagePolicy",
-           "ServeEngine", "ServeStats"]
+__all__ = ["DEFAULT_DEGRADE_LADDER", "KVPagePool", "LOSSLESS_POLICY",
+           "MultiStreamEngine", "PAPER_POLICY", "PagePolicy",
+           "PrefixShareIndex", "RequestRecord", "SchedulerReport",
+           "ServeEngine", "ServeRequest", "ServeScheduler", "ServeStats",
+           "projected_kv_bytes"]

@@ -13,21 +13,36 @@ The shipped policy mirrors Table II's best row: top pages BF16, next
 ~FP8 (man4 + guard), cold tail ~FP4 (man0 + guard).
 
 Host arrays are BF16-as-uint16, token-major ``(tokens, channels)`` —
-exactly the stream a real host would store through CXL.mem.  Not ported
-yet: shared-prefix reuse, prefetch and the reclaim ladder (``ROADMAP.md``
-Queue 1).
+exactly the stream a real host would store through CXL.mem.
+
+Precision-elastic reclamation: :meth:`KVPagePool.reclaim` frees tier
+bytes without dropping tokens, walking cold spilled pages (least-recent
+commit boundary first) one rung of a degradation ladder of
+``PrecisionView`` s a pass through ``truncate_planes``.
+
+Shared-prefix KV reuse: pools wired to one :class:`PrefixShareIndex`
+store identical completed prompt-prefix pages once, under a
+content-addressed ``shared.`` key named by a chained token-window hash
+(:func:`prefix_chain_hashes`).  The first pool to spill a window writes
+it; later pools acquire a refcounted ledger reference instead (windows
+past the first differing token hash differently and stay private).  A
+shared page frees with its last referer and is never degraded.
+
+Not ported yet: prefetch (``prefetch_layer``, ``settle_prefetched``),
+which no serving path calls (``ROADMAP.md`` Queue 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import warnings
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from ..core.precision import FULL, MAN0, MAN4, PrecisionView
+from ..core.precision import FULL, MAN0, MAN2, MAN4, PrecisionView
 from ..core.tier import (
     GatherReq, KV, ReadReq, Receipt, Ticket, TierStore, WriteReq, make_device,
 )
@@ -53,6 +68,94 @@ PAPER_POLICY = PagePolicy()           # Table II: 5×BF16 / 3×FP8 / 2×FP4
 LOSSLESS_POLICY = PagePolicy(tiers=((1 << 30, FULL),), tail_view=FULL)
 
 
+def prefix_chain_hashes(tokens: np.ndarray, page_tokens: int) -> List[str]:
+    """Chained content hashes of the leading full token windows:
+    ``hashes[w]`` digests tokens ``[0, (w+1)*page_tokens)`` of every batch
+    row, so two prompts get equal ``hashes[w]`` iff they agree on every
+    token through window ``w`` (the copy-on-write divergence rule).  A
+    partial tail never hashes."""
+    h = hashlib.sha1(str(page_tokens).encode())
+    out: List[str] = []
+    arr = np.ascontiguousarray(tokens)
+    for w in range(arr.shape[-1] // page_tokens):
+        h.update(arr[..., w * page_tokens:(w + 1) * page_tokens].tobytes())
+        out.append(h.hexdigest()[:16])
+    return out
+
+
+def shared_page_key(share_hash: str, layer: int, kind: str) -> str:
+    """Content-addressed tier key of one shared page: every request whose
+    prompt contains the prefix computes the same key."""
+    return f"shared.{share_hash}.L{layer}.{kind}"
+
+
+class PrefixShareIndex:
+    """Content-addressed index of the shared prefix pages on one tier.
+
+    Maps a chain hash to the ``shared.`` keys holding that window's pages.
+    The first pool to spill a window writes and :meth:`register` s it;
+    later pools :meth:`acquire` a ledger reference instead of writing.
+    All pools must serve one model: equal tokens imply equal KV only
+    under equal parameters.
+    """
+
+    def __init__(self, tier: TierStore):
+        self.tier = tier
+        # chain hash → {(layer, kind): key}; only live (stored) pages
+        self._nodes: Dict[str, Dict[Tuple[int, str], str]] = {}
+        self._owner: Dict[str, Tuple[str, Tuple[int, str]]] = {}
+
+    def acquire(self, share_hash: str, layer: int, kind: str) -> Optional[str]:
+        """Take a reference on the stored copy of (hash, layer, kind), or
+        return None when no pool has stored it yet."""
+        key = self._nodes.get(share_hash, {}).get((layer, kind))
+        if key is None:
+            return None
+        self.tier.acquire(key)
+        return key
+
+    def register(self, share_hash: str, layer: int, kind: str, key: str):
+        """Record a freshly written shared page (its writer holds the
+        first reference through the commit)."""
+        self._nodes.setdefault(share_hash, {})[(layer, kind)] = key
+        self._owner[key] = (share_hash, (layer, kind))
+
+    def invalidate(self, key: str):
+        """Drop a page from the index without releasing it."""
+        owner = self._owner.pop(key, None)
+        if owner is None:
+            return
+        share_hash, slot = owner
+        node = self._nodes.get(share_hash)
+        if node is not None:
+            node.pop(slot, None)
+            if not node:
+                self._nodes.pop(share_hash, None)
+
+    def release(self, key: str) -> int:
+        """Drop one reference; unindex the page when the last one goes.
+        Returns the remaining reference count."""
+        left = self.tier.release(key)
+        if left == 0:
+            self.invalidate(key)
+        return left
+
+    def resident_chain(self, hashes: Sequence[str]) -> int:
+        """How many leading windows of this chain have live shared pages
+        (the scheduler's novel-KV admission discount)."""
+        n = 0
+        for h in hashes:
+            if not self._nodes.get(h):
+                break
+            n += 1
+        return n
+
+
+# Default degradation ladder: each reclaim rung sheds further mantissa
+# planes of cold stored pages in place (Table II's BF16 → ~FP8 → ~FP4).
+DEFAULT_DEGRADE_LADDER = (MAN4, MAN2, MAN0)
+
+
 @dataclasses.dataclass
 class _Page:
     key: str                  # stream id on the device
@@ -62,6 +165,10 @@ class _Page:
     n_tokens: int
     importance: float = 0.0
     resident: Optional[np.ndarray] = None   # HBM copy (token-major u16) or None
+    commit_seq: int = 0       # commit boundary that admitted this page (LRU)
+    degrade_level: int = -1   # last degradation-ladder rung applied
+    share_hash: Optional[str] = None  # prefix chain hash (shareable window)
+    shared_ref: bool = False  # this pool holds a ledger ref on a shared key
     gather_view: Optional[PrecisionView] = None  # frozen PNM winner view
 
 
@@ -89,9 +196,12 @@ class KVPagePool:
     """Per-sequence paged KV with an HBM budget and tier spill.
 
     ``tier`` is a :class:`TierStore` (or a fleet) or a device kind, built
-    on ``device`` (default: the card).  Importance scores for keys the
-    pool does not track are counted in ``unknown_importance_keys`` and
-    warned about once.
+    on ``device`` (default: the card) with ``sanitize``.  Importance
+    scores for keys the pool does not track are counted in
+    ``unknown_importance_keys`` and warned about once.
+    ``degrade_ladder`` is :meth:`reclaim` 's default ladder (empty: no
+    reclamation); ``prefix_index``, built on the same tier, turns on
+    shared-prefix reuse.
     """
 
     def __init__(
@@ -101,17 +211,28 @@ class KVPagePool:
         hbm_budget_bytes: int = 1 << 30,
         policy: PagePolicy = PAPER_POLICY,
         key_prefix: str = "",
+        degrade_ladder: Sequence[PrecisionView] = (),
+        sanitize: Optional[bool] = None,
+        prefix_index: Optional[PrefixShareIndex] = None,
         device: Union[str, torch.device, None] = None,
     ):
-        self.tier = (make_device(tier, device=device)
+        self.tier = (make_device(tier, device=device, sanitize=sanitize)
                      if isinstance(tier, str) else tier)
         self.page_tokens = page_tokens
         self.hbm_budget = hbm_budget_bytes
         self.policy = policy
         self.key_prefix = key_prefix        # stream namespace on a shared device
+        self.degrade_ladder = tuple(degrade_ladder)
+        if prefix_index is not None and prefix_index.tier is not self.tier:
+            raise ValueError(
+                "prefix_index must be built on this pool's tier: shared "
+                "pages are acquired from the tier the index registers "
+                "them on")
+        self.prefix_index = prefix_index
         self.unknown_importance_keys = 0
         self._warned_unknown_importance = False
         self._pages: List[_Page] = []
+        self._commit_clock = 0              # commit boundaries seen (page LRU)
         self._hbm_used = 0
         self.spill_events: List[_Page] = []   # drained by the serving engine
         self.page_traffic: Dict[str, PageTraffic] = {}
@@ -135,17 +256,37 @@ class KVPagePool:
     # -- write path -----------------------------------------------------------
     def append_pages(self, pages: Sequence[tuple]):
         """Commit a batch of ``(layer, kind, start, tokens_u16,
-        importance)`` pages with ONE eviction pass at the end, so the
-        spill it triggers is one write batch (one encode slab)."""
-        for layer, kind, start, tokens_u16, importance in pages:
-            key = f"{self.key_prefix}L{layer}.{kind}.{start}"
+        importance)`` pages, each with an optional sixth ``share_hash``,
+        with ONE eviction pass at the end, so the spill it triggers is one
+        write batch (one encode slab).  With a prefix index, share-tagged
+        pages take the ``shared.`` key: residency and eviction are as for
+        private pages, but the spill write is elided when the page is
+        already stored (the pool acquires a reference instead)."""
+        self._commit_clock += 1
+        for entry in pages:
+            layer, kind, start, tokens_u16, importance = entry[:5]
+            share_hash = entry[5] if len(entry) > 5 else None
+            if self.prefix_index is None:
+                share_hash = None
+            key = self.page_key(layer, kind, start, share_hash)
             page = _Page(key, layer, kind, start, tokens_u16.shape[0],
-                         importance=importance)
+                         importance=importance,
+                         commit_seq=self._commit_clock,
+                         share_hash=share_hash)
             # admit to HBM first, then evict the least important
             page.resident = tokens_u16.copy()
             self._hbm_used += tokens_u16.size * 2
             self._pages.append(page)
         self._rebalance()
+
+    def page_key(self, layer: int, kind: str, start: int,
+                 share_hash: Optional[str] = None) -> str:
+        """The tier key a committed page takes: its shared key when it
+        carries a chain hash and the pool has a prefix index, else a key
+        in the pool's namespace."""
+        if share_hash is not None and self.prefix_index is not None:
+            return shared_page_key(share_hash, layer, kind)
+        return f"{self.key_prefix}L{layer}.{kind}.{start}"
 
     def _rebalance(self):
         """Evict the least-important resident pages when over budget."""
@@ -156,6 +297,7 @@ class KVPagePool:
             key=lambda p: p.importance,
         )
         writes = []
+        fresh_shared: List[_Page] = []
         for p in resident:
             if self._hbm_used <= self.hbm_budget:
                 break
@@ -163,11 +305,22 @@ class KVPagePool:
             self._hbm_used -= tok.size * 2
             p.resident = None
             self.spill_events.append(p)
+            if p.share_hash is not None and self.prefix_index is not None:
+                if self.prefix_index.acquire(
+                        p.share_hash, p.layer, p.kind) is not None:
+                    # already stored by another referer: take a reference
+                    p.shared_ref = True
+                    continue
+                fresh_shared.append(p)
             writes.append(WriteReq(p.key, tok, kind=KV, flush=True, tag=p.key))
         if writes:
             # posted through the async front-end: spill writes commit
             # eagerly, queued readback tickets stay in flight
             self._account([t.wait() for t in self.tier.submit_async(writes)])
+        for p in fresh_shared:
+            # first writer: the commit's reference is this pool's claim
+            self.prefix_index.register(p.share_hash, p.layer, p.kind, p.key)
+            p.shared_ref = True
 
     def update_importance(self, scores: Dict[str, float]):
         """Re-rank pages by externally measured importance (the engine's
@@ -314,18 +467,59 @@ class KVPagePool:
                for p in pages]
         return np.concatenate(out, axis=0) if out else np.empty((0, 0), np.uint16)
 
+    # -- precision-elastic reclamation -----------------------------------------
+    def reclaim(self, target_bytes: int,
+                ladder: Optional[Sequence[PrecisionView]] = None) -> int:
+        """Reclaim up to ``target_bytes`` of stored tier bytes by shedding
+        mantissa planes of cold spilled pages in place.
+
+        Pages are walked coldest first (least-recent commit boundary, then
+        least important), one ``ladder`` rung (default: the pool's
+        ``degrade_ladder``) a pass, so every cold page degrades one step
+        before any degrades two; a page's rung is remembered across calls.
+        Shared pages are never touched.  Returns the bytes reclaimed: 0
+        with an empty ladder, nothing spilled, the ladder exhausted, or a
+        word layout, which cannot shed planes."""
+        ladder = self.degrade_ladder if ladder is None else tuple(ladder)
+        if target_bytes <= 0 or not ladder:
+            return 0
+        cold = sorted(
+            (p for p in self._pages if p.resident is None),
+            key=lambda p: (p.commit_seq, p.importance, p.start),
+        )
+        freed = 0
+        for level, view in enumerate(ladder):
+            for page in cold:
+                if freed >= target_bytes:
+                    return freed
+                if page.degrade_level >= level or page.shared_ref:
+                    continue
+                try:
+                    freed += self.tier.truncate_planes([page.key], view)
+                except NotImplementedError:
+                    return freed        # word layout: nothing to shed
+                page.degrade_level = level
+        return freed
+
     # -- teardown ---------------------------------------------------------------
     def release(self) -> int:
-        """Retire this pool: delete every key it wrote (its namespace, or
-        its own keys without a prefix) and drop HBM pages.  Returns the
-        number of device keys freed."""
+        """Retire this pool: drop its references on shared pages (through
+        the index), delete every key it wrote (its namespace, or its own
+        private keys without a prefix) and drop HBM pages.  Returns the
+        number of device keys freed or released."""
+        freed = 0
+        for p in self._pages:
+            if p.shared_ref:
+                self.prefix_index.release(p.key)
+                p.shared_ref = False
+                freed += 1
         if self.key_prefix:
-            freed = self.tier.delete_prefix(self.key_prefix)
+            freed += self.tier.delete_prefix(self.key_prefix)
         else:
-            keys = {p.key for p in self._pages}
+            keys = {p.key for p in self._pages if not p.share_hash}
             for k in keys:
                 self.tier.delete(k)
-            freed = len(keys)
+            freed += len(keys)
         self._pages.clear()
         self.spill_events.clear()
         self._hbm_used = 0
