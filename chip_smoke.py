@@ -41,20 +41,46 @@ Phases (any failure exits non-zero and prints no result line):
 4. check the card's tier against the CPU's on the same KV pages: writes,
    readback at every view (policy views, the score view, a truncated
    block's intersection, a partial window, a tensor) and PNM gathers
-   (receipts, scores, winners and bytes identical), and the card's model
-   against the CPU's on a small input;
+   (receipts, scores, winners and bytes identical); the per-block encoder
+   (``batched_encode=False``) on the card against the batched one and
+   the CPU's, with a pack launch per block and a prep and a match launch
+   per block with a plane stream the pre-screen keeps; a
+   full-width KV pool (24 layers, K and V, 64-token pages) whose
+   ``prefetch_layer`` + ``read_layer`` equals a plain ``read_layer``,
+   words and stats; and the card's model against the CPU's on a small
+   input;
 5. serve 3 requests (512 prompt + 64 new tokens) through full-width
    qwen2-0.5b with random weights, KV spilling to a ``trace`` tier, with
    the kernel launch counts set to 0 just before and read just after
    (the KV read goes through the fused kernel alone: the standalone
    inverse must not launch; every flush launches the prep, without run
    flags, and the match kernel once each);
-6. the PNM path at full width, one request per case, launch counts read
+   then ``kv_through_tier`` of every layer's K and V and ``layer_traffic``
+   of one more such request equal a CPU pool's fed its page stream;
+6. the weight stream at full width (``[weights]``): the 168 decoder
+   matrices of qwen2-0.5b (24 layers x wq, wk, wv, wo, w1, w3, w2 at
+   their real shapes, importance falling with the layer) loaded by one
+   ``WeightStore.put_many`` into a ``trace`` tier on the card (a pack,
+   a prep without run flags and a match launch per 128 Ki-element encode
+   slab) and read back by one ``fetch_all`` at the ``DEFAULT_TIERS``
+   views (a standalone unpack + round launch per 64 Ki-element decode
+   slab; no KV kernel, no matmul): every unit equal to
+   ``view_round_plain`` of its source's fetched planes, FULL units the
+   params bit for bit; the same units on a ``plain`` device for the DRAM
+   read ratio; layer 0 through a CPU tier, bytes, flags and receipts
+   equal; the standalone unpack held to its plain version and timed at
+   a weight's decode slab at each view (its own row in the ``kernels``
+   line, apart from the fused KV read's ``bitplane_unpack``); the
+   first 4 layers on a 4-shard ``replicate-weights`` fleet (words and
+   per-shard bytes the single device's, async reads spread over the
+   replicas) and one request of 512 + 64 tokens served on that fleet
+   (tokens equal one device's);
+7. the PNM path at full width, one request per case, launch counts read
    per case: (a) classic readback, (b) a gather covering every candidate
    (tokens identical to a), (c) top-16 gathers with attention importance
    (fewer link bytes than a), (d) c on a 4-shard fleet (tokens identical
    to c), with the page-scoring wrapper's wall time per gather;
-7. continuous batching at full width (``[sched]``): six requests of
+8. continuous batching at full width (``[sched]``): six requests of
    512 + 64 tokens sharing their first 256, Poisson arrivals at 0.5 a
    decode round, through ``ServeScheduler`` (3 slots, a KV capacity of
    1.5 projections under the physical model) in four cases, launch
@@ -66,9 +92,13 @@ Phases (any failure exits non-zero and prints no result line):
    (d) c on 4 shards — c's tokens and bytes; the tier empty after each;
    wall tok/s and per-request wall latency from a synchronizing host
    clock around every ``step()``, beside the modeled report;
-8. two streams through ``MultiStreamEngine`` (``[streams]``), each
+9. two streams through ``MultiStreamEngine`` (``[streams]``), each
    stream's tokens equal to its solo run;
-9. profile one more classic request (host split from cProfile, device
+10. the three example twins (``repro_torch.examples``: quickstart,
+   serve_async, serve_continuous) on the card, as run without ``--cpu``:
+   their own assertions, the tier kernels launched, the quickstart's
+   numbers equal to its CPU run;
+11. profile one more classic request (host split from cProfile, device
    busy time from ``torch.profiler``) and one PNM request (cProfile).
 
 Prints the card's name and power limit, a ``kernels`` JSON line, and as
@@ -1033,6 +1063,50 @@ def check_tier_and_model(torch):
             raise AssertionError(f"gather winners differ cuda/cpu: "
                                  f"{ga.keys} {gb.keys}")
 
+    # the per-block encoder on the card: the batched store's bytes and
+    # receipts on the same tensor and KV writes; a pack launch for each
+    # block, a prep and a match launch for each block with a plane
+    # stream the pre-screen keeps (counted as the CPU store's match calls)
+    from repro_torch.core import codec as codecs
+    from repro_torch.kernels import build
+
+    match = codecs.klz4.match_events_slab
+    state, per_block = {}, {}
+    for batched, where in ((True, "cuda"), (False, "cuda"), (False, "cpu")):
+        tier = make_device("trace", device=where, batched_encode=batched)
+        calls = []
+        codecs.klz4.match_events_slab = \
+            lambda *a, **kw: calls.append(1) or match(*a, **kw)
+        before = dict(build.LAUNCHES)
+        try:
+            recs = tier.submit(writes + more)
+            torch.cuda.synchronize()
+        finally:
+            codecs.klz4.match_events_slab = match
+        got = {k: build.LAUNCHES[k] - before[k]
+               for k in ("bitplane_pack", "lz4_prep", "lz4_match")}
+        blocks = sum(r.blocks for r in recs)
+        state[batched, where] = (
+            [(k, [(b.payloads, b.flags) for b in bl])
+             for k, bl in tier._tensors.items()],
+            [{k: v for k, v in vars(r).items() if k != "data"}
+             for r in recs])
+        per_block[batched, where] = (got, blocks, len(calls))
+    (got, blocks, n_match), (_, _, cpu_match) = (per_block[False, "cuda"],
+                                                  per_block[False, "cpu"])
+    if not (got["bitplane_pack"] == blocks and
+            0 < got["lz4_prep"] == got["lz4_match"] == n_match == cpu_match):
+        raise AssertionError(f"the per-block encoder on the card launched "
+                             f"{got} for {blocks} blocks, {cpu_match} of "
+                             "them with a kept stream")
+    if not state[True, "cuda"] == state[False, "cuda"] == state[False, "cpu"]:
+        raise AssertionError("the per-block encoder on the card differs "
+                             "from the batched one or the CPU's")
+    print(f"[check] per-block encoder on the card: {blocks} blocks, "
+          f"launches {got} ({cpu_match} blocks with a kept stream); the "
+          f"batched store's {per_block[True, 'cuda'][0]}", flush=True)
+    check_pool_prefetch(torch)
+
     cfg = smoke_config(ARCHS["qwen2-0.5b"])
     params = init_params(cfg, seed=3, device="cpu")
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 40)))
@@ -1058,6 +1132,139 @@ def check_tier_and_model(torch):
         raise AssertionError(f"card logits differ from CPU by {diff} "
                              f"(scale {scale})")
     return diff
+
+
+def check_pool_prefetch(torch, dev="cuda"):
+    """A full-width KV pool (24 layers, K and V, 128 channels, 64-token
+    pages, two thirds spilled) on the card: each layer's prefetch, issued
+    one layer ahead of its read, then ``read_layer``, equals a plain
+    ``read_layer`` pool, words and tier stats."""
+    import numpy as np
+
+    from repro_torch.runtime import PAPER_POLICY, KVPagePool
+
+    layers, windows = 24, 6
+    page = WINDOW * CHANNELS * 2
+    pages = kv_windows(torch, layers * 2 * windows, WINDOW, 21).cpu() \
+        .numpy().view(np.uint16)
+    pools = []
+    for _ in range(2):
+        pool = KVPagePool("trace", page_tokens=WINDOW,
+                          hbm_budget_bytes=layers * 2 * 2 * page,
+                          policy=PAPER_POLICY, device=dev)
+        it = iter(pages)
+        for w in range(windows):
+            pool.append_pages([(l, kind, WINDOW * w, next(it), float(w))
+                               for l in range(layers) for kind in "kv"])
+        pools.append(pool)
+    plain, pre = pools
+    order = [(l, kind) for l in range(layers) for kind in "kv"]
+    want = [plain.read_layer(*lk) for lk in order]
+    issued = pre.prefetch_layer(*order[0])
+    got = []
+    for i, lk in enumerate(order):
+        if i + 1 < len(order):
+            issued += pre.prefetch_layer(*order[i + 1])
+        got.append(pre.read_layer(*lk))
+    if issued != pre.spilled_pages or pre._prefetched:
+        raise AssertionError(f"prefetch issued {issued} of "
+                             f"{pre.spilled_pages} spilled pages")
+    if not all(np_equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("prefetch + read_layer differs from read_layer")
+    fields = [f for f in vars(plain.stats()) if not f.startswith("_")]
+    a = {f: getattr(plain.stats(), f) for f in fields}
+    b = {f: getattr(pre.stats(), f) for f in fields}
+    if a != b:
+        raise AssertionError(f"prefetch changed the tier stats: {a} {b}")
+    print(f"[check] pool prefetch at full width ({layers} layers x K/V, "
+          f"{pre.spilled_pages} of {len(pages)} pages spilled): "
+          f"prefetch_layer + read_layer == read_layer, stats identical",
+          flush=True)
+
+
+class PoolLog:
+    """Every page-pool call an engine makes, by page key, to replay on
+    another pool."""
+
+    def __init__(self, pool):
+        self.calls = []
+        for name in ("append_pages", "read_pages", "read_pages_async",
+                     "drain_reads"):
+            self._wrap(pool, name)
+
+    def _wrap(self, pool, name):
+        fn = getattr(pool, name)
+
+        def logged(arg):
+            if name == "append_pages":
+                self.calls.append((name, [tuple(e) for e in arg]))
+            elif name == "drain_reads":
+                self.calls.append((name, [t.request.key for t in arg]))
+            else:
+                self.calls.append((name, [p.key for p in arg]))
+            return fn(arg)
+        setattr(pool, name, logged)
+
+    def replay(self, pool):
+        tickets = {}
+        for name, arg in self.calls:
+            if name == "append_pages":
+                pool.append_pages(arg)
+                pool.spill_events = []
+            elif name == "drain_reads":
+                pool.drain_reads([tickets.pop(k) for k in arg])
+            else:
+                by_key = {p.key: p for p in pool.iter_pages()}
+                pages = [by_key[k] for k in arg]
+                if name == "read_pages":
+                    pool.read_pages(pages)
+                else:
+                    tickets.update(zip(arg, pool.read_pages_async(pages)))
+
+
+def check_readback_helpers(torch, cfg, params, dev="cuda",
+                           budget: int = 1 << 22):
+    """``ServeEngine.kv_through_tier`` and ``layer_traffic`` of one
+    request served as [main] serves it: every layer's K and V round trip
+    and the per-layer traffic equal a CPU pool's fed the engine's page
+    stream."""
+    import numpy as np
+
+    from repro_torch.runtime import PAPER_POLICY, KVPagePool, ServeEngine
+
+    eng = ServeEngine(cfg, params, max_seq=512 + 64 + 64, batch=1,
+                      page_tokens=64, hbm_kv_budget=budget,
+                      policy=PAPER_POLICY, device=dev)
+    log = PoolLog(eng.pool)
+    prompt = np.random.default_rng(5).integers(0, cfg.vocab, (1, 512))
+    eng.generate(prompt.astype(np.int32), 64)
+    eng.flush_io()      # the last boundary's readback, into the log
+    cpu = KVPagePool("trace", page_tokens=64, hbm_budget_bytes=budget,
+                     policy=PAPER_POLICY, device="cpu")
+    log.replay(cpu)
+    traffic = eng.layer_traffic()
+    if eng.pool.spilled_pages <= 0 or 0 not in traffic:
+        raise AssertionError("the request spilled nothing")
+    if {k: vars(v) for k, v in traffic.items()} != \
+            {k: vars(v) for k, v in cpu.traffic_by_layer().items()}:
+        raise AssertionError("layer_traffic differs from the CPU pool's")
+    for layer in range(cfg.n_layers):
+        for kind in "kv":
+            a = eng.kv_through_tier(layer, kind)
+            if a.shape != (576, cfg.n_kv_heads * cfg.hd) or not np_equal(
+                    a, cpu.read_layer(layer, kind)):
+                raise AssertionError(f"kv_through_tier({layer}, {kind}) "
+                                     "differs from the CPU pool's")
+    if {k: vars(v) for k, v in eng.layer_traffic().items()} != \
+            {k: vars(v) for k, v in cpu.traffic_by_layer().items()}:
+        raise AssertionError("layer_traffic after the round trips differs")
+    spilled = eng.pool.spilled_pages
+    eng.retire()
+    print(f"[check] kv_through_tier of every layer's K and V and "
+          f"layer_traffic of one [main] request ({spilled} pages spilled, "
+          f"layer 0: {traffic[0].requests} requests, "
+          f"{traffic[0].dram_bytes_read} B DRAM read) == a CPU pool fed "
+          f"its page stream", flush=True)
 
 
 # Host functions whose cumulative time splits one served request.
@@ -1517,6 +1724,449 @@ def streams_path(torch, build, cfg, params, dev, trace_kw=SCHED_TRACE,
         raise AssertionError("[streams] a stream's tokens differ from its "
                              "solo run")
     return launches
+
+
+# [weights]: the weight stream of qwen2-0.5b at full width through a trace
+# tier on the card.  Every decoder matrix of every layer is a unit at its
+# real shape; a unit's importance falls with its layer.
+WEIGHT_MATS = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
+               ("attn", "wo"), ("mlp", "w1"), ("mlp", "w3"), ("mlp", "w2"))
+WEIGHT_LAYERS = 24           # every decoder layer
+FLEET_LAYERS = 4             # the replicate-weights fleet's share
+FLEET_SHARDS = 4
+BLOCK_ELEMS = 2048           # core.bitplane.BLOCK_ELEMS: a 4 KB block
+
+
+# Host functions whose cumulative time splits the weight path (cProfile).
+_WEIGHT_LOAD_SPANS = (
+    ("put_many", "runtime/weights.py", "put_many"),
+    ("  units to host", "runtime/weights.py", "_bf16_words"),
+    ("  blocks staged", "core/tier.py", "_stage_write"),
+    ("  pack on card", "kernels/bitplane.py", "pack_planes_slab"),
+    ("  codec", "core/codec.py", "compress_slab"),
+    ("    pre-screen (host)", "core/codec.py", "_prescreen_slab"),
+    ("    LZ4 prep + match on card", "kernels/lz4.py", "lz4_match"),
+    ("    LZ4 emit (host)", "core/codec.py", "lz4_emit_events"),
+    ("  blocks committed", "core/tier.py", "_commit"),
+)
+_WEIGHT_FETCH_SPANS = (
+    ("fetch_all", "runtime/weights.py", "fetch_all"),
+    ("  LZ4 decompress (host)", "core/codec.py", "decompress_batch"),
+    ("  unpack + round on card", "core/tier.py", "_decode_planes"),
+    ("  units assembled", "core/tier.py", "_assemble"),
+    ("  words to card", "runtime/weights.py", "_tensor"),
+)
+
+
+def _spans(stats, spans) -> str:
+    """``label seconds`` of each span's cumulative time in ``stats``."""
+    parts = []
+    for label, path, fn in spans:
+        ct = sum(v[3] for k, v in stats.items()
+                 if k[2] == fn and k[0].endswith(path))
+        parts.append(f"{label} {ct:.3f}")
+    return "; ".join(parts)
+
+
+def _allocated(torch, dev) -> int:
+    return torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+
+
+def _peak(torch, dev) -> int:
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+
+
+def weight_units(params, layers: int) -> dict:
+    """``L{layer}.{matrix}`` -> (bf16 weight on the card, importance)."""
+    n = len(params["layers"]["attn"]["wq"])
+    return {f"L{l}.{m}": (params["layers"][g][m][l], float(n - l))
+            for l in range(layers) for g, m in WEIGHT_MATS}
+
+
+def _block_sizes(numel: int) -> list:
+    """A tensor's blocks (the tail block is zero-padded to full size)."""
+    return [BLOCK_ELEMS] * -(-numel // BLOCK_ELEMS)
+
+
+def _slabs(sizes, cap: int) -> int:
+    """Slabs the tier cuts a block list into (a new slab whenever the
+    next block would pass ``cap``)."""
+    n, cur = 0, 0
+    for s in sizes:
+        if cur and cur + s > cap:
+            n, cur = n + 1, 0
+        cur += s
+    return n + (cur > 0)
+
+
+def fetched_mask(view) -> int:
+    return sum(1 << p for p in view.fetched_planes())
+
+
+class Recorder:
+    """Every receipt a tier's ``submit`` returns."""
+
+    def __init__(self, tier):
+        self.recs, submit = [], tier.submit
+
+        def wrapped(reqs):
+            out = submit(reqs)
+            self.recs.extend(out)
+            return out
+        tier.submit = wrapped
+
+
+def _receipt_fields(rec) -> dict:
+    return {k: v for k, v in vars(rec).items() if k not in ("data", "gather")}
+
+
+def check_weight_words(torch, k_bitplane, ws, units, out, tag):
+    """Every fetched unit equals its source words' fetched planes rounded
+    to its view (``view_round_plain``, on the card); FULL units equal the
+    params bit for bit."""
+    n_full = 0
+    for name, (w, _) in units.items():
+        view = ws.view_for(name)
+        src = w.contiguous().view(torch.int16).reshape(-1).to(torch.int32)
+        want = k_bitplane.to_int16(k_bitplane.view_round_plain(
+            (src & 0xFFFF) & fetched_mask(view),
+            k_bitplane.view_round_params(view)))
+        got = out[name]
+        if got.shape != w.shape or got.dtype != torch.bfloat16 \
+                or got.device != w.device:
+            raise AssertionError(f"{tag}: {name} came back {got.dtype} "
+                                 f"{tuple(got.shape)} on {got.device}")
+        if not torch.equal(got.view(torch.int16).reshape(-1), want):
+            raise AssertionError(f"{tag}: {name} at {view.name} differs "
+                                 "from view_round_plain of its source")
+        if view.is_full:
+            n_full += 1
+            if not torch.equal(got.view(torch.int16), w.view(torch.int16)):
+                raise AssertionError(f"{tag}: FULL unit {name} is not the "
+                                     "params bit for bit")
+    return n_full
+
+
+def weights_path(torch, build, k_bitplane, k_lz4, serve, params, dev,
+                 layers: int = WEIGHT_LAYERS,
+                 fleet_layers: int = FLEET_LAYERS):
+    """Load and fetch the decoder weights through a ``WeightStore`` on the
+    card, with the launch counts set to 0 just before each and read just
+    after; hold the words, the CPU tier's bytes and a replicate-weights
+    fleet to the single device; serve one request on that fleet."""
+    import numpy as np
+
+    from repro_torch.core.tier import ReadReq, make_device
+    from repro_torch.runtime import WeightStore
+
+    units = weight_units(params, layers)
+    n_elems = sum(w.numel() for w, _ in units.values())
+    sizes = [s for w, _ in units.values() for s in _block_sizes(w.numel())]
+    enc_slabs = _slabs(sizes, SLAB_ELEMS)
+
+    # -- load: one put_many -------------------------------------------------
+    ws = WeightStore("trace", device=dev)
+    prep_calls = ShapeRecorder(k_lz4, "lz4_prep",
+                               lambda buf, runb=True: f"runb={runb}")
+    build.reset_launches()
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    try:
+        ws.put_many(units)
+        _sync(torch, dev)
+    finally:
+        k_lz4.lz4_prep = prep_calls.original
+    load_s = time.perf_counter() - t0
+    load = dict(build.LAUNCHES)
+    stats = ws.stats
+    if stats.raw_bytes_stored != 2 * n_elems:
+        raise AssertionError(f"stored {stats.raw_bytes_stored} logical bytes "
+                             f"of {2 * n_elems}")
+    if load["bitplane_pack"] != enc_slabs:
+        raise AssertionError(f"{load['bitplane_pack']} pack launches for "
+                             f"{enc_slabs} encode slabs")
+    if not 0 < load["lz4_match"] == load["lz4_prep"] <= enc_slabs:
+        raise AssertionError(f"load: prep {load['lz4_prep']} / match "
+                             f"{load['lz4_match']} for {enc_slabs} slabs")
+    if prep_calls.counts != {"runb=False": load["lz4_prep"]}:
+        raise AssertionError(f"load: prep calls {prep_calls.counts}")
+    for name in ("kv_delta_fwd", "kv_delta_inv", "bitplane_unpack",
+                 "decode_attn", "pnm_score", "elastic_matmul"):
+        if load[name]:
+            raise AssertionError(f"load launched {name}: {load}")
+
+    # -- fetch: one fetch_all at the policy's views --------------------------
+    alone = ShapeRecorder(k_bitplane, "unpack_planes",
+                          lambda rows, *a, **kw: rows.shape[1] * 8)
+    groups: dict = {}
+    for name, (w, _) in units.items():
+        groups.setdefault(ws.view_for(name), []).extend(
+            _block_sizes(w.numel()))
+    dec_slabs = sum(_slabs(g, DECODE_ELEMS) for g in groups.values())
+    stats.reset_traffic()
+    build.reset_launches()
+    _sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    held = _allocated(torch, dev)
+    t0 = time.perf_counter()
+    try:
+        out = ws.fetch_all()
+        _sync(torch, dev)
+    finally:
+        k_bitplane.unpack_planes = alone.original
+    fetch_s = time.perf_counter() - t0
+    # the decoded slabs do not stay on the card: at most the words the
+    # fetch returns there, and one slab's temporaries, above what was held
+    peak = _peak(torch, dev) - held
+    if peak > 2 * n_elems + (256 << 20):
+        raise AssertionError(f"fetch_all held {peak} B on the card for "
+                             f"{2 * n_elems} B of words")
+    fetch = dict(build.LAUNCHES)
+    n_alone = sum(alone.counts.values())
+    trace_read = stats.dram_bytes_read
+    if n_alone != dec_slabs or fetch["bitplane_unpack"] != n_alone:
+        raise AssertionError(f"fetch: {n_alone} standalone unpack launches "
+                             f"({fetch['bitplane_unpack']} counted) for "
+                             f"{dec_slabs} decode slabs")
+    for name in ("kv_delta_fwd", "kv_delta_inv", "elastic_matmul",
+                 "bitplane_pack", "lz4_prep", "lz4_match"):
+        if fetch[name]:
+            raise AssertionError(f"fetch launched {name}: {fetch}")
+    n_full = check_weight_words(torch, k_bitplane, ws, units, out, "[weights]")
+    mix = {v.name: sum(1 for n in units if ws.view_for(n) == v)
+           for v in groups}
+    del out
+
+    # -- the same units on a plain (word) device: the DRAM read ratio -------
+    plain = WeightStore("plain", device=dev)
+    plain.put_many(units)
+    plain.stats.reset_traffic()
+    pout = plain.fetch_all()
+    for name, (w, _) in units.items():
+        view = plain.view_for(name)
+        src = w.contiguous().view(torch.int16).reshape(-1).to(torch.int32)
+        want = k_bitplane.to_int16(k_bitplane.view_round_plain(
+            src & 0xFFFF, k_bitplane.view_round_params(view)))
+        if not torch.equal(pout[name].view(torch.int16).reshape(-1), want):
+            raise AssertionError(f"plain store: {name} is not its words "
+                                 f"rounded to {view.name}")
+    plain_read = plain.stats.dram_bytes_read
+    del pout, plain
+
+    # -- layer 0 through a CPU tier: bytes, flags and receipts; where the
+    # card store's load and fetch time goes (cProfile) ----------------------
+    import cProfile
+    import pstats
+
+    layer0 = {k: v for k, v in units.items() if k.startswith("L0.")}
+    tiers = {}
+    for where in (dev, torch.device("cpu")):
+        store = WeightStore("trace", device=where)
+        rec = Recorder(store.tier)
+        prof = cProfile.Profile()
+        prof.enable()
+        store.put_many({k: (w.to(where), imp)
+                        for k, (w, imp) in layer0.items()})
+        _sync(torch, where)
+        prof.disable()
+        tiers[where.type] = (store.tier,
+                             [_receipt_fields(r) for r in rec.recs])
+        if where == dev:
+            l0_load = pstats.Stats(prof).stats
+            prof = cProfile.Profile()
+            prof.enable()
+            store.fetch_all()
+            _sync(torch, where)
+            prof.disable()
+            l0_fetch = pstats.Stats(prof).stats
+    (card, crecs), (cpu, precs) = tiers[dev.type], tiers["cpu"]
+    if crecs != precs:
+        raise AssertionError("layer 0: card receipts differ from the CPU's")
+    for key, blocks in cpu._tensors.items():
+        if [(b.payloads, b.flags) for b in card._tensors[key]] != \
+                [(b.payloads, b.flags) for b in blocks]:
+            raise AssertionError(f"layer 0: {key}'s stored bytes differ "
+                                 "card vs CPU")
+    l0_stored = card.stats.dram_bytes_stored
+    del tiers, card, cpu
+
+    ratio = stats.raw_bytes_stored / stats.dram_bytes_stored
+    print(f"[weights] {len(units)} units of {layers} layers, {n_elems} "
+          f"elements ({2 * n_elems} B bf16) in one put_many: stored "
+          f"{stats.dram_bytes_stored} B, weight compression ratio "
+          f"{ratio:.4f} (logical / stored), codec bypass "
+          f"{stats.bypass_rate:.4f} of {stats.codec_blocks} plane streams; "
+          f"avg_bits {ws.avg_bits():.2f} (units per view {mix}); load "
+          f"{load_s:.3f} s, fetch_all {fetch_s:.3f} s wall (synchronizing "
+          "host clock)", flush=True)
+    print(f"[weights] fetch_all DRAM read: trace {trace_read} B, plain "
+          f"{plain_read} B, trace / plain {trace_read / plain_read:.4f}",
+          flush=True)
+    print(f"[weights] launches: load {load} over {enc_slabs} encode slabs; "
+          f"fetch {fetch}; standalone unpack {n_alone} launches over "
+          f"{dec_slabs} decode slabs (elements a launch: "
+          f"{dict(sorted(alone.counts.items()))})", flush=True)
+    print(f"[weights] every unit == view_round_plain of its source on the "
+          f"card ({n_full} FULL units == params bit for bit); plain store "
+          f"words == its views' round of the source; layer 0 (7 units, "
+          f"{l0_stored} B stored): card receipts, bytes and flags == CPU; "
+          f"fetch_all held {peak} B on the card above its start "
+          f"({2 * n_elems} B of words returned there)", flush=True)
+    print("[profile] layer 0's load on the card under cProfile: "
+          + _spans(l0_load, _WEIGHT_LOAD_SPANS) + "; its fetch_all: "
+          + _spans(l0_fetch, _WEIGHT_FETCH_SPANS) + " (s, cumulative)",
+          flush=True)
+
+    # -- the standalone unpack at a weight's decode slab ---------------------
+    w1 = units["L0.w1"][0].contiguous().view(torch.int16).reshape(-1)
+    planes = k_bitplane.pack_planes_u16(w1[:DECODE_ELEMS])
+    times, row = {}, None
+    for view in sorted(groups, key=lambda v: -v.bits):
+        ids = view.fetched_planes()
+        rows = planes[list(ids)].contiguous()
+        rnd = k_bitplane.view_round_params(view)
+        got = k_bitplane.unpack_planes(rows, ids, view)
+        want = k_bitplane.unpack_planes_plain(rows, ids, rnd)
+        err = float((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+        if err:
+            raise AssertionError(f"standalone unpack at {view.name} differs "
+                                 f"from its plain version by {err}")
+        t = timed(torch, lambda: k_bitplane.unpack_planes(rows, ids, view))
+        b, by = bound_ms(len(ids) * DECODE_ELEMS // 8 + 2 * DECODE_ELEMS,
+                         3 * len(ids) * DECODE_ELEMS)
+        times[view.name] = (t["ms"], b)
+        if row is None:     # the kernels line's row: the widest view
+            row = dict(
+                name="bitplane_unpack_planes", route="cuda",
+                source="src/repro_torch/csrc/bitplane_unpack.cu",
+                replaces="src/repro/kernels/bitplane.py:51",
+                max_abs_err=err, **t,
+                plain_ms=timed(torch, lambda: k_bitplane.unpack_planes_plain(
+                    rows, ids, rnd))["ms"],
+                bound_ms=b, bound_by=by, library_ms=None, view=view.name)
+    print("[kernel] standalone unpack + round at a weight's decode slab "
+          f"(w1 of layer 0, {DECODE_ELEMS} elements): " + "; ".join(
+              f"{k} {ms * 1e3:.2f} us (bound {b * 1e3:.3f} us by bytes)"
+              for k, (ms, b) in times.items()), flush=True)
+
+    # -- replicate-weights: the first layers on every shard ------------------
+    fl = {k: v for k, v in units.items()
+          if int(k[1:k.index(".")]) < fleet_layers}
+    fleet = make_device("trace", shards=FLEET_SHARDS,
+                        placement="replicate-weights", window=2, device=dev)
+    fws = WeightStore(fleet)
+    fws.put_many(fl)
+    fout = fws.fetch_all()
+    # the single device's words at the fleet store's views (its units
+    # rank among fewer, so their views differ from the full load's)
+    single = {r.key: r.data.reshape(-1) for r in ws.tier.submit(
+        [ReadReq(k, view=fws.view_for(k)) for k in fl])}
+    for k in fl:
+        if not np_equal(fout[k].view(torch.int16).cpu().numpy()
+                        .view(np.uint16).reshape(-1), single[k]):
+            raise AssertionError(f"replicate-weights: {k} differs from the "
+                                 "single device's")
+    want = sum(ws.tier.resident_bytes(f"L{l}") for l in range(fleet_layers))
+    per_shard = [s.resident_bytes() for s in fleet.shards]
+    if per_shard != [want] * FLEET_SHARDS:
+        raise AssertionError(f"replicate-weights: shard bytes {per_shard}, "
+                             f"single device {want}")
+    del fout
+    # per-unit reads through the async front-end: a window of 2 flushes
+    # unwaited groups, so the next read finds another replica least busy
+    fleet.quiesce()
+    for s in fleet.shards:
+        s.stats.reset_traffic()
+    tickets = [t for k in fl for t in fleet.submit_async(
+        [ReadReq(k, view=fws.view_for(k))])]
+    recs = fleet.drain(tickets)
+    split = [sum(1 for r in recs if r.device_id == i)
+             for i in range(FLEET_SHARDS)]
+    if sum(1 for n in split if n) < 2:
+        raise AssertionError(f"replicate-weights reads did not spread: "
+                             f"{split}")
+    for r, k in zip(recs, fl):
+        if not np_equal(r.data.reshape(-1), single[k]):
+            raise AssertionError(f"replicate-weights: async read of {k} "
+                                 "differs from the single device's")
+    print(f"[weights] replicate-weights: {len(fl)} units of "
+          f"{fleet_layers} layers on {FLEET_SHARDS} shards, words == the "
+          f"single device's, every shard {want} B resident (== the single "
+          f"device's); per-unit async reads split {split} over the shards "
+          f"(DRAM read B {[s.stats.dram_bytes_read for s in fleet.shards]})",
+          flush=True)
+    del fleet, fws, single
+
+    kw = dict(arch="qwen2-0.5b", smoke=False, device="trace", prompt_len=512,
+              n_tokens=64, batch=1, requests=1, hbm_kv_budget=1 << 22,
+              page_tokens=64, seed=0, torch_device=dev, params=params,
+              verbose=False)
+    solo = serve(**kw, shards=None)
+    build.reset_launches()
+    rep = serve(**kw, shards=FLEET_SHARDS, placement="replicate-weights")
+    _sync(torch, dev)
+    launches = dict(build.LAUNCHES)
+    check_serving_launches("replicate-weights request", launches)
+    if not np_equal(rep.tokens[0], solo.tokens[0]):
+        raise AssertionError("replicate-weights fleet changed the tokens")
+    print(f"[weights] one request of 512 + 64 tokens on the "
+          f"replicate-weights fleet: tokens == one device's; wall tok/s "
+          f"{rep.tok_s:.3f} (one device {solo.tok_s:.3f}); launches "
+          f"{launches}", flush=True)
+    row["launches"] = n_alone
+    return dict(load=load, fetch=fetch, standalone=n_alone,
+                enc_slabs=enc_slabs, dec_slabs=dec_slabs, row=row)
+
+
+def examples_path(torch, build, dev="cuda"):
+    """Run the three example twins on the card, as ``python -m
+    repro_torch.examples.<name>`` runs them without ``--cpu``: each one's
+    own assertions, the tier kernels launched, and the quickstart's tier
+    numbers equal to its run on the CPU (the model's are not compared:
+    bf16 matmuls round at other places on the card)."""
+    import contextlib
+    import io
+
+    from repro_torch.examples import quickstart, serve_async, serve_continuous
+
+    twins = (("quickstart", quickstart), ("serve_async", serve_async),
+             ("serve_continuous", serve_continuous))
+    out = {}
+    for name, mod in twins:
+        argv = [] if dev == "cuda" else ["--cpu"]
+        buf = io.StringIO()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = mod.main(argv)
+        _sync(torch, torch.device(dev))
+        wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        for line in buf.getvalue().splitlines():
+            if line.strip():
+                print(f"[examples] {name} | {line}", flush=True)
+        need = ("bitplane_pack", "lz4_prep", "lz4_match", "bitplane_unpack")
+        if name != "quickstart":
+            need += ("kv_delta_fwd", "decode_attn")
+        if any(not launches[k] for k in need) or \
+                launches["lz4_prep"] != launches["lz4_match"] or \
+                launches["kv_delta_inv"] or launches["elastic_matmul"]:
+            raise AssertionError(f"example {name} on the card launched "
+                                 f"{launches}")
+        print(f"[examples] {name} on {dev}: {wall:.3f} s wall, launches "
+              f"{launches}", flush=True)
+        out[name] = res
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu = quickstart.main(["--cpu"])
+    if cpu != out["quickstart"]:
+        raise AssertionError(f"quickstart on the card {out['quickstart']} "
+                             f"!= on the CPU {cpu}")
+    print("[examples] quickstart's ratios, DRAM bytes and man4 error on the "
+          "card == on the CPU", flush=True)
+    return out
+
+
 # the kernels only the kernel API reaches
 API_ONLY_KERNELS = ("elastic_matmul", "kv_delta_inv")
 
@@ -1603,7 +2253,8 @@ def main():
     phase("kernel API")
     diff = check_tier_and_model(torch)
     print(f"[check] tier encode, readback at every view and PNM gathers "
-          f"cuda == cpu; smoke-model "
+          f"cuda == cpu; the per-block encoder == the batched one on the "
+          f"card; smoke-model "
           f"logits cuda vs cpu max |diff| {diff:.4g}", flush=True)
     phase("tier and model checks")
 
@@ -1644,6 +2295,23 @@ def main():
           f"forward batches {fwd_shapes.counts}; prep calls "
           f"{prep_calls.counts}", flush=True)
     phase("main path")
+    check_readback_helpers(torch, ARCHS["qwen2-0.5b"], params)
+    phase("readback helpers")
+    wl = weights_path(torch, build, k_bitplane, k_lz4, serve, params,
+                      torch.device("cuda", 0))
+    # the weight path's standalone unpack has a row of its own, timed at
+    # a weight's decode slab; bitplane_unpack's row is [main]'s fused read
+    results["bitplane_unpack_planes"] = wl["row"]
+    print(f"[weights] launches per weight load (encode slabs "
+          f"{wl['enc_slabs']}): bitplane_pack {wl['load']['bitplane_pack']}, "
+          f"lz4_prep {wl['load']['lz4_prep']}, lz4_match "
+          f"{wl['load']['lz4_match']}; per fetch_all (decode slabs "
+          f"{wl['dec_slabs']}): standalone bitplane_unpack "
+          f"{wl['standalone']} (the kernels line's bitplane_unpack_planes "
+          f"row, timed at {wl['row']['view']}; bitplane_unpack's row is "
+          f"[main]'s {launches['bitplane_unpack']} fused KV reads)",
+          flush=True)
+    phase("weights path")
     pnm_launches = pnm_path(torch, serve, build, params)
     results["pnm_score"]["launches"] = pnm_launches["pnm_score"]
     phase("PNM path")
@@ -1652,6 +2320,8 @@ def main():
     phase("scheduler path")
     streams_path(torch, build, cfg, params, dev)
     phase("multi-stream path")
+    examples_path(torch, build)
+    phase("examples")
     profile_request(torch, serve, params)
     profile_request(torch, serve, params, device_time=False, pnm_topk=16,
                     importance="attention")
@@ -1660,7 +2330,9 @@ def main():
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: results[n][k] for k in keys}
-                                  for n in build.KERNELS]}), flush=True)
+                                  for n in build.KERNELS
+                                  + ("bitplane_unpack_planes",)]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -814,6 +814,22 @@ def _prescreen_slab(buf: np.ndarray, starts: np.ndarray,
     return res
 
 
+def compress_block(data: bytes, codec: str) -> Tuple[bytes, int]:
+    """Compress one block; fall back to raw storage when incompressible.
+
+    Returns ``(payload, flag)`` with flag ∈ {RAW, COMPRESSED}.  The bypass
+    decision (pre-screen + :data:`BYPASS_THRESHOLD`) is shared with
+    :func:`compress_batch`, so the two are byte-identical per block.
+    """
+    if prescreen_bypass(data):
+        return data, RAW
+    c, _ = CODECS[resolve_codec(codec)]
+    comp = c(data)
+    if len(comp) >= BYPASS_THRESHOLD * len(data):
+        return data, RAW
+    return comp, COMPRESSED
+
+
 def compress_batch(chunks: Sequence[bytes],
                    codec: str) -> Tuple[List[bytes], List[int]]:
     """Compress a flush group of blocks in a few vectorized passes.
@@ -897,6 +913,14 @@ def compress_slab(slab, starts: Sequence[int], ends: Sequence[int],
     return payloads, flags
 
 
+def decompress_block(payload: bytes, flag: int, codec: str,
+                     orig_len: int) -> bytes:
+    if flag == RAW:
+        return payload
+    _, d = CODECS[resolve_codec(codec)]
+    return d(payload, max_out=orig_len)
+
+
 def decompress_batch(payloads: Sequence[bytes], flags: Sequence[int],
                      codec: str, orig_lens: Sequence[int]) -> List[bytes]:
     """Inverse of :func:`compress_batch`: one codec resolve for the group."""
@@ -905,3 +929,8 @@ def decompress_batch(payloads: Sequence[bytes], flags: Sequence[int],
         pay if fl == RAW else d(pay, max_out=n)
         for pay, fl, n in zip(payloads, flags, orig_lens)
     ]
+
+
+def ratio(orig: int, comp: int) -> float:
+    """Compression ratio S_orig / S_comp (≥ 1 is a gain)."""
+    return orig / max(comp, 1)

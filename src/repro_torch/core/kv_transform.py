@@ -17,7 +17,7 @@ import dataclasses
 
 import numpy as np
 
-from .bitplane import EXP_BITS, EXP_LO
+from .bitplane import EXP_BITS, EXP_LO, pack_planes, unpack_planes
 
 _EXP_MASK = np.uint16(((1 << EXP_BITS) - 1) << EXP_LO)
 _REST_MASK = np.uint16(~(((1 << EXP_BITS) - 1) << EXP_LO) & 0xFFFF)
@@ -30,6 +30,10 @@ class KVBlockMeta:
     beta: np.ndarray      # (C,) uint8 — per-channel base exponent
     n_tokens: int
     n_channels: int
+
+    @property
+    def nbytes(self) -> int:
+        return self.beta.size + 8  # betas + window header
 
 
 def _zigzag_u8(d: np.ndarray) -> np.ndarray:
@@ -100,3 +104,15 @@ def kv_inverse_batch(streams: np.ndarray, metas: list) -> np.ndarray:
     exp = (delta.astype(np.int16) + beta[:, :, None].astype(np.int16)) % 256
     out = (cm & _REST_MASK) | (exp.astype(np.uint16) << EXP_LO)
     return np.ascontiguousarray(out.transpose(0, 2, 1))
+
+
+def kv_pack(block_u16: np.ndarray) -> tuple[np.ndarray, KVBlockMeta]:
+    """Full Mechanism-I chain: transform, then bit-plane pack (Fig. 8)."""
+    stream, meta = kv_forward(block_u16)
+    return pack_planes(stream), meta
+
+
+def kv_unpack(planes: np.ndarray, meta: KVBlockMeta) -> np.ndarray:
+    """Inverse of :func:`kv_pack` → token-major ``(n, C)`` uint16."""
+    stream = unpack_planes(planes, meta.n_tokens * meta.n_channels)
+    return kv_inverse(stream, meta)

@@ -29,6 +29,7 @@ from .bitplane import (
     MAN_HI,
     SIGN_BIT,
     plane_bytes,
+    unpack_planes,
 )
 
 
@@ -145,6 +146,17 @@ def reconstruct_u16(fetched_u16: np.ndarray, view: PrecisionView) -> np.ndarray:
         )
     out = np.where(is_special, special_out, sign | mag_r)
     return (out & keep).astype(np.uint16)
+
+
+def assemble_from_planes(planes: np.ndarray, n_elems: int,
+                         view: PrecisionView) -> np.ndarray:
+    """Words of a full ``(16, m // 8)`` plane stack at ``view``: the
+    view's fetched planes unpacked (the rest read as zero), then
+    reconstructed."""
+    sel = np.zeros_like(planes)
+    for p in view.fetched_planes():
+        sel[p] = planes[p]
+    return reconstruct_u16(unpack_planes(sel, n_elems), view)
 
 
 def truncate_reference(u16: np.ndarray, view: PrecisionView) -> np.ndarray:

@@ -13,13 +13,16 @@ Routing is a :class:`Placement` policy (the ``PLACEMENTS`` registry):
 
 * ``hash-stripe`` (default) — every key hashes to one home shard;
 * ``namespace`` — keys route by their first ``.``-segment, pinning each
-  engine's namespace (``r7.*``) to one device.
+  engine's namespace (``r7.*``) to one device;
+* ``replicate-weights`` — hash-stripe for KV, but ``TENSOR``-kind writes
+  (the weight store's units) land a full copy on every shard, returning
+  the home shard's receipt, and tensor reads go to the least-busy
+  replica (smallest :attr:`TierStore.busy_backlog_s`, ties to the lowest
+  index).  The receipts-sum identity then holds per shard, not at the
+  fleet view: a replicated write's bytes land on every shard.
 
-The reference's third policy, ``replicate-weights``, differs from
-``hash-stripe`` only for ``TENSOR``-kind writes, which the port's serve
-path does not make; it comes with the weights path.
-
-A key's whole stream lives on one home shard, and ``shared.<hash>``
+A key's whole stream lives on one home shard (replicas are full
+copies), and ``shared.<hash>``
 pages route by their ``shared.<hash>`` head, so bytes read back are
 identical to a single device's, and every layer/kind page of one prefix
 window colocates: ``acquire`` / ``release`` / ``refcount`` and
@@ -33,21 +36,27 @@ from __future__ import annotations
 
 import dataclasses
 import zlib
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
 from ..kernels.pnm_score import topk_select
-from .precision import PrecisionView
+from .precision import FULL, PrecisionView
 from .tier import (
     DEVICE_KINDS,
+    KV,
+    TENSOR,
     DeviceStats,
     GatherReq,
     GatherResult,
+    LinkModel,
+    ReadReq,
     Receipt,
     Request,
     Ticket,
     TierStore,
+    WriteReq,
+    _ns_match,
 )
 
 SHARED_NS = "shared."
@@ -88,6 +97,10 @@ class Placement:
             token = self._token(key)
         return _stable_hash(token) % self.n
 
+    def replicates(self, req: WriteReq) -> bool:
+        """True when this write lands a full copy on every shard."""
+        return False
+
 
 class HashStripePlacement(Placement):
     """Stripe every key by a stable full-key hash."""
@@ -104,8 +117,20 @@ class NamespacePlacement(Placement):
         return key.split(".", 1)[0]
 
 
+class ReplicateWeightsPlacement(HashStripePlacement):
+    """Hash-stripe KV, replicate weights: ``TENSOR``-kind writes land on
+    every shard and tensor reads go to the least-busy replica."""
+
+    name = "replicate-weights"
+
+    def replicates(self, req: WriteReq) -> bool:
+        return req.kind == TENSOR
+
+
 PLACEMENTS: Dict[str, type] = {
-    p.name: p for p in (HashStripePlacement, NamespacePlacement)
+    p.name: p for p in (
+        HashStripePlacement, NamespacePlacement, ReplicateWeightsPlacement,
+    )
 }
 
 
@@ -124,6 +149,14 @@ class FleetStats:
     def reset_traffic(self):
         for s in self._shards:
             s.stats.reset_traffic()
+
+    @property
+    def bypass_rate(self) -> float:
+        return self.codec_bypass / max(self.codec_blocks, 1)
+
+    @property
+    def compression_ratio(self) -> float:
+        return self.raw_bytes_stored / max(self.dram_bytes_stored, 1)
 
 
 for _field in dataclasses.fields(DeviceStats):
@@ -168,42 +201,100 @@ class _MergedGatherTicket:
 
 
 class ShardedTierStore:
-    """N inner tier devices of one ``kind`` behind the single-device
-    request protocol.  The remaining keyword arguments (``device``,
-    ``sanitize``, ``window`` …) go to every shard; shard ``i`` gets
-    ``device_id=i``, which its receipts carry."""
+    """N inner tier devices behind the single-device request protocol.
+
+    Pass ``kind`` for a named device per shard, ``layout`` for a bare
+    :class:`TierStore` per shard, or ``shard_factory`` (an ``i ->
+    TierStore`` callable that must set ``device_id=i``) for full control,
+    e.g. a fleet with a deliberately slow straggler.  ``link_models``
+    overrides the pipe model per shard.  The remaining keyword arguments
+    (``device``, ``window`` …) go to every shard; shard ``i`` gets
+    ``device_id=i``, which its receipts carry.
+    """
 
     name = "sharded"
 
-    def __init__(self, n: int, kind: str,
+    def __init__(self, n: int, kind: Optional[str] = None,
+                 layout: Optional[str] = None,
                  placement: Union[str, Placement, None] = "hash-stripe",
+                 link_models: Optional[Sequence[LinkModel]] = None,
+                 sanitize: Optional[bool] = None,
+                 shard_factory: Optional[Callable[[int], TierStore]] = None,
                  **device_kw):
         if n < 1:
             raise ValueError(f"need at least one shard, got {n}")
+        if link_models is not None and len(link_models) != n:
+            raise ValueError(
+                f"link_models has {len(link_models)} entries for {n} shards")
         if placement is None:
             placement = "hash-stripe"
         self.placement = (PLACEMENTS[placement](n)
                           if isinstance(placement, str) else placement)
-        self.shards = [DEVICE_KINDS[kind](device_id=i, **device_kw)
-                       for i in range(n)]
+        shards: List[TierStore] = []
+        for i in range(n):
+            if shard_factory is not None:
+                dev = shard_factory(i)
+                if dev.device_id != i:
+                    raise ValueError(
+                        f"shard_factory({i}) built device_id="
+                        f"{dev.device_id}; receipts could not attribute "
+                        f"traffic — construct with device_id=i")
+            else:
+                kw = dict(device_kw, device_id=i)
+                if link_models is not None:
+                    kw["link_model"] = link_models[i]
+                if sanitize is not None:
+                    kw["sanitize"] = sanitize
+                dev = (DEVICE_KINDS[kind](**kw) if kind is not None
+                       else TierStore(layout=layout or "word", **kw))
+            shards.append(dev)
+        self.shards = shards
         self.n_shards = n
-        self.stats = FleetStats(self.shards)
+        self.stats = FleetStats(shards)
+        self.sanitize = shards[0].sanitize
+        # keys written under a replicating placement: their reads may go
+        # to any shard, their deletes retire every copy
+        self._replicated: set = set()
 
     # -- routing -------------------------------------------------------------
     def owner(self, key: str) -> int:
         """Home shard index of ``key`` under the active placement."""
         return self.placement.owner(key)
 
+    @property
+    def device(self):
+        """The torch device every shard's kernels run on."""
+        return self.shards[0].device
+
+    def _read_shard(self, key: str) -> int:
+        """Where a read of ``key`` goes: a replicated key's least-busy
+        replica (ties to the lowest index), else its home shard."""
+        if key in self._replicated:
+            return min(range(self.n_shards),
+                       key=lambda i: (self.shards[i].busy_backlog_s, i))
+        return self.placement.owner(key)
+
     def _partition(self, requests: Sequence[Request]
-                   ) -> Tuple[List[List[Request]], List[List[int]]]:
+                   ) -> Tuple[List[List[Request]], List[List[Optional[int]]]]:
         """Per-shard sub-batches (relative order kept); ``slots[s][j]`` is
-        the batch index the j-th request of shard s answers."""
+        the batch index the j-th request of shard s answers, or None for a
+        replica copy, whose receipt only its shard's stats keep."""
         per: List[List[Request]] = [[] for _ in range(self.n_shards)]
-        slots: List[List[int]] = [[] for _ in range(self.n_shards)]
+        slots: List[List[Optional[int]]] = [[] for _ in range(self.n_shards)]
         for idx, req in enumerate(requests):
-            s = self.owner(req.key)
-            per[s].append(req)
-            slots[s].append(idx)
+            if isinstance(req, WriteReq):
+                home = self.placement.owner(req.key)
+                targets: Sequence[int] = (home,)
+                if self.placement.replicates(req):
+                    self._replicated.add(req.key)
+                    targets = range(self.n_shards)
+                for s in targets:
+                    per[s].append(req)
+                    slots[s].append(idx if s == home else None)
+            else:
+                s = self._read_shard(req.key)
+                per[s].append(req)
+                slots[s].append(idx)
         return per, slots
 
     # -- fleet scatter-gather (PNM top-k) -------------------------------------
@@ -216,14 +307,14 @@ class ShardedTierStore:
         per_keys: List[List[str]] = [[] for _ in range(self.n_shards)]
         per_pos: List[List[int]] = [[] for _ in range(self.n_shards)]
         for pos, key in enumerate(req.keys):
-            s = self.owner(key)
+            s = self._read_shard(key)
             per_keys[s].append(key)
             per_pos[s].append(pos)
         subs: List[Optional[GatherReq]] = [None] * self.n_shards
         if not req.keys:
             # zero candidates: one well-formed empty gather on the
             # default-routed shard
-            subs[self.owner(req.key)] = GatherReq(
+            subs[self._read_shard(req.key)] = GatherReq(
                 keys=(), digest=req.digest, k=0, kind=req.kind,
                 views=None if req.views is None else (),
                 score_view=req.score_view, tag=req.tag,
@@ -307,7 +398,8 @@ class ShardedTierStore:
             if not sub:
                 continue
             for i, rec in zip(sl, shard.submit(sub)):
-                receipts[rest_ix[i]] = rec
+                if i is not None:
+                    receipts[rest_ix[i]] = rec
         for i, (subs, per_pos) in plans:
             live = [(s, sub) for s, sub in enumerate(subs) if sub is not None]
             if len(live) == 1:
@@ -330,7 +422,10 @@ class ShardedTierStore:
             if not sub:
                 continue
             for i, t in zip(sl, shard.submit_async(sub)):
-                tickets[rest_ix[i]] = t
+                if i is not None:
+                    tickets[rest_ix[i]] = t
+                else:
+                    t.wait()     # a replica copy: born complete
         for i, (subs, per_pos) in plans:
             live = [(s, sub) for s, sub in enumerate(subs) if sub is not None]
             if len(live) == 1:
@@ -342,6 +437,11 @@ class ShardedTierStore:
                 tickets[i] = _MergedGatherTicket(self, requests[i], inner,
                                                  per_pos)
         return tickets  # type: ignore[return-value]
+
+    @property
+    def pending(self) -> int:
+        """Queued (not yet executed) reads across every shard's window."""
+        return sum(s.pending for s in self.shards)
 
     def drain(self, tickets: Optional[Sequence[Ticket]] = None
               ) -> List[Receipt]:
@@ -375,9 +475,33 @@ class ShardedTierStore:
     def layout(self):
         return self.shards[0].layout
 
+    @property
+    def link_model(self) -> LinkModel:
+        return self.shards[0].link_model
+
+    @property
+    def window(self) -> int:
+        return self.shards[0].window
+
+    @property
+    def busy_backlog_s(self) -> float:
+        """The fleet straggler: the largest per-shard pipe backlog."""
+        return max(s.busy_backlog_s for s in self.shards)
+
+    # -- per-key introspection (routed to the home shard) ---------------------
+    def n_blocks(self, key: str) -> int:
+        return self.shards[self.owner(key)].n_blocks(key)
+
+    def footprint(self, key: str) -> int:
+        return self.shards[self.owner(key)].footprint(key)
+
+    def logical_bytes(self, key: str) -> int:
+        return self.shards[self.owner(key)].logical_bytes(key)
+
     # -- fleet residency ledger ----------------------------------------------
     def resident_bytes(self, prefix: str = "") -> int:
-        """Physical bytes a namespace occupies across the fleet."""
+        """Physical bytes a namespace occupies across the fleet (a
+        replicated key counts once per copy: that is real DRAM)."""
         return sum(s.resident_bytes(prefix) for s in self.shards)
 
     def compression_ratio(self, prefix: str = "") -> float:
@@ -393,9 +517,9 @@ class ShardedTierStore:
 
     def truncate_planes(self, keys: Sequence[str],
                         view: PrecisionView) -> int:
-        """In-place plane truncation on each key's home shard.  Refcounts
-        are checked across the fleet first, so a co-owned page rejects
-        before any shard sheds bytes."""
+        """In-place plane truncation on each key's home shard (every copy
+        of a replicated key).  Refcounts are checked across the fleet
+        first, so a co-owned page rejects before any shard sheds bytes."""
         if not self.layout.plane_aligned:
             raise NotImplementedError(
                 f"layout {self.layout.name!r} stores word-major "
@@ -411,7 +535,10 @@ class ShardedTierStore:
                 )
         grouped: Dict[int, List[str]] = {}
         for key in keys:
-            grouped.setdefault(self.owner(key), []).append(key)
+            targets = (range(self.n_shards) if key in self._replicated
+                       else (self.owner(key),))
+            for s in targets:
+                grouped.setdefault(s, []).append(key)
         return sum(self.shards[s].truncate_planes(sub, view)
                    for s, sub in grouped.items())
 
@@ -426,13 +553,21 @@ class ShardedTierStore:
         return self.shards[self.owner(key)].release(key)
 
     def delete(self, key: str):
-        self.shards[self.owner(key)].delete(key)
+        if key in self._replicated:
+            for shard in self.shards:
+                shard.delete(key)
+            self._replicated.discard(key)
+        else:
+            self.shards[self.owner(key)].delete(key)
 
     def delete_prefix(self, prefix: str) -> int:
         """Release one namespace fleet-wide; key counts sum over shards.
         A ``shared.<hash>`` namespace lives on one shard, so co-owned
         refcounts drop exactly once, there."""
-        return sum(shard.delete_prefix(prefix) for shard in self.shards)
+        released = sum(shard.delete_prefix(prefix) for shard in self.shards)
+        self._replicated = {k for k in self._replicated
+                            if not _ns_match(k, prefix)}
+        return released
 
     # -- fleet view -----------------------------------------------------------
     def per_device_stats(self) -> List[DeviceStats]:
@@ -449,3 +584,19 @@ class ShardedTierStore:
         if total <= 0:
             return 1.0
         return max(moved) * self.n_shards / total
+
+    # -- legacy shims (forward to submit) ------------------------------------
+    def write_tensor(self, name: str, u16: np.ndarray):
+        self.submit([WriteReq(name, u16, kind=TENSOR)])
+
+    def read_tensor(self, name: str, view: PrecisionView = FULL) -> np.ndarray:
+        return self.submit([ReadReq(name, kind=TENSOR, view=view)])[0].data
+
+    def write_kv(self, stream: str, tokens_u16: np.ndarray):
+        self.submit([WriteReq(stream, tokens_u16, kind=KV, flush=False)])
+
+    def read_kv(self, stream: str, view: PrecisionView = FULL) -> np.ndarray:
+        return self.submit([ReadReq(stream, kind=KV, view=view)])[0].data
+
+    def flush_kv(self, stream: str):
+        self.shards[self.owner(stream)].flush_kv(stream)

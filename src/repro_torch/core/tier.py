@@ -35,6 +35,11 @@ their receipts carry queue delay from a device-global busy clock
 (:meth:`LinkModel.schedule`).  Program order is kept per key, so async
 execution is byte-identical to sync.  ``make_device(shards > 1)`` builds
 a fleet (``core.sharding.ShardedTierStore``).
+
+``TierStore(batched_encode=False)`` encodes block by block (on the card
+a pack launch for each block, and an LZ4 prep and match launch for
+each block whose planes the pre-screen does not all bypass),
+byte-identical to the slab encoder.
 """
 
 from __future__ import annotations
@@ -191,6 +196,14 @@ class Receipt:
     data: Optional[np.ndarray] = None
     gather: Optional[GatherResult] = None   # winner set (gathers only)
 
+    @property
+    def dram_bytes(self) -> int:
+        return self.dram_bytes_read + self.dram_bytes_written
+
+    @property
+    def link_bytes(self) -> int:
+        return self.link_bytes_in + self.link_bytes_out
+
 
 @dataclasses.dataclass(frozen=True)
 class LinkModel:
@@ -266,6 +279,15 @@ class DeviceStats:
                "raw_bytes_stored", "link_bytes_in", "link_bytes_out",
                "index_bytes", "index_hits", "index_misses", "blocks",
                "codec_blocks", "codec_bypass", "device_compute_s")
+
+    @property
+    def bypass_rate(self) -> float:
+        """Fraction of codec payload streams stored raw (bypass rate)."""
+        return self.codec_bypass / max(self.codec_blocks, 1)
+
+    @property
+    def compression_ratio(self) -> float:
+        return self.raw_bytes_stored / max(self.dram_bytes_stored, 1)
 
     def reset_traffic(self):
         _put(self, dram_bytes_read=0, dram_bytes_written=0, link_bytes_out=0,
@@ -565,6 +587,10 @@ class Layout:
     ``plane_aligned``: a reduced view physically cuts DRAM traffic;
     ``kv_transform``: KV windows get the exponent-delta transform;
     ``uses_codec``: payloads go through the inline codec.
+
+    :meth:`encode_batch` encodes a whole posting group in a few slab
+    passes; :meth:`encode_batch_scalar` is the per-block encoder
+    (``TierStore(batched_encode=False)``), byte-identical to it.
     """
 
     name = "layout"
@@ -576,6 +602,13 @@ class Layout:
                      device: torch.device
                      ) -> List[Tuple[List[bytes], List[int]]]:
         """Batch encode on ``device``: ``(payloads, flags)`` per chunk."""
+        raise NotImplementedError
+
+    def encode_batch_scalar(self, chunks: Sequence[_Chunk], codec: str,
+                            device: torch.device
+                            ) -> List[Tuple[List[bytes], List[int]]]:
+        """Per-block encode: ``(payloads, flags)`` per chunk, each block
+        and payload stream on its own."""
         raise NotImplementedError
 
     def fetched_payloads(self, block: _Block, view: PrecisionView) -> Sequence[int]:
@@ -603,6 +636,14 @@ class WordLayout(Layout):
             payloads, flags = codecs.compress_batch(raws, codec)
             return [([pay], [fl]) for pay, fl in zip(payloads, flags)]
         return [([raw], [codecs.RAW]) for raw in raws]
+
+    def encode_batch_scalar(self, chunks, codec, device):
+        out = []
+        for chunk in chunks:
+            raw = chunk.tobytes()
+            out.append(codecs.compress_block(raw, codec) if self.compress
+                       else (raw, codecs.RAW))
+        return [([pay], [fl]) for pay, fl in out]
 
     def fetched_payloads(self, block, view):
         return (0,)
@@ -639,13 +680,17 @@ class BitplaneLayout(Layout):
         self.kv_transform = kv_transform
         self.name = "bitplane-kv" if kv_transform else "bitplane"
 
-    def encode_batch(self, chunks, codec, device):
-        if not chunks:
-            return []
+    @staticmethod
+    def _check_sizes(chunks):
         for c in chunks:
             if _numel(c) % 8:
                 raise ValueError(f"block length {_numel(c)} not a multiple "
                                  "of 8")
+
+    def encode_batch(self, chunks, codec, device):
+        if not chunks:
+            return []
+        self._check_sizes(chunks)
         out, cur, cur_n = [], [], 0
         for c in chunks:
             if cur and cur_n + _numel(c) > self.ENCODE_SLAB_ELEMS:
@@ -678,6 +723,14 @@ class BitplaneLayout(Layout):
              [flags[p * nblk + i] for p in range(BF16_BITS)])
             for i in range(nblk)
         ]
+
+    def encode_batch_scalar(self, chunks, codec, device):
+        """Per block: one pack and one ``compress_slab`` over the block's
+        16 plane streams, all on ``device`` (on the card a pack launch
+        for each block, and a prep and a match launch for each block with
+        a plane stream the pre-screen keeps)."""
+        self._check_sizes(chunks)
+        return [self._encode_slab([c], codec, device)[0] for c in chunks]
 
     def fetched_payloads(self, block, view):
         return view.fetched_planes()
@@ -859,6 +912,7 @@ class TierStore:
                  codec: str = "lz4", block_elems: int = BLOCK_ELEMS,
                  index_cache_entries: int = 4096, kv_window: int = 64,
                  link_model: LinkModel = LinkModel(), window: int = 64,
+                 batched_encode: bool = True,
                  sanitize: Optional[bool] = None, device_id: int = 0,
                  device: Union[str, torch.device, None] = None):
         self.device = devices.resolve(device)
@@ -869,6 +923,7 @@ class TierStore:
         self.link_model = link_model
         self.device_id = device_id  # tracecheck: disable=R3  (config, not a tally)
         self.window = window                 # max queued (in-flight) reads
+        self.batched_encode = batched_encode  # False: per-block encoder
         if sanitize is None:
             sanitize = os.environ.get("TRACE_SANITIZE", "").strip() \
                 not in ("", "0")
@@ -1025,6 +1080,11 @@ class TierStore:
             self._san.check_clock()
         return [tickets[i] for i in range(len(requests))]
 
+    @property
+    def pending(self) -> int:
+        """Queued (not yet executed) reads in the in-flight window."""
+        return len(self._queue)
+
     def drain(self, tickets: Optional[Sequence[Ticket]] = None) -> List[Receipt]:
         """Execute everything queued; return the receipts of ``tickets``
         (default: the reads pending at call time), in order."""
@@ -1082,6 +1142,15 @@ class TierStore:
             + sum(t[1] for t in traffic) / lm.link_bw
         if wait:
             self._now_s = now + max(r.latency_s for r in recs)
+
+    @property
+    def busy_backlog_s(self) -> float:
+        """Residual pipe occupancy beyond host `now` (seconds): how far
+        the DDR / link frontiers run ahead of the host clock, zero on an
+        idle device.  A ``replicate-weights`` fleet reads replicated keys
+        from the replica where it is least."""
+        return max(self._ddr_free_s - self._now_s,
+                   self._link_free_s - self._now_s, 0.0)
 
     def quiesce(self):
         """Idle the host until both device pipes drain."""
@@ -1169,8 +1238,9 @@ class TierStore:
         if not slab.chunks:
             return
         self._transform_kv_windows(slab)
-        encoded = self.layout.encode_batch(slab.chunks, self.codec,
-                                           self.device)
+        enc = (self.layout.encode_batch if self.batched_encode
+               else self.layout.encode_batch_scalar)
+        encoded = enc(slab.chunks, self.codec, self.device)
         for (payloads, flags), key, rec, chunk, valid, meta in zip(
                 encoded, slab.keys, slab.recs, slab.chunks, slab.valids,
                 slab.metas):
@@ -1184,11 +1254,13 @@ class TierStore:
         windows go up once and through one exponent-delta forward
         (``kernels.kv_delta``, the modal betas found there); the
         transformed streams stay on the device for the pack, and the betas
-        come back as the blocks' metadata."""
+        come back as the blocks' metadata.  The per-block encoder
+        transforms each window in a launch of its own."""
         pend = [i for i, w in enumerate(slab.kv_windows) if w is not None]
-        groups: Dict[tuple, List[int]] = {}
+        groups: Dict[object, List[int]] = {}
         for i in pend:
-            groups.setdefault(slab.kv_windows[i].shape, []).append(i)
+            key = slab.kv_windows[i].shape if self.batched_encode else i
+            groups.setdefault(key, []).append(i)
         for idxs in groups.values():
             win = np.stack([slab.kv_windows[i] for i in idxs]).astype(
                 np.uint16, copy=False)
@@ -1404,6 +1476,16 @@ class TierStore:
             _add(rec, index_misses=1, index_bytes=INDEX_ENTRY_BYTES,
                  dram_bytes_read=INDEX_ENTRY_BYTES)
 
+    # -- introspection -------------------------------------------------------
+    def n_blocks(self, key: str) -> int:
+        return len(self._tensors.get(key, []))
+
+    def footprint(self, key: str) -> int:
+        return sum(b.stored_bytes for b in self._tensors[key])
+
+    def logical_bytes(self, key: str) -> int:
+        return sum(b.valid_elems for b in self._tensors[key]) * 2
+
     # -- residency ledger -----------------------------------------------------
     def resident_bytes(self, prefix: str = "") -> int:
         """Physical bytes (payload + index) a namespace occupies now."""
@@ -1562,6 +1644,33 @@ class TierStore:
             self._san.boundary()
             self._san.check_retired(prefix=prefix, survivors=survivors)
         return len(keys)
+
+    # -- legacy shims (forward to submit) ------------------------------------
+    def write_tensor(self, name: str, u16: np.ndarray):
+        self.submit([WriteReq(name, u16, kind=TENSOR)])
+
+    def read_tensor(self, name: str, view: PrecisionView = FULL) -> np.ndarray:
+        return self.submit([ReadReq(name, kind=TENSOR, view=view)])[0].data
+
+    def write_kv(self, stream: str, tokens_u16: np.ndarray):
+        """Full windows commit now; a partial tail stays staged until
+        :meth:`flush_kv` or a KV read."""
+        self.submit([WriteReq(stream, tokens_u16, kind=KV, flush=False)])
+
+    def read_kv(self, stream: str, view: PrecisionView = FULL) -> np.ndarray:
+        return self.submit([ReadReq(stream, kind=KV, view=view)])[0].data
+
+    def flush_kv(self, stream: str):
+        if self._kv_staging.get(stream) and self._queue:
+            # a sync entry point: queued reads observe program order (they
+            # would otherwise absorb this commit into their own receipts);
+            # a queued read of the stream commits its tail itself
+            self._flush_queue(len(self._queue), wait=True)
+        if self._kv_staging.get(stream):
+            rec = Receipt(key=stream, op="write", kind=KV)
+            self._commit_kv_window(rec, stream)
+            self._apply_receipt(rec)
+            self._sanitize_boundary({stream})
 
 
 # ---------------------------------------------------------------------------

@@ -352,8 +352,14 @@ def main():
                     help="serve against a fleet of N tier devices; 0 defers "
                          "to the TRACE_SHARDS env var, 1 pins one device")
     ap.add_argument("--placement", default=None,
-                    choices=["hash-stripe", "namespace"],
-                    help="fleet placement policy (with --shards > 1)")
+                    choices=["hash-stripe", "namespace",
+                             "replicate-weights"],
+                    help="fleet placement policy (with --shards > 1): "
+                         "hash-stripe spreads pages by key hash, "
+                         "namespace pins whole request namespaces per "
+                         "shard, replicate-weights copies TENSOR writes "
+                         "to every shard and reads them from the "
+                         "least-busy replica")
     ap.add_argument("--streams", type=int, default=1,
                     help="sequences per request sharing one tier queue, "
                          "decoding round-robin")

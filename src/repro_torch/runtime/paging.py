@@ -28,8 +28,10 @@ it; later pools acquire a refcounted ledger reference instead (windows
 past the first differing token hash differently and stay private).  A
 shared page frees with its last referer and is never degraded.
 
-Not ported yet: prefetch (``prefetch_layer``, ``settle_prefetched``),
-which no serving path calls (``ROADMAP.md`` Queue 1).
+Prefetch: :meth:`KVPagePool.prefetch_layer` issues a layer's spilled
+pages as async read tickets; a following :meth:`KVPagePool.read_layer`
+takes their data when the view they were issued at still holds, and
+every prefetch receipt folds into the pool's traffic exactly once.
 """
 
 from __future__ import annotations
@@ -62,6 +64,13 @@ class PagePolicy:
             if rank < acc:
                 return view
         return self.tail_view
+
+    def avg_bits(self, n_pages: int) -> float:
+        if n_pages == 0:
+            return 16.0
+        return float(
+            np.mean([self.view_for_rank(r).bits for r in range(n_pages)])
+        )
 
 
 PAPER_POLICY = PagePolicy()           # Table II: 5×BF16 / 3×FP8 / 2×FP4
@@ -191,6 +200,10 @@ class PageTraffic:
                 setattr(self, f.name, getattr(self, f.name) + getattr(r, f.name))
         self.requests += 1
 
+    def merge(self, other: "PageTraffic"):
+        for f in dataclasses.fields(self):
+            setattr(self, f.name, getattr(self, f.name) + getattr(other, f.name))
+
 
 class KVPagePool:
     """Per-sequence paged KV with an HBM budget and tier spill.
@@ -240,6 +253,8 @@ class KVPagePool:
         self.io_queue_delay_s = 0.0   # time spent queued behind other I/O
         self.pages_read = 0           # pages the tier has served back
         self.pages_gathered = 0       # winner pages PNM gathers shipped
+        # key → [ticket, view at issue, receipt once accounted]
+        self._prefetched: Dict[str, list] = {}
         # One page per KV window: the device commits each page's stream
         # in a single transform window.
         self.tier.kv_window = page_tokens
@@ -253,7 +268,21 @@ class KVPagePool:
             if r.gather is not None:
                 self.pages_gathered += len(r.gather.keys)
 
+    def traffic_by_layer(self) -> Dict[int, PageTraffic]:
+        """Per-page traffic rolled up to layers."""
+        out: Dict[int, PageTraffic] = {}
+        for p in self._pages:
+            t = self.page_traffic.get(p.key)
+            if t is not None:
+                out.setdefault(p.layer, PageTraffic()).merge(t)
+        return out
+
     # -- write path -----------------------------------------------------------
+    def append_page(self, layer: int, kind: str, start: int,
+                    tokens_u16: np.ndarray, importance: float = 0.0):
+        """Commit one full page (token-major ``(n, C)`` uint16)."""
+        self.append_pages([(layer, kind, start, tokens_u16, importance)])
+
     def append_pages(self, pages: Sequence[tuple]):
         """Commit a batch of ``(layer, kind, start, tokens_u16,
         importance)`` pages, each with an optional sixth ``share_hash``,
@@ -352,6 +381,10 @@ class KVPagePool:
         )
         return {p.key: i for i, p in enumerate(spilled)}
 
+    def read_page(self, page: _Page) -> np.ndarray:
+        """One spilled page through the tier at its current policy view."""
+        return self.read_pages([page])[0]
+
     def _page_reqs(self, pages: Sequence[_Page]) -> List[ReadReq]:
         rank = self._spill_ranks()
         return [
@@ -448,21 +481,72 @@ class KVPagePool:
         self._account(receipts)
         return [r.data for r in receipts]
 
+    def prefetch_layer(self, layer: int, kind: str) -> int:
+        """Issue async read tickets for (layer, kind)'s spilled pages, so
+        a following :meth:`read_layer` is served from the in-flight
+        window.  Returns the tickets issued (0 when everything is resident
+        or already in flight)."""
+        subset = [p for p in self._pages
+                  if p.layer == layer and p.kind == kind]
+        pages = [p for p in subset
+                 if p.resident is None and p.key not in self._prefetched]
+        if not pages:
+            return 0
+        # ranked within the (layer, kind) subset, as read_layer ranks, so
+        # the issued views match and the prefetch is consumed
+        rank = self._spill_ranks(subset)
+        views = {p.key: self.policy.view_for_rank(rank[p.key]) for p in pages}
+        reqs = [ReadReq(p.key, kind=KV, view=views[p.key], tag=p.key)
+                for p in pages]
+        for p, t in zip(pages, self.tier.submit_async(reqs)):
+            self._prefetched[p.key] = [t, views[p.key], None]
+        return len(pages)
+
+    def _settle_prefetch(self, entry) -> Receipt:
+        """Wait a prefetch ticket, folding its receipt into the pool's
+        accounting exactly once."""
+        if entry[2] is None:
+            entry[2] = entry[0].wait()
+            self._account([entry[2]])
+        return entry[2]
+
+    def settle_prefetched(self):
+        """Account every prefetch ticket the tier has already executed
+        (by window overflow or another request's flush), without forcing
+        a queued one: receipts then sum to the tier's stats, a queued
+        prefetch counting on neither side.  Settled data stays available
+        to :meth:`read_layer`."""
+        for entry in self._prefetched.values():
+            if entry[0].done and entry[2] is None:
+                self._settle_prefetch(entry)
+
     def read_layer(self, layer: int, kind: str) -> np.ndarray:
-        """All pages of (layer, kind) in token order, spilled pages served
-        by the tier (one request batch) at their policy view within the
-        layer's ranking."""
+        """All pages of (layer, kind) in token order, spilled pages at
+        their policy view within the layer's ranking: from a prefetch
+        issued at that view, else from the tier (one request batch).  A
+        prefetch whose view the ranking has since moved off stays
+        accounted, and its page is read again."""
         pages = sorted(
             (p for p in self._pages if p.layer == layer and p.kind == kind),
             key=lambda p: p.start,
         )
         rank = self._spill_ranks(pages)
-        reqs = [ReadReq(p.key, kind=KV,
-                        view=self.policy.view_for_rank(rank[p.key]), tag=p.key)
-                for p in pages if p.resident is None]
+        served: Dict[str, np.ndarray] = {}
+        reqs = []
+        for p in pages:
+            if p.resident is not None:
+                continue
+            view = self.policy.view_for_rank(rank[p.key])
+            pf = self._prefetched.pop(p.key, None)
+            if pf is not None:
+                rec = self._settle_prefetch(pf)
+                if pf[1] == view:
+                    served[p.key] = rec.data
+                    continue
+            reqs.append(ReadReq(p.key, kind=KV, view=view, tag=p.key))
         rs = self.tier.submit(reqs) if reqs else []
         self._account(rs)
-        served = {r.key: r.data for r in rs}
+        served.update({r.key: r.data for r in rs})
         out = [p.resident if p.resident is not None else served[p.key]
                for p in pages]
         return np.concatenate(out, axis=0) if out else np.empty((0, 0), np.uint16)
@@ -477,9 +561,11 @@ class KVPagePool:
         least important), one ``ladder`` rung (default: the pool's
         ``degrade_ladder``) a pass, so every cold page degrades one step
         before any degrades two; a page's rung is remembered across calls.
-        Shared pages are never touched.  Returns the bytes reclaimed: 0
-        with an empty ladder, nothing spilled, the ladder exhausted, or a
-        word layout, which cannot shed planes."""
+        Shared pages are never touched.  A prefetch issued against a page
+        before its truncation is settled and dropped: its data predates
+        the degrade.  Returns the bytes reclaimed: 0 with an empty ladder,
+        nothing spilled, the ladder exhausted, or a word layout, which
+        cannot shed planes."""
         ladder = self.degrade_ladder if ladder is None else tuple(ladder)
         if target_bytes <= 0 or not ladder:
             return 0
@@ -499,14 +585,23 @@ class KVPagePool:
                 except NotImplementedError:
                     return freed        # word layout: nothing to shed
                 page.degrade_level = level
+                # truncate_planes drained the queue, so a prefetch of this
+                # page read the planes before the truncation
+                pf = self._prefetched.pop(page.key, None)
+                if pf is not None:
+                    self._settle_prefetch(pf)
         return freed
 
     # -- teardown ---------------------------------------------------------------
     def release(self) -> int:
-        """Retire this pool: drop its references on shared pages (through
-        the index), delete every key it wrote (its namespace, or its own
-        private keys without a prefix) and drop HBM pages.  Returns the
-        number of device keys freed or released."""
+        """Retire this pool: settle its outstanding prefetches (their
+        receipts fold in exactly once), drop its references on shared
+        pages (through the index), delete every key it wrote (its
+        namespace, or its own private keys without a prefix) and drop HBM
+        pages.  Returns the number of device keys freed or released."""
+        for entry in self._prefetched.values():
+            self._settle_prefetch(entry)
+        self._prefetched.clear()
         freed = 0
         for p in self._pages:
             if p.shared_ref:
@@ -531,6 +626,28 @@ class KVPagePool:
         return self._hbm_used
 
     @property
+    def device_resident_bytes(self) -> int:
+        """Physical bytes (payload + index) this pool's private namespace
+        occupies on the tier now; shared pages are in
+        :attr:`shared_resident_bytes`."""
+        return self.tier.resident_bytes(self.key_prefix)
+
+    @property
+    def shared_resident_bytes(self) -> int:
+        """Physical bytes of the shared pages this pool holds references
+        on, summed per key (two pools on one stored copy each report its
+        full size; ``resident_bytes("shared.")`` is the deduplicated
+        total)."""
+        return sum(self.tier.resident_bytes(p.key)
+                   for p in self._pages if p.shared_ref)
+
+    @property
+    def physical_kv_bytes(self) -> int:
+        """Live physical KV footprint: raw HBM pages plus the tier
+        namespace's post-compression ledger bytes."""
+        return self._hbm_used + self.device_resident_bytes
+
+    @property
     def spilled_pages(self) -> int:
         return sum(1 for p in self._pages if p.resident is None)
 
@@ -540,4 +657,5 @@ class KVPagePool:
         return tuple(self._pages)
 
     def stats(self):
+        self.settle_prefetched()
         return self.tier.stats

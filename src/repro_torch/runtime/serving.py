@@ -345,6 +345,18 @@ class ServeEngine:
             logits = self.decode(nxt.reshape(-1, 1))
         return np.stack(out, axis=1)
 
+    # -- KV readback through the tier (quality measurement path) ---------------
+    def kv_through_tier(self, layer: int, kind: str = "k") -> np.ndarray:
+        """Token-major KV of (layer, kind) as the host sees it after a
+        round trip through the tier at the current policy."""
+        self.flush_io()
+        return self.pool.read_layer(layer, kind)
+
+    def layer_traffic(self):
+        """Per-layer tier traffic, attributed from the pool's receipts."""
+        self.flush_io()
+        return self.pool.traffic_by_layer()
+
     def stats(self) -> ServeStats:
         self.flush_io()
         d = self.pool.stats()

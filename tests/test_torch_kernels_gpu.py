@@ -23,7 +23,9 @@ from repro_torch.kernels import (  # noqa: E402
 from repro_torch.models.model import init_params  # noqa: E402
 import torch_kv_score_cases as kv_score_cases  # noqa: E402
 import torch_lz4_cases  # noqa: E402
-from repro_torch.runtime import LOSSLESS_POLICY, ServeEngine  # noqa: E402
+from repro_torch.runtime import (  # noqa: E402
+    DEFAULT_TIERS, LOSSLESS_POLICY, ServeEngine, WeightStore,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -887,3 +889,122 @@ def test_kernel_api_on_card_matches_cpu(card):
             torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
         else:
             assert torch.equal(got, want), i
+
+
+# ---------------------------------------------------------------------------
+# the weight path: the standalone unpack at a weight, the per-block
+# encoder, the weight store card vs CPU
+# ---------------------------------------------------------------------------
+
+WEIGHT = (896, 4864)          # qwen2-0.5b's MLP up-projection
+DECODE_SLAB = 64 * 1024       # BitplaneLayout.SLAB_ELEMS
+
+
+def _weight(card, shape=WEIGHT, seed=0):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    w = torch.randn(shape, generator=gen, device=card) / shape[0] ** 0.5
+    return w.to(torch.bfloat16)
+
+
+def _fetched_mask(view) -> int:
+    return sum(1 << p for p in view.fetched_planes())
+
+
+@pytest.mark.parametrize("view", [v for _, v in DEFAULT_TIERS],
+                         ids=lambda v: v.name)
+def test_unpack_kernel_at_a_weight(card, view):
+    """The standalone unpack + round at a whole 896 x 4864 weight's plane
+    rows and at one 64 Ki-element decode slab of it, at each view of the
+    weight store's tiers: the plain version's words, which are the
+    source words' fetched planes rounded to the view."""
+    w = _weight(card).view(torch.int16).reshape(-1)
+    planes = bitplane.pack_planes_u16(w)
+    ids = view.fetched_planes()
+    rnd = bitplane.view_round_params(view)
+    for nbytes in (planes.shape[1], DECODE_SLAB // 8):
+        rows = planes[list(ids), :nbytes].contiguous()
+        before = build.LAUNCHES["bitplane_unpack"]
+        got = bitplane.unpack_planes(rows, ids, view)
+        assert build.LAUNCHES["bitplane_unpack"] == before + 1
+        assert torch.equal(got, bitplane.unpack_planes_plain(rows, ids, rnd))
+        src = (w[: 8 * nbytes].to(torch.int32) & 0xFFFF) & _fetched_mask(view)
+        assert torch.equal(got, bitplane.to_int16(
+            bitplane.view_round_plain(src, rnd)))
+
+
+def test_scalar_encoder_pack_on_card_matches_the_slab_pack(card,
+                                                          monkeypatch):
+    """``TierStore(batched_encode=False)`` packs each block in a launch of
+    its own and runs the LZ4 prep and match on the card for each block
+    with a plane stream the pre-screen keeps; its planes, payloads and
+    receipts equal the batched slab pack's and the CPU's."""
+    from repro_torch.core import codec as codecs
+
+    w = _weight(card, (48, 700), seed=3).view(torch.int16).cpu().numpy()
+    kv = _patterns((64, 128), 4)
+    writes = [tier.WriteReq("w", w.view(np.uint16)),
+              tier.WriteReq("kv", kv, kind=tier.KV)]
+    # the CPU store's match calls: one per block with a kept stream
+    matched = []
+    match = codecs.klz4.match_events_slab
+    state = {}
+    for name, dev, batched in (("cpu", "cpu", False),
+                               ("scalar", card, False),
+                               ("batched", card, True)):
+        t = tier.TierStore("bitplane-kv", device=dev, batched_encode=batched)
+        monkeypatch.setattr(codecs.klz4, "match_events_slab",
+                            lambda *a, **kw: matched.append(name)
+                            or match(*a, **kw))
+        before = dict(build.LAUNCHES)
+        recs = t.submit(writes)
+        monkeypatch.setattr(codecs.klz4, "match_events_slab", match)
+        got = {k: build.LAUNCHES[k] - before[k] for k in before}
+        blocks = sum(r.blocks for r in recs)
+        if name == "scalar":
+            n_match = matched.count("cpu")
+            assert got["bitplane_pack"] == blocks == 18
+            assert got["kv_delta_fwd"] == 1
+            assert 0 < got["lz4_prep"] == got["lz4_match"] == n_match \
+                == matched.count("scalar") <= blocks
+        elif name == "batched":
+            assert got["bitplane_pack"] == 1
+            assert got["lz4_prep"] == got["lz4_match"] == 1
+        state[name] = ([(k, [(b.payloads, b.flags) for b in bl])
+                        for k, bl in t._tensors.items()],
+                       [{f: v for f, v in vars(r).items() if f != "data"}
+                        for r in recs])
+    assert state["scalar"] == state["batched"] == state["cpu"]
+    flat = torch.from_numpy(w.ravel()).to(card)
+    slab = bitplane.pack_planes_u16(flat)
+    for i in range(0, flat.numel(), tier.BLOCK_ELEMS):
+        blk = flat[i : i + tier.BLOCK_ELEMS]
+        if blk.numel() % 8 == 0:
+            assert torch.equal(bitplane.pack_planes_u16(blk.contiguous()),
+                               slab[:, i // 8 : (i + blk.numel()) // 8])
+
+
+def test_weight_store_on_card_matches_cpu(card):
+    """A weight load and fetch through the store on the card: receipts,
+    stored bytes and words equal the CPU store's; every decode slab is
+    one standalone unpack; no KV kernel launches."""
+    units = {f"L0.{n}": (_weight(card, shape, seed=i), float(7 - i))
+             for i, (n, shape) in enumerate((("wq", (896, 896)),
+                                             ("wk", (896, 128)),
+                                             ("w1", (896, 4864))))}
+    out = {}
+    for dev in (card, "cpu"):
+        ws = WeightStore("trace", device=dev)
+        ws.put_many({k: (w.to(dev), imp) for k, (w, imp) in units.items()})
+        before = dict(build.LAUNCHES)
+        got = ws.fetch_all()
+        launches = {k: build.LAUNCHES[k] - before[k] for k in before}
+        out[str(dev)] = (got, dict(vars(ws.stats)), launches)
+    (gc, sc, lc), (gp, sp, _) = out[str(card)], out["cpu"]
+    assert sc == sp
+    for k, t in gc.items():
+        assert t.device.type == "cuda" and t.dtype == torch.bfloat16
+        assert torch.equal(t.cpu().view(torch.int16),
+                           gp[k].view(torch.int16))
+    n = sum(w.numel() for w, _ in units.values())
+    assert lc["bitplane_unpack"] >= -(-n // DECODE_SLAB)
+    assert lc["kv_delta_inv"] == lc["kv_delta_fwd"] == 0
