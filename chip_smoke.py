@@ -30,7 +30,9 @@ Phases (any failure exits non-zero and prints no result line):
    and at a 896 x 4864 weight and the prep over each one's planes with and
    without run flags, page scoring at 2048 pages and the KV forward at
    2048 windows (long context) — each checked too, and timed back to back
-   and from a cold L2 cache; decode
+   and from a cold L2 cache; the KV forward, the fused read (at every
+   view) and page scoring at deepseek-v2-lite-16b's 512-channel latent
+   (144 windows or pages of 64 tokens, a 2-window decode slab); decode
    attention at 4096 and 32768 cached positions, the elastic matmul at
    each view beside its byte bound, the fused KV read beside the
    two-launch chain it replaces, and the match launch beside the wrapper
@@ -48,7 +50,8 @@ Phases (any failure exits non-zero and prints no result line):
    full-width KV pool (24 layers, K and V, 64-token pages) whose
    ``prefetch_layer`` + ``read_layer`` equals a plain ``read_layer``,
    words and stats; and the card's model against the CPU's on a small
-   input;
+   input (qwen2-0.5b, stablelm-12b's layernorm, nemotron-4-340b's
+   squared ReLU at smoke width);
 5. serve 3 requests (512 prompt + 64 new tokens) through full-width
    qwen2-0.5b with random weights, KV spilling to a ``trace`` tier, with
    the kernel launch counts set to 0 just before and read just after
@@ -57,9 +60,10 @@ Phases (any failure exits non-zero and prints no result line):
    flags, and the match kernel once each);
    then ``kv_through_tier`` of every layer's K and V and ``layer_traffic``
    of one more such request equal a CPU pool's fed its page stream;
-6. the weight stream at full width (``[weights]``): the 168 decoder
-   matrices of qwen2-0.5b (24 layers x wq, wk, wv, wo, w1, w3, w2 at
-   their real shapes, importance falling with the layer) loaded by one
+6. the weight stream at full width (``[weights]``): the 56 decoder
+   matrices of qwen2-0.5b's first 8 layers (of 24: a depth cut for
+   the time limit; wq, wk, wv, wo, w1, w3, w2 at their real shapes,
+   importance falling with the layer) loaded by one
    ``WeightStore.put_many`` into a ``trace`` tier on the card (a pack,
    a prep without run flags and a match launch per 128 Ki-element encode
    slab) and read back by one ``fetch_all`` at the ``DEFAULT_TIERS``
@@ -94,11 +98,28 @@ Phases (any failure exits non-zero and prints no result line):
    clock around every ``step()``, beside the modeled report;
 9. two streams through ``MultiStreamEngine`` (``[streams]``), each
    stream's tokens equal to its solo run;
-10. the three example twins (``repro_torch.examples``: quickstart,
-   serve_async, serve_continuous) on the card, as run without ``--cpu``:
-   their own assertions, the tier kernels launched, the quickstart's
-   numbers equal to its CPU run;
-11. profile one more classic request (host split from cProfile, device
+10. the four example twins (``repro_torch.examples``: quickstart,
+   serve_async, serve_continuous, serve_elastic) on the card, as run
+   without ``--cpu``: their own assertions, the tier kernels launched,
+   the quickstart's numbers equal to its CPU run, serve_elastic's
+   lossless policy agreeing with itself and its DRAM reads falling to
+   the aggressive policy;
+11. deepseek-v2-lite-16b at full width (``[mla]``: 27 layers, d 2048,
+   MLA with a 512-channel latent, 64 routed experts top-6 + 2 shared,
+   a dense first layer; random bf16 weights drawn on the card), its
+   ``c_kv`` pages through the tier in five serve runs, launch counts
+   read per run: (a) two classic requests, (b) a covering gather (tokens
+   == a's), (c) top-16 gathers with attention importance, (d) the
+   lossless policy with spills (tokens == an unspilled run); KV forward,
+   pack, prep, match and the fused read launch in each, page scoring in
+   b and c, decode attention never (MLA attends in eager PyTorch); one
+   flush of c_kv pages on the card's tier == the CPU's; decode ==
+   forward at the prompt's last position with every routing decision
+   pinned to the forward's (flips only at bf16 near-ties); one request
+   under cProfile; the params freed (the KV forward, the fused read
+   and page scoring at these 512-channel shapes are checked and timed
+   in phase 2, rows ``*_latent``; [mla] checks it ran those shapes);
+12. profile one more classic request (host split from cProfile, device
    busy time from ``torch.profiler``) and one PNM request (cProfile).
 
 Prints the card's name and power limit, a ``kernels`` JSON line, and as
@@ -143,6 +164,8 @@ LONG_PAGES = LONG_WINDOWS = 2048
 PACK_LONG = D_MODEL * D_FF   # a weight's pack: the MLP up-projection
 CHANNELS = KV_HEADS * HEAD_DIM
 VOCAB = 151936
+# the dense families the model check holds on the card against the CPU
+SMOKE_ARCHS = ("qwen2-0.5b", "stablelm-12b", "nemotron-4-340b")
 
 
 def fail(msg: str, code: int = 1):
@@ -1107,31 +1130,36 @@ def check_tier_and_model(torch):
           f"batched store's {per_block[True, 'cuda'][0]}", flush=True)
     check_pool_prefetch(torch)
 
-    cfg = smoke_config(ARCHS["qwen2-0.5b"])
-    params = init_params(cfg, seed=3, device="cpu")
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 40)))
-    logits = {}
-    for dev in ("cuda", "cpu"):
-        p = _to(params, dev)
-        cache = init_cache(cfg, 1, 64, device=dev)
-        lg, cache = decode_step(cfg, p, {"tokens": toks.to(dev),
-                                         "cache_pos": 0}, cache)
-        steps = [lg[:, -1].float().cpu()]
-        for t in range(4):
-            nxt = toks[:, t : t + 1].to(dev)
-            lg, cache = decode_step(cfg, p, {"tokens": nxt,
-                                             "cache_pos": 40 + t}, cache)
-            steps.append(lg[:, -1].float().cpu())
-        logits[dev] = torch.stack(steps)
-    if not bool(torch.isfinite(logits["cuda"]).all()):
-        raise AssertionError("non-finite logits on the card")
-    diff = float((logits["cuda"] - logits["cpu"]).abs().max())
-    scale = float(logits["cpu"].abs().max())
-    # bf16 matmuls round at other places on the card: a few bf16 ulps
-    if diff > 0.05 * scale:
-        raise AssertionError(f"card logits differ from CPU by {diff} "
-                             f"(scale {scale})")
-    return diff
+    # the dense families at smoke width: rmsnorm + GQA decode attention,
+    # layernorm, squared ReLU (the MoE families' routing is held in [mla])
+    diffs = {}
+    for name in SMOKE_ARCHS:
+        cfg = smoke_config(ARCHS[name])
+        params = init_params(cfg, seed=3, device="cpu")
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 40)))
+        logits = {}
+        for dev in ("cuda", "cpu"):
+            p = _to(params, dev)
+            cache = init_cache(cfg, 1, 64, device=dev)
+            lg, cache = decode_step(cfg, p, {"tokens": toks.to(dev),
+                                             "cache_pos": 0}, cache)
+            steps = [lg[:, -1].float().cpu()]
+            for t in range(4):
+                nxt = toks[:, t : t + 1].to(dev)
+                lg, cache = decode_step(cfg, p, {"tokens": nxt,
+                                                 "cache_pos": 40 + t}, cache)
+                steps.append(lg[:, -1].float().cpu())
+            logits[dev] = torch.stack(steps)
+        if not bool(torch.isfinite(logits["cuda"]).all()):
+            raise AssertionError(f"{name}: non-finite logits on the card")
+        diff = float((logits["cuda"] - logits["cpu"]).abs().max())
+        scale = float(logits["cpu"].abs().max())
+        # bf16 matmuls round at other places on the card: a few bf16 ulps
+        if diff > 0.05 * scale:
+            raise AssertionError(f"{name}: card logits differ from CPU by "
+                                 f"{diff} (scale {scale})")
+        diffs[name] = diff
+    return diffs
 
 
 def check_pool_prefetch(torch, dev="cuda"):
@@ -1272,6 +1300,9 @@ _SPANS = (
     ("prefill", "runtime/serving.py", "prefill"),
     ("decode steps", "runtime/serving.py", "decode"),
     ("model forward", "models/model.py", "decode_step"),
+    ("  GQA attention", "models/layers.py", "gqa_block"),
+    ("  MLA attention", "models/layers.py", "mla_block"),
+    ("  MoE", "models/layers.py", "moe_block"),
     ("cache windows to host", "runtime/serving.py", "_commit_pages"),
     ("tier encode", "core/tier.py", "_encode_commit"),
     ("  KV forward on card", "core/tier.py", "_transform_kv_windows"),
@@ -1313,6 +1344,7 @@ def profile_request(torch, serve, params, device_time=True, **overrides):
                  if k[2] == fn and k[0].endswith(path))
         parts.append(f"{label} {ct:.3f}")
     label = "PNM request" if kw.get("pnm_topk") is not None else "request"
+    label = f"{kw['arch']} {label}"
     print(f"[profile] one {label} under cProfile: wall {rep.wall_s:.3f} s; "
           + "; ".join(parts) + " (s, cumulative)", flush=True)
     if not device_time:
@@ -1327,7 +1359,7 @@ def profile_request(torch, serve, params, device_time=True, **overrides):
     busy_s = sum(us for _, us, _ in evts) / 1e6
     top = sorted(evts, key=lambda t: -t[1])[:5]
     attn_s = sum(us for k, us, _ in evts if "decode_attn" in k) / 1e6
-    print(f"[profile] one request under torch.profiler: wall "
+    print(f"[profile] one {kw['arch']} request under torch.profiler: wall "
           f"{rep.wall_s:.3f} s, device busy {busy_s:.3f} s "
           f"({100 * busy_s / rep.wall_s:.1f}%), {sum(n for *_, n in evts)} "
           f"kernels; decode attention {attn_s * 1e3:.1f} ms "
@@ -1731,7 +1763,8 @@ def streams_path(torch, build, cfg, params, dev, trace_kw=SCHED_TRACE,
 # real shape; a unit's importance falls with its layer.
 WEIGHT_MATS = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
                ("attn", "wo"), ("mlp", "w1"), ("mlp", "w3"), ("mlp", "w2"))
-WEIGHT_LAYERS = 24           # every decoder layer
+WEIGHT_LAYERS = 8            # the first third of the 24 decoder layers:
+                             # a depth cut for the script's time limit
 FLEET_LAYERS = 4             # the replicate-weights fleet's share
 FLEET_SHARDS = 4
 BLOCK_ELEMS = 2048           # core.bitplane.BLOCK_ELEMS: a 4 KB block
@@ -2119,19 +2152,416 @@ def weights_path(torch, build, k_bitplane, k_lz4, serve, params, dev,
                 enc_slabs=enc_slabs, dec_slabs=dec_slabs, row=row)
 
 
+# [mla]: deepseek-v2-lite-16b at full width (27 layers, d 2048, MLA with
+# a 512-channel latent, 64 routed experts top-6 + 2 shared, a dense first
+# layer), random bf16 weights from seed 0 drawn on the card; a trace
+# tier, PAPER_POLICY, 64-token pages, a 4 MiB HBM KV budget (64 of the
+# 64 KiB c_kv pages stay on the card), 512 prompt + 64 new tokens.
+MLA_ARCH = "deepseek-v2-lite-16b"
+MLA_VOCAB = 102400
+MLA_C = 512                  # kv_lora_rank: the latent's channels a token
+MLA_FLUSH_WINDOWS = 144      # the prefill flush: 144 of the 208 prompt
+                             # pages spill, and its gather scores them
+MLA_SERVE = dict(arch=MLA_ARCH, smoke=False, device="trace", prompt_len=512,
+                 n_tokens=64, batch=1, hbm_kv_budget=1 << 22, page_tokens=64,
+                 seed=0, verbose=False)
+# the kernels of a served MLA request: decode attention is eager PyTorch
+# over the re-expanded latent, as in the reference
+MLA_KERNELS = ("bitplane_pack", "lz4_prep", "lz4_match", "kv_delta_fwd",
+               "bitplane_unpack")
+
+
+def _latent_row(name, base, **kw) -> dict:
+    return dict(name=name, route="cuda", max_abs_err=0.0, library_ms=None,
+                **base, **kw)
+
+
+def check_latent_kernels(torch, build, k_bitplane, k_kv, k_pnm, results,
+                         fwd_windows: int = MLA_FLUSH_WINDOWS,
+                         score_pages: int = MLA_FLUSH_WINDOWS,
+                         C: int = MLA_C, dev="cuda"):
+    """The KV forward, the fused KV read and page scoring at the latent's
+    512 channels, at the shapes [mla] gives them (it checks that it
+    does): bit-equal to their plain versions (the read at every view),
+    timed beside the plain version and the bound.  Rows ``*_latent`` of
+    the ``kernels`` line; [mla] fills in their launches.  Timed in the
+    [kernel] phase: late in the script, after [mla], the profiler's short
+    traces missed device events on the card."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+
+    def windows(B):
+        f = rng.standard_normal((B, WINDOW, C)) * np.exp(
+            rng.uniform(-2, 2, C))
+        u = (f.astype(np.float32).view(np.uint32) >> 16).astype(np.uint16)
+        u.reshape(-1)[::97] = 0x7FC0
+        u[0, : WINDOW // 2, 0] = 0x3F80          # a histogram tie
+        u[0, WINDOW // 2 :, 0] = 0x4000
+        return torch.from_numpy(u.view(np.int16)).to(dev)
+
+    x = windows(fwd_windows)
+    got, beta = k_kv.kv_forward(x)
+    want, want_beta = k_kv.kv_forward_plain(x)
+    _sync(torch, torch.device(dev))
+    if not (torch.equal(got, want) and torch.equal(beta, want_beta)
+            and int(beta[0, 0]) == 127):
+        raise AssertionError(f"kv_delta_fwd {tuple(x.shape)} differs from "
+                             "its plain version")
+    elems = fwd_windows * WINDOW * C
+    b, by = bound_ms(4 * elems + fwd_windows * C, 12 * elems)
+    results["kv_delta_fwd_latent"] = _latent_row(
+        "kv_delta_fwd_latent", timed(torch, lambda: k_kv.kv_forward(x)),
+        source="src/repro_torch/csrc/kv_delta.cu",
+        replaces="src/repro/kernels/kv_delta.py:28",
+        plain_ms=timed(torch, lambda: k_kv.kv_forward_plain(x))["ms"],
+        bound_ms=b, bound_by=by)
+
+    # one decode slab of the latent: 2 windows of 64 x 512
+    nwin = min(DECODE_ELEMS // (WINDOW * C), fwd_windows)
+    win = x[:nwin].contiguous()
+    cm, beta = k_kv.kv_forward(win)
+    planes = k_bitplane.pack_planes_u16(cm.reshape(-1))
+    nbytes = planes.shape[1]
+    starts = [i * WINDOW * C for i in range(nwin)]
+    for view in read_views():
+        ids = view.fetched_planes()
+        rows = planes[list(ids)].contiguous()
+        got = k_bitplane.unpack_kv_windows(rows, ids, starts, WINDOW, C,
+                                           beta, view)
+        want = k_bitplane.unpack_kv_windows_plain(rows, ids, starts, WINDOW,
+                                                  C, beta, view)
+        _sync(torch, torch.device(dev))
+        if not torch.equal(got, want) or (view.is_full
+                                          and not torch.equal(got, win)):
+            raise AssertionError(f"fused KV read of the latent "
+                                 f"({view.name}) differs")
+    man4 = read_views()[1]
+    ids = man4.fetched_planes()
+    rows = planes[list(ids)].contiguous()
+    elems = nwin * WINDOW * C
+    b, by = bound_ms(len(ids) * nbytes + nwin * C + 8 * nwin + 2 * elems,
+                     (3 * len(ids) + 20) * elems)
+    results["bitplane_unpack_latent"] = _latent_row(
+        "bitplane_unpack_latent", timed(torch, lambda: k_bitplane
+                                        .unpack_kv_windows(
+                                            rows, ids, starts, WINDOW, C,
+                                            beta, man4)),
+        source="src/repro_torch/csrc/bitplane_unpack.cu",
+        replaces="src/repro/kernels/bitplane.py:51",
+        plain_ms=timed(torch, lambda: k_bitplane.unpack_kv_windows_plain(
+            rows, ids, starts, WINDOW, C, beta, man4))["ms"],
+        bound_ms=b, bound_by=by)
+
+    # page scoring: the candidates of a latent gather, 64 rows x 512
+    f = rng.standard_normal((score_pages, PAGE_ROWS, C)) * 0.7
+    u = (f.astype(np.float32).view(np.uint32) >> 16).astype(np.uint16)
+    pages = torch.from_numpy(u.view(np.int16)).to(dev)
+    digest = torch.from_numpy(
+        rng.standard_normal(C).astype(np.float32)).to(dev)
+    full = torch.full((score_pages,), PAGE_ROWS, dtype=torch.int32,
+                      device=dev)
+    ragged = torch.from_numpy(rng.integers(0, PAGE_ROWS + 1, score_pages)
+                              .astype(np.int32)).to(dev)
+    for valid in (full, ragged):
+        if not same_scores(torch, k_pnm.page_scores(pages, valid, digest),
+                           k_pnm.page_scores_plain(pages, valid, digest)):
+            raise AssertionError("pnm_score at 512 channels differs from "
+                                 "its plain version")
+    n = score_pages * PAGE_ROWS * C
+    b, by = bound_ms(2 * n + C * 4 + score_pages * 8, 2 * n)
+    results["pnm_score_latent"] = _latent_row(
+        "pnm_score_latent",
+        timed(torch, lambda: k_pnm.page_scores(pages, full, digest)),
+        source="src/repro_torch/csrc/pnm_score.cu",
+        replaces="src/repro/kernels/pnm_score.py:66",
+        plain_ms=timed(torch, lambda: k_pnm.page_scores_plain(
+            pages, full, digest))["ms"],
+        bound_ms=b, bound_by=by)
+
+
+def check_mla_decode_forward(torch, cfg, params, prompt, dev="cuda"):
+    """decode == forward at full width, for the prompt's last position:
+    one forward over the 512-token prompt against a prefill of its first
+    511 tokens and a single-token decode step of the last, at a capacity
+    that drops nothing (cap = k * T).  The router's logits are bf16 and
+    the two runs round them from matmuls of other shapes, so a near-tie
+    may route a token apart: every routing decision is pinned to the
+    forward's, each unpinned decision that differed must have been within
+    4 bf16 ulps of a tie, and the logits then agree within the
+    reference's decode == forward bound (rtol = atol = 0.15,
+    ``tests/test_arch_smoke.py``)."""
+    import dataclasses
+
+    from repro_torch.models import layers, model
+
+    cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
+    route = layers.route
+    fwd, flips, near = [], [0], [0]
+    pinned = []
+
+    def recording(flat, router, k):
+        out = route(flat, router, k)
+        fwd.append(out)
+        return out
+
+    def pinning(flat, router, k):
+        gates, experts = route(flat, router, k)
+        want_g, want_e = pinned.pop(0)
+        differ = (experts.sort(-1).values != want_e.sort(-1).values).any(-1)
+        if bool(differ.any()):
+            logits = (flat[differ] @ router).float()
+            srt = logits.sort(-1, descending=True).values
+            gap = srt[:, k - 1] - srt[:, k]
+            ulp = 2.0 ** (torch.floor(torch.log2(logits.abs().amax(-1))) - 7)
+            flips[0] += int(differ.sum())
+            near[0] = max(near[0], float((gap / ulp).max()))
+        return want_g, want_e
+
+    toks = torch.from_numpy(prompt).to(dev)
+    S = toks.shape[1]
+    with torch.no_grad():
+        layers.route = recording
+        try:
+            full, _ = model.forward(cfg, params, {"tokens": toks,
+                                                  "cache_pos": 0},
+                                    model.init_cache(cfg, 1, S, device=dev))
+        finally:
+            layers.route = route
+        pinned += [(g[: S - 1], e[: S - 1]) for g, e in fwd]
+        pinned += [(g[S - 1 :], e[S - 1 :]) for g, e in fwd]
+        cache = model.init_cache(cfg, 1, S, device=dev)
+        layers.route = pinning
+        try:
+            model.forward(cfg, params, {"tokens": toks[:, : S - 1],
+                                        "cache_pos": 0}, cache)
+            step, _ = model.forward(cfg, params, {"tokens": toks[:, S - 1:],
+                                                  "cache_pos": S - 1}, cache)
+        finally:
+            layers.route = route
+    if pinned:
+        raise AssertionError("decode == forward: routes left unpinned")
+    if near[0] > 4.0:
+        raise AssertionError(f"decode == forward: a router choice flipped "
+                             f"{near[0]:.2f} bf16 ulps from a tie")
+    a, b = step[0, -1].float(), full[0, -1].float()
+    diff = (a - b).abs()
+    if not bool(torch.isfinite(a).all()) or \
+            bool((diff > 0.15 + 0.15 * b.abs()).any()):
+        raise AssertionError(f"decode != forward at full width: max |diff| "
+                             f"{float(diff.max())}")
+    print(f"[mla] decode == forward at the prompt's last position: max "
+          f"|diff| {float(diff.max()):.4g} (logits up to "
+          f"{float(b.abs().max()):.3g}); {flips[0]} of "
+          f"{S * len(fwd)} token-layer routes flipped apart from the "
+          f"forward's, the widest {near[0]:.2f} bf16 ulps from a tie",
+          flush=True)
+
+
+def mla_path(torch, build, k_bitplane, k_kv, k_pnm, serve, results,
+             cfg=None, dev="cuda"):
+    """[mla]: serve deepseek-v2-lite-16b at full width in four cases,
+    launch counts set to 0 just before each and read just after: (a) two
+    classic requests; (b) a covering gather (tokens == a's first); (c)
+    top-16 gathers with attention importance; (d) LOSSLESS_POLICY with
+    spills (tokens == a run whose budget holds every page).  Then the
+    card's tier against the CPU's on one flush of c_kv pages, decode ==
+    forward, and the kernels at the latent's shapes.  Returns the summed
+    launches of the classic and PNM cases."""
+    import numpy as np
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.model import init_params
+
+    cfg = cfg or ARCHS[MLA_ARCH]
+    dev = torch.device(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    _sync(torch, dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[mla] {MLA_ARCH}: {n_params} parameters "
+          f"({_allocated(torch, dev)} B on the card) drawn in "
+          f"{time.perf_counter() - t0:.2f} s; peak {_peak(torch, dev)} B",
+          flush=True)
+    fwd_shapes = ShapeRecorder(k_kv, "kv_forward")
+    score_shapes = ShapeRecorder(k_pnm, "page_scores")
+    cases = {
+        "a classic x2": dict(requests=2),
+        "b covering gather": dict(requests=1, pnm_topk=1 << 20),
+        "c top-16, attention": dict(requests=1, pnm_topk=16,
+                                    importance="attention"),
+        "d lossless, spilling": dict(requests=1, lossless_only=True),
+        "d' lossless, no spill": dict(requests=1, lossless_only=True,
+                                      hbm_kv_budget=1 << 40),
+    }
+    reps, total = {}, {name: 0 for name in build.KERNELS}
+    try:
+        for case, extra in cases.items():
+            build.reset_launches()
+            rep = serve(**{**MLA_SERVE, **extra}, params=params,
+                        torch_device=dev)
+            _sync(torch, dev)
+            launches = dict(build.LAUNCHES)
+            for toks in rep.tokens:
+                if toks.shape != (1, 64) or toks.min() < 0 or \
+                        toks.max() >= MLA_VOCAB:
+                    raise AssertionError(f"{case}: bad tokens {toks.shape}")
+            print(f"[mla] {case}: wall tok/s {rep.tok_s:.3f}; c_kv ratio "
+                  f"{rep.kv_compression_ratio:.4f} ({rep.kv_logical_bytes} "
+                  f"B logical in {rep.kv_stored_bytes} B); tier link out "
+                  f"{rep.tier_link_out} B, DRAM read {rep.tier_dram_read} B; "
+                  f"spilled {rep.spilled_pages}, read back "
+                  f"{rep.readback_pages}, gathered {rep.gathered_pages}; "
+                  f"peak {_peak(torch, dev)} B; launches {launches}",
+                  flush=True)
+            reps[case] = rep
+            if case.startswith("d'"):
+                if rep.spilled_pages:
+                    raise AssertionError("the unspilled run spilled")
+                continue
+            for name in MLA_KERNELS:
+                if launches[name] <= 0:
+                    raise AssertionError(f"{case}: {name} never launched")
+            if launches["lz4_match"] != launches["lz4_prep"]:
+                raise AssertionError(f"{case}: the match did not launch once "
+                                     f"a flush: {launches}")
+            if launches["decode_attn"] or launches["kv_delta_inv"] or \
+                    launches["elastic_matmul"]:
+                raise AssertionError(f"{case}: launched a kernel MLA serving "
+                                     f"does not run: {launches}")
+            pnm = "pnm_topk" in extra
+            if pnm != (launches["pnm_score"] > 0) or \
+                    pnm != (rep.gathered_pages > 0):
+                raise AssertionError(f"{case}: page scoring {launches}")
+            if case[0] in "abc":
+                for name in total:
+                    total[name] += launches[name]
+    finally:
+        k_kv.kv_forward = fwd_shapes.original
+        k_pnm.page_scores = score_shapes.original
+    a, b, c, d, d0 = reps.values()
+    if a.spilled_pages <= 0 or a.readback_pages <= 0 or \
+            b.readback_pages != 0 or d.spilled_pages <= 0:
+        raise AssertionError("[mla] spilled or read back nothing")
+    if not np_equal(a.tokens[0], b.tokens[0]):
+        raise AssertionError("[mla] the covering gather changed the tokens")
+    if not np_equal(d.tokens[0], d0.tokens[0]):
+        raise AssertionError("[mla] lossless spill changed the tokens")
+    if not c.tier_link_out < b.tier_link_out:
+        raise AssertionError(f"[mla] top-16 shipped {c.tier_link_out} B, the "
+                             f"covering gather {b.tier_link_out} B")
+    tokens = 4 * 64
+    print(f"[mla] b == a tokens, d == d' tokens; c ships "
+          f"{c.tier_link_out / b.tier_link_out:.4f}x b's link bytes; "
+          f"launches per token over a-c ({tokens} tokens): "
+          + ", ".join(f"{k} {total[k] / tokens:.4f}"
+                      for k in MLA_KERNELS + ("pnm_score",))
+          + f"; KV forward batches {fwd_shapes.counts}; scored page stacks "
+          f"{score_shapes.counts}", flush=True)
+
+    prompt = np.random.default_rng(5).integers(
+        0, cfg.vocab, (1, 512)).astype(np.int32)
+    check_latent_flush(torch, cfg, params, prompt, dev)
+    check_mla_decode_forward(torch, cfg, params, prompt, dev)
+    if cfg.kv_lora_rank == MLA_C and (
+            f"{MLA_FLUSH_WINDOWS}x{WINDOW}x{MLA_C}" not in fwd_shapes.counts
+            or f"{MLA_FLUSH_WINDOWS}x{PAGE_ROWS}x{MLA_C}"
+            not in score_shapes.counts):
+        raise AssertionError(f"the [kernel] checks' latent shapes are not "
+                             f"ones [mla] ran: {fwd_shapes.counts}, "
+                             f"{score_shapes.counts}")
+    if dev.type == "cuda":      # the host split (cProfile) of a request
+        profile_request(torch, serve, params, device_time=False,
+                        arch=MLA_ARCH)
+    del params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    print(f"[mla] params freed: {_allocated(torch, dev)} B allocated; peak "
+          f"of the phase {_peak(torch, dev)} B", flush=True)
+    results["kv_delta_fwd_latent"]["launches"] = total["kv_delta_fwd"]
+    results["bitplane_unpack_latent"]["launches"] = total["bitplane_unpack"]
+    results["pnm_score_latent"]["launches"] = total["pnm_score"]
+    return total
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from _leaves(v) if isinstance(v, dict) else (v,)
+
+
+def check_latent_flush(torch, cfg, params, prompt, dev="cuda"):
+    """The card's tier against the CPU's on one flush of c_kv pages: an
+    engine on the card prefills the prompt, and its 208 committed pages
+    (8 windows x 26 stacked layers) go to a card pool and a CPU pool whose
+    budget keeps all but the last 26 on the HBM side, so 26 pages spill
+    in one flush; stored payloads and flags, per-page receipts and the
+    readback words are identical."""
+    import numpy as np
+
+    from repro_torch.models.model import cfg_layers
+    from repro_torch.runtime import PAPER_POLICY, KVPagePool, ServeEngine
+
+    eng = ServeEngine(cfg, params, max_seq=512 + 64 + 64, batch=1,
+                      page_tokens=64, hbm_kv_budget=1 << 40,
+                      policy=PAPER_POLICY, device=dev)
+    log = PoolLog(eng.pool)
+    eng.prefill(prompt)
+    (name, pages), = log.calls
+    kinds = {e[1] for e in pages}
+    eng.retire()
+    n_layers = cfg_layers(cfg)
+    budget = (len(pages) - n_layers) * 64 * cfg.kv_lora_rank * 2
+    pools = [KVPagePool("trace", page_tokens=64, hbm_budget_bytes=budget,
+                        policy=PAPER_POLICY, device=d) for d in (dev, "cpu")]
+    out = []
+    for pool in pools:
+        pool.append_pages(pages)
+        events, pool.spill_events = pool.spill_events, []
+        out.append(([p.key for p in events], pool.read_pages(events)))
+    (ka, da), (kb, db) = out
+    if kinds != {"c_kv"} or len(ka) != n_layers or ka != kb or \
+            not all(np_equal(x, y) for x, y in zip(da, db)):
+        raise AssertionError(f"[mla] latent flush: kinds {kinds}, spilled "
+                             f"{len(ka)} / {len(kb)}, readback differs")
+    ta, tb = pools[0].tier, pools[1].tier
+    if ta._tensors.keys() != tb._tensors.keys() or any(
+            [(blk.payloads, blk.flags) for blk in ta._tensors[k]]
+            != [(blk.payloads, blk.flags) for blk in tb._tensors[k]]
+            for k in ta._tensors):
+        raise AssertionError("[mla] latent flush: stored bytes differ")
+    if {k: vars(v) for k, v in pools[0].page_traffic.items()} != \
+            {k: vars(v) for k, v in pools[1].page_traffic.items()} or \
+            vars(ta.stats) != vars(tb.stats):
+        raise AssertionError("[mla] latent flush: receipts differ")
+    print(f"[mla] one flush of {n_layers} c_kv pages (64 x "
+          f"{cfg.kv_lora_rank}): card tier == "
+          f"CPU tier, {ta.stats.dram_bytes_stored} B stored for "
+          f"{ta.stats.raw_bytes_stored} B, payloads, flags, receipts and "
+          "readback words", flush=True)
+    for pool in pools:
+        pool.release()
+
+
 def examples_path(torch, build, dev="cuda"):
-    """Run the three example twins on the card, as ``python -m
+    """Run the four example twins on the card, as ``python -m
     repro_torch.examples.<name>`` runs them without ``--cpu``: each one's
-    own assertions, the tier kernels launched, and the quickstart's tier
+    own assertions, the tier kernels launched, the quickstart's tier
     numbers equal to its run on the CPU (the model's are not compared:
-    bf16 matmuls round at other places on the card)."""
+    bf16 matmuls round at other places on the card), and serve_elastic's
+    frontier: lossless agrees with itself on every top-1, tier DRAM reads
+    fall from lossless to aggressive."""
     import contextlib
     import io
 
-    from repro_torch.examples import quickstart, serve_async, serve_continuous
+    from repro_torch.examples import (
+        quickstart, serve_async, serve_continuous, serve_elastic,
+    )
 
     twins = (("quickstart", quickstart), ("serve_async", serve_async),
-             ("serve_continuous", serve_continuous))
+             ("serve_continuous", serve_continuous),
+             ("serve_elastic", serve_elastic))
     out = {}
     for name, mod in twins:
         argv = [] if dev == "cuda" else ["--cpu"]
@@ -2157,6 +2587,11 @@ def examples_path(torch, build, dev="cuda"):
         print(f"[examples] {name} on {dev}: {wall:.3f} s wall, launches "
               f"{launches}", flush=True)
         out[name] = res
+    rows = out["serve_elastic"]["rows"]
+    dram = [r["dram_read"] for r in rows.values()]
+    if rows["lossless (all BF16)"]["top1"] != 1.0 or \
+            not dram[0] > dram[2] > dram[3]:
+        raise AssertionError(f"serve_elastic's frontier on the card: {rows}")
     with contextlib.redirect_stdout(io.StringIO()):
         cpu = quickstart.main(["--cpu"])
     if cpu != out["quickstart"]:
@@ -2169,6 +2604,9 @@ def examples_path(torch, build, dev="cuda"):
 
 # the kernels only the kernel API reaches
 API_ONLY_KERNELS = ("elastic_matmul", "kv_delta_inv")
+# rows of the kernels line for [mla]'s 512-channel shapes
+LATENT_ROWS = ("kv_delta_fwd_latent", "bitplane_unpack_latent",
+               "pnm_score_latent")
 
 
 def np_equal(x, y) -> bool:
@@ -2238,6 +2676,7 @@ def main():
     check_kv_and_unpack(torch, build, k_bitplane, k_kv, results)
     check_lz4_match(torch, k_bitplane, k_kv, k_lz4, results)
     check_elastic_matmul(torch, k_bitplane, k_mm, ops, results)
+    check_latent_kernels(torch, build, k_bitplane, k_kv, k_pnm, results)
     for r in results.values():
         lib = r["library_ms"]
         lib = "-" if lib is None else f"{lib * 1e3:.2f} us"
@@ -2251,11 +2690,11 @@ def main():
     for name in API_ONLY_KERNELS:
         results[name]["launches"] = api_launches[name]
     phase("kernel API")
-    diff = check_tier_and_model(torch)
+    diffs = check_tier_and_model(torch)
     print(f"[check] tier encode, readback at every view and PNM gathers "
           f"cuda == cpu; the per-block encoder == the batched one on the "
-          f"card; smoke-model "
-          f"logits cuda vs cpu max |diff| {diff:.4g}", flush=True)
+          f"card; smoke-model logits cuda vs cpu max |diff| "
+          + ", ".join(f"{k} {v:.4g}" for k, v in diffs.items()), flush=True)
     phase("tier and model checks")
 
     params = init_params(ARCHS["qwen2-0.5b"], seed=0, device="cuda")
@@ -2322,6 +2761,8 @@ def main():
     phase("multi-stream path")
     examples_path(torch, build)
     phase("examples")
+    mla_path(torch, build, k_bitplane, k_kv, k_pnm, serve, results)
+    phase("MLA path")
     profile_request(torch, serve, params)
     profile_request(torch, serve, params, device_time=False, pnm_topk=16,
                     importance="attention")
@@ -2331,7 +2772,8 @@ def main():
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: results[n][k] for k in keys}
                                   for n in build.KERNELS
-                                  + ("bitplane_unpack_planes",)]}),
+                                  + ("bitplane_unpack_planes",)
+                                  + LATENT_ROWS]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,37 @@
-"""Architectures the port serves: ``--arch <id>`` resolves here."""
+"""Architectures: ``--arch <id>`` resolves here.
+
+Every arch of the reference is registered; the model serves the token
+decoders (dense GQA, MLA, MoE) and raises ``NotImplementedError`` for
+the families still to port (SSM, hybrid, encoder-only, modality
+frontends).
+"""
 
 from .base import ArchConfig, smoke_config
+from .deepseek_v2_lite_16b import CONFIG as deepseek_v2_lite_16b
+from .falcon_mamba_7b import CONFIG as falcon_mamba_7b
+from .grok_1_314b import CONFIG as grok_1_314b
+from .hubert_xlarge import CONFIG as hubert_xlarge
+from .llava_next_34b import CONFIG as llava_next_34b
+from .nemotron_4_340b import CONFIG as nemotron_4_340b
+from .qwen1_5_32b import CONFIG as qwen1_5_32b
 from .qwen2_0_5b import CONFIG as qwen2_0_5b
+from .stablelm_12b import CONFIG as stablelm_12b
+from .zamba2_7b import CONFIG as zamba2_7b
 
-ARCHS: dict[str, ArchConfig] = {c.name: c for c in (qwen2_0_5b,)}
+ARCHS: dict[str, ArchConfig] = {
+    c.name: c
+    for c in (
+        llava_next_34b,
+        stablelm_12b,
+        qwen1_5_32b,
+        qwen2_0_5b,
+        nemotron_4_340b,
+        zamba2_7b,
+        falcon_mamba_7b,
+        grok_1_314b,
+        deepseek_v2_lite_16b,
+        hubert_xlarge,
+    )
+}
 
 __all__ = ["ARCHS", "ArchConfig", "smoke_config"]

@@ -1,6 +1,6 @@
 """Architecture config: the port's own copy of the reference's frozen
-dataclass (the dense-decoder fields the PyTorch model reads, plus the
-rest so a reference config carries over field for field).
+dataclass (the fields the PyTorch model reads, plus the rest so a
+reference config carries over field for field).
 
 Configs are pure data — ``models/`` builds parameters and step
 functions from them.
@@ -35,9 +35,9 @@ class ArchConfig:
     n_experts: int = 0
     n_shared_experts: int = 0
     top_k: int = 0
-    moe_d_ff: int = 0
+    moe_d_ff: int = 0            # per-expert FFN width (0 → use d_ff)
     moe_every: int = 1
-    first_dense: int = 0
+    first_dense: int = 0         # leading dense layers (deepseek style)
 
     # MLA (deepseek)
     mla: bool = False
@@ -84,7 +84,15 @@ class ArchConfig:
         return self.frontend == ""
 
     def kv_bytes_per_token(self, elem_bytes: int = 2) -> float:
-        return self.n_layers * 2 * self.n_kv_heads * self.hd * elem_bytes
+        if self.ssm == "mamba1":
+            return 0.0  # constant-size state, not per-token
+        if self.mla:
+            return (self.n_layers * (self.kv_lora_rank + self.qk_rope_dim)
+                    * elem_bytes)
+        n_attn = self.n_layers
+        if self.attn_every:
+            n_attn = self.n_layers // self.attn_every
+        return n_attn * 2 * self.n_kv_heads * self.hd * elem_bytes
 
 
 def smoke_config(cfg: ArchConfig) -> ArchConfig:

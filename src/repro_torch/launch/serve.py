@@ -29,8 +29,13 @@ Usage (on a machine with an NVIDIA GPU):
   PYTHONPATH=src python -m repro_torch.launch.serve --prompt-len 512 \\
       --tokens 64 --requests 1 --pnm-topk 16 --importance attention \\
       --shards 4 --placement hash-stripe
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch deepseek-v2-lite-16b --prompt-len 512 --tokens 64 --requests 1
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --cpu \\
       --prompt-len 64 --tokens 8 --hbm-kv-budget 16384
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --cpu \\
+      --arch deepseek-v2-lite-16b --prompt-len 192 --tokens 8 \\
+      --hbm-kv-budget 8192
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --cpu \\
       --num-requests 6 --arrival-rate 0.5 --prompt-len 64 --tokens 8 \\
       --hbm-kv-budget 16384 --prefix-share --share-prefix-len 32 \\

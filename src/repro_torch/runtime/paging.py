@@ -169,7 +169,7 @@ DEFAULT_DEGRADE_LADDER = (MAN4, MAN2, MAN0)
 class _Page:
     key: str                  # stream id on the device
     layer: int
-    kind: str                 # "k" | "v"
+    kind: str                 # "k" | "v" | "c_kv"
     start: int                # first token index
     n_tokens: int
     importance: float = 0.0

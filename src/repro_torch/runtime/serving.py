@@ -3,9 +3,13 @@
 End-to-end path (paper Fig. 1/6 on a GPU host):
 
   prefill  — one forward over the prompt fills the KV cache on the card;
-             completed pages (windows of ``page_tokens``) are copied to
-             the host and committed to the ``KVPagePool`` as BF16
-             token-major streams (the CXL.mem write stream of the paper).
+             completed pages (windows of ``page_tokens``) of the stacked
+             layers' paged kinds (``k`` / ``v``, or MLA's ``c_kv``
+             latent) are copied to the host and committed to the
+             ``KVPagePool`` as BF16 token-major streams (the CXL.mem
+             write stream of the paper).  MLA's ``k_rope`` and the
+             ``dense0`` layers' cache stay on the card, as in the
+             reference.
   decode   — one-token steps attend through the decode-attention kernel
              over the cache, whose spilled pages were overwritten in place
              with the tier's readback at their policy precision.
@@ -59,11 +63,17 @@ from .. import devices
 from ..configs.base import ArchConfig
 from ..core.system_model import SystemSpec
 from ..core.tier import Ticket, TierStore, make_device
-from ..models.model import _check_dense, decode_step, init_cache
+from ..models.model import cache_spec, decode_step, init_cache
 from .paging import (
     KVPagePool, PagePolicy, PAPER_POLICY, PrefixShareIndex, _Page,
     prefix_chain_hashes,
 )
+
+
+# KV kinds the tier pages, in commit order; the key-bearing ones carry
+# the attention masses (V pages take their K twin's)
+PAGED_KINDS = ("k", "v", "c_kv")
+KEY_KINDS = ("k", "c_kv")
 
 
 def _sample_next(logits: np.ndarray, rng: np.random.Generator,
@@ -163,6 +173,7 @@ class ServeEngine:
         # the decode steps that just ran — apply them before committing
         self.flush_io()
         layers = self.cache["layers"]
+        kinds = [k for k in PAGED_KINDS if k in layers]
         batch_pages = []
         for start in range(lo - lo % self.page_tokens, hi, self.page_tokens):
             if start + self.page_tokens > hi:
@@ -174,9 +185,9 @@ class ServeEngine:
             if (self._share_hashes
                     and start + self.page_tokens <= self._prompt_len):
                 share = self._share_hashes[start // self.page_tokens]
-            for kind in ("k", "v"):
+            for kind in kinds:
                 win = layers[kind][:, :, start : start + self.page_tokens]
-                # (L, B, page, KV, hd) → host, as 16-bit words
+                # (L, B, page, channels...) → host, as 16-bit words
                 host = win.cpu().contiguous().view(torch.int16).numpy()
                 for layer in range(host.shape[0]):
                     tok = host[layer].reshape(self.page_tokens * self.batch, -1)
@@ -240,35 +251,41 @@ class ServeEngine:
         """f32 mean of the last committed window's rows of ``kind``, over
         every layer and batch row, on the engine's device — the stand-in
         for the current query direction."""
-        buf = self.cache["layers"][kind]               # (L, B, S, KV, hd)
-        channels = buf.shape[3] * buf.shape[4]
+        buf = self.cache["layers"][kind]         # (L, B, S, channels...)
+        channels = int(np.prod(buf.shape[3:]))
         win = buf[:, :, max(0, self.pos - self.page_tokens):self.pos]
         if win.numel() == 0:
             return torch.zeros(channels, dtype=torch.float32,
                                device=buf.device)
         return win.float().reshape(-1, channels).mean(dim=0)
 
-    def _attention_masses(self) -> Dict[Tuple[int, int], float]:
-        """Digest-proxy attention mass per committed K window, keyed by
-        ``(layer, start)``: every committed row's ``<row, digest>`` is
-        softmaxed across the layer's whole committed context (all batch
-        rows together), and a window's mass is the sum of its rows'
+    def _attention_masses(self) -> Dict[Tuple[str, int, int], float]:
+        """Digest-proxy attention mass per committed window of each
+        key-bearing kind (``k`` / ``c_kv``), keyed by ``(kind, layer,
+        start)``: every committed row's ``<row, digest>`` is softmaxed
+        across the layer's whole committed context (all batch rows
+        together), and a window's mass is the sum of its rows'
         probabilities.  Computed on the engine's device; one float per
         window goes to the host."""
         page = self.page_tokens
         paged = (self.pos // page) * page
         if paged <= 0:
             return {}
-        buf = self.cache["layers"]["k"]
-        L, B = buf.shape[:2]
-        rows = buf[:, :, :paged].float().reshape(L, B * paged, -1)
-        dots = rows @ self._digest("k")                # (L, B * paged)
-        p = torch.exp(dots - dots.amax(dim=1, keepdim=True))
-        p = p / p.sum(dim=1, keepdim=True)
-        win = p.reshape(L, B, paged // page, page).sum(dim=(1, 3))
-        win = win.cpu().numpy()
-        return {(layer, w * page): float(win[layer, w])
-                for layer in range(L) for w in range(paged // page)}
+        masses = {}
+        layers = self.cache["layers"]
+        for kind in (k for k in KEY_KINDS if k in layers):
+            buf = layers[kind]
+            L, B = buf.shape[:2]
+            rows = buf[:, :, :paged].float().reshape(L, B * paged, -1)
+            dots = rows @ self._digest(kind)           # (L, B * paged)
+            p = torch.exp(dots - dots.amax(dim=1, keepdim=True))
+            p = p / p.sum(dim=1, keepdim=True)
+            win = p.reshape(L, B, paged // page, page).sum(dim=(1, 3))
+            win = win.cpu().numpy()
+            masses.update({(kind, layer, w * page): float(win[layer, w])
+                           for layer in range(L)
+                           for w in range(paged // page)})
+        return masses
 
     def _apply_attention_importance(self, batch_pages: List[tuple]
                                     ) -> List[tuple]:
@@ -279,8 +296,12 @@ class ServeEngine:
         masses = self._attention_masses()
         if not masses:
             return batch_pages
+
+        def mass(kind, layer, start):
+            return masses.get(("k" if kind == "v" else kind, layer, start))
+
         for p in self.pool.iter_pages():
-            m = masses.get((p.layer, p.start))
+            m = mass(p.kind, p.layer, p.start)
             if m is not None:
                 self._imp_acc[p.key] = self._imp_acc.get(p.key, 0.0) + m
         known = {p.key for p in self.pool.iter_pages()}
@@ -290,7 +311,7 @@ class ServeEngine:
         out = []
         for layer, kind, start, u16, imp, share in batch_pages:
             key = self.pool.page_key(layer, kind, start, share)
-            m = masses.get((layer, start))
+            m = mass(kind, layer, start)
             if m is not None:
                 self._imp_acc[key] = self._imp_acc.get(key, 0.0) + m
                 imp = self._imp_acc[key]
@@ -549,11 +570,12 @@ class RequestRecord:
 @functools.lru_cache(maxsize=32)
 def _kv_bytes_per_token_b1(cfg: ArchConfig) -> int:
     """Paged-KV bytes one committed token adds at batch 1, from the
-    config alone (nothing allocated): K and V of every layer, counted at
-    2 bytes an element whatever ``kv_dtype`` is, as the reference counts
-    them.  One cache entry per architecture."""
-    _check_dense(cfg)
-    return cfg.n_layers * 2 * cfg.n_kv_heads * cfg.hd * 2
+    cache's shapes (nothing allocated): every paged kind of the stacked
+    layers, counted at 2 bytes an element whatever ``kv_dtype`` is, as
+    the reference counts them.  One cache entry per architecture."""
+    layers = cache_spec(cfg, 1, 8)["layers"]
+    return sum(shape[0] * int(np.prod(shape[3:])) * 2
+               for kind, shape in layers.items() if kind in PAGED_KINDS)
 
 
 def _kv_bytes_per_token(cfg: ArchConfig, batch: int) -> int:

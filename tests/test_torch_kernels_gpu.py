@@ -335,7 +335,8 @@ def _scores_equal(a, b):
 
 
 @pytest.mark.parametrize("P,T,C", [(64, 64, 128), (24, 64, 128), (5, 16, 64),
-                                   (3, 7, 40), (2, 3, 1024), (1, 1, 1)])
+                                   (3, 7, 40), (2, 3, 1024), (1, 1, 1),
+                                   (144, 64, 512), (26, 64, 512)])
 def test_pnm_score_kernel_matches_plain(card, P, T, C):
     """Bit-equal to the plain version (same summation order), with ragged
     valid counts, an empty page, NaN and inf rows."""
@@ -559,7 +560,7 @@ def test_unpack_kernel_every_plane_count(card, P):
 # the tier's window groups: a decode slab's 8 full windows, partial
 # flushes (channel boundaries inside bytes) and an odd channel count
 KV_SHAPES = [(8, 64, 128), (1, 17, 128), (2, 33, 40), (3, 37, 40), (2, 7, 5),
-             (2, 100, 24)]
+             (2, 100, 24), (2, 64, 512)]
 
 
 def _kv_slab(card, B, n, C, P, seed, ids=None):
@@ -676,7 +677,8 @@ def test_non_kv_tier_read_launches_the_standalone_unpack(card, monkeypatch):
 
 
 @pytest.mark.parametrize("B,n,C", [(128, 64, 128), (1, 17, 128), (3, 37, 40),
-                                   (2, 256, 256), (1, 1, 1)])
+                                   (2, 256, 256), (1, 1, 1), (144, 64, 512),
+                                   (26, 64, 512)])
 def test_kv_forward_kernel_matches_plain(card, B, n, C):
     x = torch.from_numpy(_patterns((B, n, C), n * C).view(np.int16)).to(card)
     if n >= 4:                           # exponent ties: smallest wins
@@ -1008,3 +1010,30 @@ def test_weight_store_on_card_matches_cpu(card):
     n = sum(w.numel() for w, _ in units.values())
     assert lc["bitplane_unpack"] >= -(-n // DECODE_SLAB)
     assert lc["kv_delta_inv"] == lc["kv_delta_fwd"] == 0
+
+
+def test_moe_routing_on_card_matches_cpu(card):
+    """The router's stable descending sort on the card: tied experts
+    (duplicated router columns) resolve to the lower index as on the CPU,
+    and the capacity slots and drops equal the CPU's.  Both route the
+    card's bf16 logits (an identity times them, which is exact), so the
+    matmul's summation order cannot differ."""
+    from repro_torch.models import layers
+
+    rng = np.random.default_rng(0)
+    flat = torch.from_numpy(rng.standard_normal((512, 256)).astype(
+        np.float32)).to(torch.bfloat16).to(card)
+    router = torch.from_numpy((rng.standard_normal((256, 64)) * 0.06)
+                              .astype(np.float32)).to(torch.bfloat16)
+    router[:, 1:6] = router[:, :1]
+    logits = flat @ router.to(card)
+    eye = torch.eye(512, dtype=torch.bfloat16)
+    out = []
+    for dev in ("cpu", card):
+        gates, experts = layers.route(eye.to(dev), logits.to(dev), 6)
+        pos, keep = layers.capacity_slots(experts, 64, 60)
+        out.append([t.cpu() for t in (gates, experts, pos, keep)])
+    (g0, e0, p0, k0), (g1, e1, p1, k1) = out
+    assert torch.equal(e0, e1) and torch.equal(p0, p1) and torch.equal(k0, k1)
+    torch.testing.assert_close(g1, g0, rtol=0, atol=2 * 2.0 ** -23)
+    assert bool((e0 < 6).any()) and not bool(k0.all())

@@ -514,11 +514,9 @@ def test_digest_and_attention_masses_on_the_same_cache(models, batch, pos):
                                    reng._query_digest(kind), rtol=1e-5,
                                    atol=1e-6)
     got, want = teng._attention_masses(), reng._attention_masses()
-    assert sorted(got) == sorted((layer, start)
-                                 for kind, layer, start in want)
-    for (layer, start), m in got.items():
-        assert m == pytest.approx(want[("k", layer, start)], rel=1e-4,
-                                  abs=1e-7)
+    assert sorted(got) == sorted(want)
+    for key, m in got.items():
+        assert m == pytest.approx(want[key], rel=1e-4, abs=1e-7)
 
 
 def _score_view_shift(tdev, rdev, keys, digest) -> np.ndarray:
@@ -602,7 +600,7 @@ def test_pnm_attention_importance_tracks_reference_engine(models, batch):
     tlog, rlog = _recording(tdev), _recording(rdev)
     teng = TServe(tcfg, tparams, device_kind=tdev, device="cpu", **kw)
     reng = RServe(rcfg, rparams, device_kind=rdev, **kw)
-    toks = (np.arange(72 * batch, dtype=np.int32).reshape(batch, 72)
+    toks = (np.arange(88 * batch, dtype=np.int32).reshape(batch, 88)
             * 7) % tcfg.vocab
     got = _forced(teng, toks, 48)
     ref = _forced(reng, toks, 48)

@@ -578,3 +578,22 @@ def test_serve_continuous_example_cpu(capsys):
     assert out["stored"] == 0 and out["blocks"] == 0
     assert out["physical"].peak_active >= out["report"].peak_active
     assert all(r.finished for r in out["report"].records)
+
+
+def test_serve_elastic_example_cpu(capsys):
+    """stablelm-12b (layernorm) at smoke width through four KV policies:
+    lossless agrees with itself on every top-1, and tier DRAM reads fall
+    from lossless to aggressive."""
+    from repro_torch.examples import serve_elastic
+
+    out = serve_elastic.main(["--cpu"])
+    text = capsys.readouterr().out
+    assert "per-layer tier DRAM traffic" in text
+    rows = out["rows"]
+    lossless = rows["lossless (all BF16)"]
+    aggressive = rows["aggressive (all man0+guard)"]
+    assert lossless["top1"] == 1.0 and lossless["mse"] == 0.0
+    assert aggressive["dram_read"] < rows["mid (all man2+guard)"][
+        "dram_read"] < lossless["dram_read"]
+    assert aggressive["mse"] > 0.0
+    assert sum(out["per_layer"].values()) == aggressive["dram_read"]
