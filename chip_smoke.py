@@ -32,8 +32,10 @@ Phases (any failure exits non-zero and prints no result line):
    2048 windows (long context) — each checked too, and timed back to back
    and from a cold L2 cache; the KV forward, the fused read (at every
    view) and page scoring at deepseek-v2-lite-16b's 512-channel latent
-   (144 windows or pages of 64 tokens, a 2-window decode slab); decode
-   attention at 4096 and 32768 cached positions, the elastic matmul at
+   (48 windows or pages of 64 tokens, a 2-window decode slab); decode
+   attention at llava-next-34b's shape (56 query heads over 8 KV heads,
+   hd 128, 576 of 640 positions) beside its plain version, its bound and
+   the fastest SDPA backend, and at 4096 and 32768 cached positions, the elastic matmul at
    each view beside its byte bound, the fused KV read beside the
    two-launch chain it replaces, and the match launch beside the wrapper
    (prep + match + one copy back) and the plain pipeline it replaces;
@@ -60,8 +62,8 @@ Phases (any failure exits non-zero and prints no result line):
    flags, and the match kernel once each);
    then ``kv_through_tier`` of every layer's K and V and ``layer_traffic``
    of one more such request equal a CPU pool's fed its page stream;
-6. the weight stream at full width (``[weights]``): the 56 decoder
-   matrices of qwen2-0.5b's first 8 layers (of 24: a depth cut for
+6. the weight stream at full width (``[weights]``): the 28 decoder
+   matrices of qwen2-0.5b's first 4 layers (of 24: a depth cut for
    the time limit; wq, wk, wv, wo, w1, w3, w2 at their real shapes,
    importance falling with the layer) loaded by one
    ``WeightStore.put_many`` into a ``trace`` tier on the card (a pack,
@@ -75,7 +77,7 @@ Phases (any failure exits non-zero and prints no result line):
    equal; the standalone unpack held to its plain version and timed at
    a weight's decode slab at each view (its own row in the ``kernels``
    line, apart from the fused KV read's ``bitplane_unpack``); the
-   first 4 layers on a 4-shard ``replicate-weights`` fleet (words and
+   first 2 layers on a 4-shard ``replicate-weights`` fleet (words and
    per-shard bytes the single device's, async reads spread over the
    replicas) and one request of 512 + 64 tokens served on that fleet
    (tokens equal one device's);
@@ -84,7 +86,9 @@ Phases (any failure exits non-zero and prints no result line):
    (tokens identical to a), (c) top-16 gathers with attention importance
    (fewer link bytes than a), (d) c on a 4-shard fleet (tokens identical
    to c), with the page-scoring wrapper's wall time per gather;
-8. continuous batching at full width (``[sched]``): six requests of
+8. continuous batching at full width (``[sched]``; the first 6 of the
+   24 layers, a depth cut for the time limit, with a 1 MiB HBM budget
+   a request): six requests of
    512 + 64 tokens sharing their first 256, Poisson arrivals at 0.5 a
    decode round, through ``ServeScheduler`` (3 slots, a KV capacity of
    1.5 projections under the physical model) in four cases, launch
@@ -104,9 +108,11 @@ Phases (any failure exits non-zero and prints no result line):
    the quickstart's numbers equal to its CPU run, serve_elastic's
    lossless policy agreeing with itself and its DRAM reads falling to
    the aggressive policy;
-11. deepseek-v2-lite-16b at full width (``[mla]``: 27 layers, d 2048,
-   MLA with a 512-channel latent, 64 routed experts top-6 + 2 shared,
-   a dense first layer; random bf16 weights drawn on the card), its
+11. deepseek-v2-lite-16b at full width (``[mla]``: d 2048, MLA with a
+   512-channel latent, 64 routed experts top-6 + 2 shared, the dense
+   first layer; its depth cut to 9 of 27 layers and its HBM budget to
+   1 MiB, so 48 of its 64 prompt pages spill; random bf16 weights drawn
+   on the card), its
    ``c_kv`` pages through the tier in five serve runs, launch counts
    read per run: (a) two classic requests, (b) a covering gather (tokens
    == a's), (c) top-16 gathers with attention importance, (d) the
@@ -119,7 +125,30 @@ Phases (any failure exits non-zero and prints no result line):
    under cProfile; the params freed (the KV forward, the fused read
    and page scoring at these 512-channel shapes are checked and timed
    in phase 2, rows ``*_latent``; [mla] checks it ran those shapes);
-12. profile one more classic request (host split from cProfile, device
+12. the recurrent families at full width and depth (``[ssm]``, random
+   bf16 weights from seed 0 drawn on the card, freed after each):
+   (a) falcon-mamba-7b (64 Mamba1 layers, 7.27 B parameters) and (b)
+   zamba2-7b (81 Mamba2 layers and one shared windowed attention block
+   applied 13 times) each serve one request of 512 + 64 tokens with the
+   launch counts set to 0 just before and read just after — no page
+   spilled, no kernel launched (the state pages nothing; the hybrid's
+   rolling cache attends in plain PyTorch), nothing stored — then
+   decode == forward over the served sequence (and the served tokens its
+   greedy choices), for (b) its prefill through the cache == its forward
+   and the shared block's applications counted, and one full-width
+   layer's mixer on the card against the CPU; (c) zamba2's layer-0
+   ``in_proj`` (3584 x 14496) as 4 units through a ``WeightStore`` on
+   the card and on a CPU tier: payloads, flags, receipts, stats and
+   words identical, every unit its source rounded to its view, the
+   pack / prep / match / standalone-unpack launches counted;
+13. the embeds-fed models (``[frontends]``): hubert-xlarge at full width
+   and depth (one forward of 512 seeded frame embeds without a cache,
+   one full-width layer card vs CPU) and llava-next-34b at full width,
+   its depth cut to 4 of 60 layers (68 GB of bf16 parameters and their
+   f32 draw do not fit): a 512-embed prompt, then 64 teacher-forced
+   embed steps, decode == forward, decode attention launched once a
+   layer a step at its shape (row ``decode_attn_llava``);
+14. profile one more classic request (host split from cProfile, device
    busy time from ``torch.profiler``) and one PNM request (cProfile).
 
 Prints the card's name and power limit, a ``kernels`` JSON line, and as
@@ -1471,6 +1500,12 @@ def check_serving_launches(tag: str, launches: dict):
 SCHED_TRACE = dict(n_requests=6, rate=0.5, kind="poisson", prompt_len=512,
                    new_tokens=64, seed=0, share_prefix_len=256)
 SCHED_ENGINE = dict(page_tokens=64, hbm_kv_budget=1 << 22)
+# [sched] runs the first 6 of qwen2-0.5b's 24 layers (a depth cut for
+# the script's time limit) with a quarter of the HBM budget, so each
+# layer keeps the pages it kept at full depth and spills the ones it
+# spilled
+SCHED_LAYERS = 6
+SCHED_CUT_ENGINE = dict(page_tokens=64, hbm_kv_budget=1 << 20)
 # the admission capacity in projections: with the tier's ratio near 1.4
 # the first request and one follower (charged only its novel KV) fit and
 # the next follower waits for the first to retire
@@ -1763,9 +1798,9 @@ def streams_path(torch, build, cfg, params, dev, trace_kw=SCHED_TRACE,
 # real shape; a unit's importance falls with its layer.
 WEIGHT_MATS = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
                ("attn", "wo"), ("mlp", "w1"), ("mlp", "w3"), ("mlp", "w2"))
-WEIGHT_LAYERS = 8            # the first third of the 24 decoder layers:
+WEIGHT_LAYERS = 4            # the first sixth of the 24 decoder layers:
                              # a depth cut for the script's time limit
-FLEET_LAYERS = 4             # the replicate-weights fleet's share
+FLEET_LAYERS = 2             # the replicate-weights fleet's share
 FLEET_SHARDS = 4
 BLOCK_ELEMS = 2048           # core.bitplane.BLOCK_ELEMS: a 4 KB block
 
@@ -2152,19 +2187,24 @@ def weights_path(torch, build, k_bitplane, k_lz4, serve, params, dev,
                 enc_slabs=enc_slabs, dec_slabs=dec_slabs, row=row)
 
 
-# [mla]: deepseek-v2-lite-16b at full width (27 layers, d 2048, MLA with
-# a 512-channel latent, 64 routed experts top-6 + 2 shared, a dense first
-# layer), random bf16 weights from seed 0 drawn on the card; a trace
-# tier, PAPER_POLICY, 64-token pages, a 4 MiB HBM KV budget (64 of the
-# 64 KiB c_kv pages stay on the card), 512 prompt + 64 new tokens.
+# [mla]: deepseek-v2-lite-16b at full width (d 2048, MLA with a
+# 512-channel latent, 64 routed experts top-6 + 2 shared, the dense first
+# layer; depth cut below), random bf16 weights from seed 0 drawn on the
+# card; a trace tier, PAPER_POLICY, 64-token pages, a 1 MiB HBM KV budget
+# (16 of the 64 KiB c_kv pages stay on the card), 512 prompt + 64 new
+# tokens.
 MLA_ARCH = "deepseek-v2-lite-16b"
 MLA_VOCAB = 102400
 MLA_C = 512                  # kv_lora_rank: the latent's channels a token
-MLA_FLUSH_WINDOWS = 144      # the prefill flush: 144 of the 208 prompt
+# a depth cut for the script's time limit: the dense first layer and 8 of
+# the 26 MoE layers (every width as the arch file has it), with a 1 MiB
+# HBM budget so the prefill spills as the 27 layers did at 4 MiB
+MLA_LAYERS = 9
+MLA_FLUSH_WINDOWS = 48       # the prefill flush: 48 of the 64 prompt
                              # pages spill, and its gather scores them
 MLA_SERVE = dict(arch=MLA_ARCH, smoke=False, device="trace", prompt_len=512,
-                 n_tokens=64, batch=1, hbm_kv_budget=1 << 22, page_tokens=64,
-                 seed=0, verbose=False)
+                 n_tokens=64, batch=1, hbm_kv_budget=1 << 20, page_tokens=64,
+                 seed=0, n_layers=MLA_LAYERS, verbose=False)
 # the kernels of a served MLA request: decode attention is eager PyTorch
 # over the re-expanded latent, as in the reference
 MLA_KERNELS = ("bitplane_pack", "lz4_prep", "lz4_match", "kv_delta_fwd",
@@ -2360,7 +2400,8 @@ def check_mla_decode_forward(torch, cfg, params, prompt, dev="cuda"):
 
 def mla_path(torch, build, k_bitplane, k_kv, k_pnm, serve, results,
              cfg=None, dev="cuda"):
-    """[mla]: serve deepseek-v2-lite-16b at full width in four cases,
+    """[mla]: serve deepseek-v2-lite-16b at full width (its depth cut to
+    :data:`MLA_LAYERS`) in four cases,
     launch counts set to 0 just before each and read just after: (a) two
     classic requests; (b) a covering gather (tokens == a's first); (c)
     top-16 gathers with attention importance; (d) LOSSLESS_POLICY with
@@ -2368,12 +2409,14 @@ def mla_path(torch, build, k_bitplane, k_kv, k_pnm, serve, results,
     card's tier against the CPU's on one flush of c_kv pages, decode ==
     forward, and the kernels at the latent's shapes.  Returns the summed
     launches of the classic and PNM cases."""
+    import dataclasses
+
     import numpy as np
 
     from repro_torch.configs import ARCHS
     from repro_torch.models.model import init_params
 
-    cfg = cfg or ARCHS[MLA_ARCH]
+    cfg = cfg or dataclasses.replace(ARCHS[MLA_ARCH], n_layers=MLA_LAYERS)
     dev = torch.device(dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -2474,7 +2517,8 @@ def mla_path(torch, build, k_bitplane, k_kv, k_pnm, serve, results,
                              f"{score_shapes.counts}")
     if dev.type == "cuda":      # the host split (cProfile) of a request
         profile_request(torch, serve, params, device_time=False,
-                        arch=MLA_ARCH)
+                        arch=MLA_ARCH, n_layers=MLA_LAYERS,
+                        hbm_kv_budget=MLA_SERVE["hbm_kv_budget"])
     del params
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -2493,11 +2537,11 @@ def _leaves(tree):
 
 def check_latent_flush(torch, cfg, params, prompt, dev="cuda"):
     """The card's tier against the CPU's on one flush of c_kv pages: an
-    engine on the card prefills the prompt, and its 208 committed pages
-    (8 windows x 26 stacked layers) go to a card pool and a CPU pool whose
-    budget keeps all but the last 26 on the HBM side, so 26 pages spill
-    in one flush; stored payloads and flags, per-page receipts and the
-    readback words are identical."""
+    engine on the card prefills the prompt, and its committed pages (8
+    windows a stacked layer) go to a card pool and a CPU pool whose
+    budget keeps all but one page a stacked layer on the HBM side, so
+    that many spill in one flush; stored payloads and flags, per-page
+    receipts and the readback words are identical."""
     import numpy as np
 
     from repro_torch.models.model import cfg_layers
@@ -2602,6 +2646,564 @@ def examples_path(torch, build, dev="cuda"):
     return out
 
 
+# [ssm] and [frontends]: the recurrent and non-token families at full
+# width.  A recurrent model serves one classic request of 512 + 64 tokens
+# (its state pages nothing, so the tier stays empty and no tier kernel
+# runs); the frontend models run from seeded embeds.
+SSM_ARCHS = ("falcon-mamba-7b", "zamba2-7b")
+SSM_SERVE = dict(smoke=False, device="trace", prompt_len=512, n_tokens=64,
+                 batch=1, requests=1, hbm_kv_budget=1 << 22, page_tokens=64,
+                 seed=0, verbose=False)
+LAYER_TOKENS = 16            # one full-width layer, card vs CPU
+CARD_ULPS = 4                # ... within this many bf16 ulps of its largest
+                             # value: the two devices sum bf16 matmuls in
+                             # other orders, so a projection may round apart
+HUBERT_ARCH, LLAVA_ARCH = "hubert-xlarge", "llava-next-34b"
+FRONT_TOKENS = 512           # hubert's frames; llava's prompt embeds
+LLAVA_LAYERS = 4             # of 60: a depth cut, since 68 GB of bf16
+                             # parameters and their f32 draw do not fit
+LLAVA_HEADS, LLAVA_KV, LLAVA_HD = 56, 8, 128
+LLAVA_SEQ = 512 + 64 + 64    # the cache of a 512 + 64 request, as serve's
+LLAVA_VALID = 512 + 64
+
+
+def _ulp(t) -> float:
+    """One bf16 ulp at the largest magnitude of ``t``."""
+    import math
+
+    return 2.0 ** (math.floor(math.log2(max(float(t.abs().max()), 1e-30)))
+                   - 7)
+
+
+def margin_bound(np, ref, got, tag: str) -> str:
+    """The margin-aware greedy bound of
+    ``tests/test_kv_dtype.py::test_fp8_cache_decode_tracks_bf16``: logits
+    ``got`` against ``ref`` (rows of one sequence), greedy choices apart
+    only where the reference's top two lie within 4 RMS."""
+    agree = ref.argmax(-1) == got.argmax(-1)
+    srt = np.sort(ref, axis=-1)
+    margin = srt[..., -1] - srt[..., -2]
+    rms = float(np.sqrt(np.mean((ref - got) ** 2)))
+    ok = (rms < 0.5 * float(np.median(margin))
+          and bool(agree[margin > 4.0 * rms].all()) and agree.mean() > 0.8
+          and np.corrcoef(ref.ravel(), got.ravel())[0, 1] > 0.99)
+    if not ok:
+        raise AssertionError(f"{tag}: greedy tokens beyond the margin-aware "
+                             f"bound (rms {rms}, median margin "
+                             f"{np.median(margin)}, agree {agree.mean()})")
+    return f"rms {rms:.4g}, greedy agree {agree.mean():.4f}"
+
+
+def decode_vs_forward(torch, cfg, params, inputs, key, prompt_len, dev,
+                      tag, steps=None, dtype=None, greedy=True,
+                      noise=True):
+    """Teacher-forced decode == forward over one sequence ``inputs`` (1,
+    T[, d]) fed as ``key`` (tokens or embeds), in the params' dtype (the
+    cache in ``dtype``, default ``cfg.kv_dtype``).  ``steps`` are the
+    decode's logits (the prompt's last position, then one row a later
+    input: a served run's), else computed here by a prefill of the first
+    ``prompt_len`` through a cache of serve's size and one step for each
+    later input.  Against one forward without a cache over all T; with
+    ``greedy`` the greedy choices within the margin-aware bound.
+
+    The bound is the reference's decode == forward bound (rtol = atol =
+    0.15, ``tests/test_arch_smoke.py``), with ``noise`` widened by twice
+    the forward's own noise: the forward in two chunks through the cache
+    (the prompt, then the rest) against the forward in one, which at
+    full width in bf16 differs by as much as a decode does (cuBLAS sums
+    a GEMM of other rows in another order, and deep random-weight models
+    carry a rounding flip forward).  Returns ``(prefill logits (T0, V), step
+    logits, forward logits (T, V), the forward's own noise)`` as f32 on
+    the host."""
+    import numpy as np
+
+    from repro_torch.models import model
+
+    T = inputs.shape[1]
+    with torch.no_grad():
+        full, _ = model.forward(cfg, params, {key: inputs})
+        full = full[0].float().cpu()
+        cache = model.init_cache(cfg, 1, T + 64, device=dev, dtype=dtype)
+        pre, cache = model.decode_step(cfg, params, {
+            key: inputs[:, :prompt_len], "cache_pos": 0}, cache)
+        pre = pre[0].float().cpu()
+        chunked, noise = noise, 0.0
+        if chunked:
+            rest, _ = model.decode_step(cfg, params, {
+                key: inputs[:, prompt_len:], "cache_pos": prompt_len},
+                _map_leaves(cache, lambda t: t.clone()))
+            noise = float((torch.cat([pre, rest[0].float().cpu()])
+                           - full).abs().max())
+        if steps is None:
+            rows = [pre[-1]]
+            for t in range(prompt_len, T):
+                lg, cache = model.decode_step(cfg, params, {
+                    key: inputs[:, t:t + 1], "cache_pos": t}, cache)
+                rows.append(lg[0, -1].float().cpu())
+            steps = torch.stack(rows)
+    del cache
+    want = full[prompt_len - 1:]
+    diff = (steps - want).abs()
+    over = diff > 0.15 + 0.15 * want.abs()
+    if not bool(torch.isfinite(steps).all()) or \
+            bool((diff > 0.15 + 0.15 * want.abs() + 2 * noise).any()):
+        raise AssertionError(f"{tag}: decode != forward: max |diff| "
+                             f"{float(diff.max())}, the forward's own "
+                             f"noise {noise}")
+    agree = float((steps.argmax(-1) == want.argmax(-1)).float().mean())
+    if greedy:
+        margin_bound(np, want.numpy(), steps.numpy(), tag)
+    kind = str(params["final_norm"]["scale"].dtype).split(".")[-1]
+    print(f"[{tag}] {kind} decode == forward over {T} positions (the prompt's last and "
+          f"{T - prompt_len} steps): max |diff| {float(diff.max()):.4g}, "
+          f"rms {float(diff.pow(2).mean().sqrt()):.4g} (logits up to "
+          f"{float(want.abs().max()):.3g}); {int(over.sum())} of "
+          f"{over.numel()} past 0.15 + 0.15 |x|; "
+          + (f"the forward in two chunks vs one: max |diff| {noise:.4g}; "
+             if chunked else "")
+          + f"greedy agree {agree:.4f}"
+          + (" (margin-aware bound held)" if greedy else ""), flush=True)
+    return pre, steps, full, noise
+
+
+def layer_card_vs_cpu(torch, cfg, params, dev, tag, seq=LAYER_TOKENS):
+    """One full-width layer (layer 0) on the card against the same layer
+    on the CPU from the same weights and input: a Mamba mixer from a
+    random incoming state (its output, f32 scan state and conv state), or
+    a transformer block without a cache.  Outputs within
+    :data:`CARD_ULPS` bf16 ulps of their largest value, and so are the
+    f32 scan state and the conv inputs: both come from bf16 projections,
+    which the two devices may round apart."""
+    import numpy as np
+
+    from repro_torch.models import layers, model
+
+    rng = np.random.default_rng(7)
+    p = model._layer(params["layers"], 0)
+    x = torch.from_numpy(rng.standard_normal(
+        (1, seq, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+    mix = (layers.mamba1_mix if cfg.ssm == "mamba1" else
+           layers.mamba2_mix if cfg.ssm == "mamba2" else None)
+    state = None
+    if mix is not None:
+        spec = model.cache_spec(cfg, 1, seq)["layers"]
+        state = {k: torch.from_numpy(rng.standard_normal(
+            leaf.shape[1:]).astype(np.float32) * 0.5).to(leaf.dtype)
+            for k, leaf in spec.items()}
+    out = {}
+    with torch.no_grad():
+        for where in (torch.device(dev), torch.device("cpu")):
+            pw = _to(p, where)
+            if mix is None:
+                pos = torch.arange(seq, device=where,
+                                   dtype=torch.int32)[None]
+                y = model._block(cfg, pw, x.to(where), positions=pos,
+                                 cache=None, cache_pos=0)
+                out[where.type] = (y.float().cpu(),)
+            else:
+                st = {k: v.clone().to(where) for k, v in state.items()}
+                y = mix(x.to(where), pw, cfg, state=st)
+                out[where.type] = (y.float().cpu(), st["ssm"].cpu(),
+                                   st["conv"].float().cpu())
+            del pw
+    card, cpu = out[torch.device(dev).type], out["cpu"]
+    err = [float((a - b).abs().max()) for a, b in zip(card, cpu)]
+    ulps = [e / _ulp(b) for e, b in zip(err, cpu)]
+    if max(ulps) > CARD_ULPS:
+        raise AssertionError(f"[{tag}] layer 0 card vs CPU: max |diff| "
+                             f"{err}, bf16 ulps {ulps}")
+    what = "output" + (", f32 state, conv state" if state is not None
+                       else "")
+    print(f"[{tag}] one full-width layer (layer 0, {seq} tokens) card vs "
+          f"CPU from the same weights: max |diff| of {what} "
+          + ", ".join(f"{e:.3g}" for e in err)
+          + f" = {', '.join(f'{u:.2f}' for u in ulps)} bf16 ulps of the "
+          f"largest value (bound {CARD_ULPS})", flush=True)
+
+
+def cut_depth(cfg, params, n_layers: int):
+    """The config and a view of the params with only the first
+    ``n_layers`` stacked layers (every width kept)."""
+    import dataclasses
+
+    layers = _map_leaves(params["layers"], lambda t: t[:n_layers])
+    return (dataclasses.replace(cfg, n_layers=n_layers),
+            {**params, "layers": layers})
+
+
+def _map_leaves(tree, fn):
+    return {k: _map_leaves(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def ssm_model_path(torch, build, serve, arch, dev="cuda", cfg=None,
+                   smoke=False):
+    """[ssm] (a) / (b): ``arch`` at full width and depth — random bf16
+    weights from seed 0 drawn on the card leaf by leaf, one classic
+    request of 512 + 64 tokens served with the launch counts set to 0
+    just before and read just after (no spill, no tier kernel, no decode
+    attention kernel, nothing stored) and its logits recorded; decode ==
+    forward over the served sequence in bf16 (the served logits) and in
+    f32 (the params cast, a cache in f32; greedy choices within the
+    margin-aware bound); a full-width layer on the card against the CPU;
+    for the hybrid also its prefill through the cache == its forward and
+    the shared-block applications a pass runs.  Returns the params (the
+    caller frees them after (c))."""
+    import numpy as np
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import layers, model
+    from repro_torch.runtime import ServeEngine
+
+    cfg = cfg or ARCHS[arch]
+    dev = torch.device(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model.init_params(cfg, seed=0, device=dev)
+    _sync(torch, dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[ssm] {arch}: {n_params} parameters ({_allocated(torch, dev)} B "
+          f"on the card) drawn in {time.perf_counter() - t0:.2f} s; peak "
+          f"{_peak(torch, dev)} B", flush=True)
+    served, step, step_s = [], ServeEngine._step, []
+
+    def recorded(self, tokens):
+        t = time.perf_counter()
+        out = step(self, tokens)          # ends in a copy to the host
+        step_s.append(time.perf_counter() - t)
+        served.append(out)
+        return out
+    ServeEngine._step = recorded
+    build.reset_launches()
+    try:
+        rep = serve(arch=arch, **{**SSM_SERVE, "smoke": smoke},
+                    params=params, torch_device=dev)
+        _sync(torch, dev)
+    finally:
+        ServeEngine._step = step
+    launches = dict(build.LAUNCHES)
+    toks = rep.tokens[0]
+    if toks.shape != (1, 64) or toks.min() < 0 or toks.max() >= cfg.vocab:
+        raise AssertionError(f"[ssm] {arch}: bad tokens {toks.shape}")
+    if rep.spilled_pages or rep.readback_pages or rep.kv_logical_bytes or \
+            rep.kv_stored_bytes or rep.tier_dram_read or rep.tier_link_out:
+        raise AssertionError(f"[ssm] {arch}: the recurrent state reached the "
+                             f"tier: {vars(rep)}")
+    if any(launches.values()):
+        raise AssertionError(f"[ssm] {arch}: a kernel launched while "
+                             f"serving: {launches}")
+    print(f"[ssm] {arch} served 512 + 64 tokens: wall tok/s {rep.tok_s:.3f} "
+          f"({rep.wall_s:.3f} s: prefill of the 512-token prompt "
+          f"{step_s[0]:.3f} s, a decode step {np.mean(step_s[1:]) * 1e3:.1f}"
+          f" ms on average); peak allocated {_peak(torch, dev)} B; "
+          f"spilled {rep.spilled_pages} pages, tier stored "
+          f"{rep.kv_stored_bytes} B, link out {rep.tier_link_out} B; kernel "
+          f"launches {sum(launches.values())} ({launches})", flush=True)
+
+    # the served sequence: the served run's logits against a bf16 forward
+    # over it; then the same in f32, where the GEMMs' summation order
+    # cannot hide a fault of the cache
+    prompt = np.random.default_rng(SSM_SERVE["seed"]).integers(
+        0, cfg.vocab, (1, SSM_SERVE["prompt_len"])).astype(np.int32)
+    seq = torch.from_numpy(np.concatenate([prompt, toks], 1)).to(dev)
+    P = prompt.shape[1]
+    pre, _, full, _ = decode_vs_forward(
+        torch, cfg, params, seq, "tokens", P, dev, "ssm",
+        steps=torch.from_numpy(np.concatenate(served)), greedy=False)
+    layer_card_vs_cpu(torch, cfg, params, dev, "ssm")
+    p32 = _map_leaves(params, lambda t: t.float())
+    apps = ShapeRecorder(layers, "gqa_block", lambda *a, **kw: "calls")
+    try:
+        pre32, _, full32, _ = decode_vs_forward(
+            torch, cfg, p32, seq, "tokens", P, dev, "ssm",
+            dtype=torch.float32, noise=False)
+    finally:
+        layers.gqa_block = apps.original
+    apps = apps.counts.get("calls", 0)
+    del p32
+    if cfg.family == "hybrid":
+        # the forward, the prefill and the steps
+        passes = 2 + seq.shape[1] - P
+        per_pass = len(model.shared_applications(cfg))
+        if apps != per_pass * passes:
+            raise AssertionError(f"[ssm] {apps} shared-block calls for "
+                                 f"{passes} passes of {per_pass}")
+        for kind, got, want in (("bf16", pre, full), ("f32", pre32, full32)):
+            diff = (got - want[:P]).abs()
+            if bool((diff > 0.15 + 0.15 * want[:P].abs()).any()):
+                raise AssertionError(f"[ssm] {arch}: {kind} prefill through "
+                                     f"the cache != forward: "
+                                     f"{float(diff.max())}")
+            print(f"[ssm] {arch}: {kind} prefill of the {P}-token prompt "
+                  f"through the rolling cache == forward at every prompt "
+                  f"position, max |diff| {float(diff.max()):.4g}", flush=True)
+        print(f"[ssm] {arch}: the shared block ran {per_pass} times a pass "
+              f"(after layers {[i for i, _ in model.shared_applications(cfg)]}"
+              f"), {apps} calls in {passes} passes", flush=True)
+    return params
+
+
+def hybrid_weights_check(torch, build, k_bitplane, params, dev="cuda"):
+    """[ssm] (c): layer 0's in_proj of the hybrid (3584 x 14496 at full
+    width) as four row blocks of falling importance (views FULL, FULL,
+    MAN4, MAN2) through a ``WeightStore`` on the card and on a CPU tier,
+    launch counts set to 0 just before the card's load and fetch and read
+    just after: stored payloads, flags, receipts, stored bytes and
+    fetched words identical; every fetched unit its source rounded to
+    its view."""
+    from repro_torch.runtime import WeightStore
+
+    w = params["layers"]["in_proj"][0]
+    rows = w.shape[0] // 4
+    units = {f"in_proj.{i}": (w[i * rows:(i + 1) * rows], 4.0 - i)
+             for i in range(4)}
+    sizes = [s for u, _ in units.values() for s in _block_sizes(u.numel())]
+    enc_slabs = _slabs(sizes, SLAB_ELEMS)
+    dev = torch.device(dev)
+    stores, words, recs, launches = {}, {}, {}, {}
+    alone = None
+    for where in (dev, torch.device("cpu")):
+        store = WeightStore("trace", device=where)
+        rec = Recorder(store.tier)
+        on = {k: (u.to(where), imp) for k, (u, imp) in units.items()}
+        build.reset_launches()
+        t0 = time.perf_counter()
+        store.put_many(on)
+        _sync(torch, where)
+        load_s = time.perf_counter() - t0
+        load = dict(build.LAUNCHES)
+        if where == dev:
+            alone = ShapeRecorder(k_bitplane, "unpack_planes",
+                                  lambda r, *a, **kw: r.shape[1] * 8)
+        build.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            out = store.fetch_all()
+            _sync(torch, where)
+        finally:
+            if where == dev:
+                k_bitplane.unpack_planes = alone.original
+        fetch_s = time.perf_counter() - t0
+        fetch = dict(build.LAUNCHES)
+        check_weight_words(torch, k_bitplane, store, on, out,
+                           f"[ssm] in_proj on {where.type}")
+        stores[where.type] = store
+        words[where.type] = {k: v.view(torch.int16).cpu() for k, v in
+                             out.items()}
+        recs[where.type] = [_receipt_fields(r) for r in rec.recs]
+        launches[where.type] = (load, fetch, load_s, fetch_s)
+        del out, on
+    card, cpu = stores[dev.type], stores["cpu"]
+    if recs[dev.type] != recs["cpu"]:
+        raise AssertionError("[ssm] in_proj: card receipts differ from the "
+                             "CPU's")
+    for key, blocks in cpu.tier._tensors.items():
+        if [(b.payloads, b.flags) for b in card.tier._tensors[key]] != \
+                [(b.payloads, b.flags) for b in blocks]:
+            raise AssertionError(f"[ssm] in_proj: {key}'s stored bytes "
+                                 "differ card vs CPU")
+    if card.tier._tensors.keys() != cpu.tier._tensors.keys() or \
+            vars(card.stats) != vars(cpu.stats):
+        raise AssertionError("[ssm] in_proj: stored units or stats differ")
+    if any(not torch.equal(words[dev.type][k], words["cpu"][k])
+           for k in units):
+        raise AssertionError("[ssm] in_proj: fetched words differ card vs "
+                             "CPU")
+    load, fetch, load_s, fetch_s = launches[dev.type]
+    groups: dict = {}
+    for name, (u, _) in units.items():
+        groups.setdefault(card.view_for(name), []).extend(
+            _block_sizes(u.numel()))
+    dec_slabs = sum(_slabs(g, DECODE_ELEMS) for g in groups.values())
+    n_alone = sum(alone.counts.values())
+    if dev.type == "cuda" and not (
+            load["bitplane_pack"] == enc_slabs
+            and 0 < load["lz4_prep"] == load["lz4_match"] <= enc_slabs
+            and fetch["bitplane_unpack"] == n_alone == dec_slabs
+            and not any(v for k, v in load.items() if k not in
+                        ("bitplane_pack", "lz4_prep", "lz4_match"))
+            and not any(v for k, v in fetch.items()
+                        if k != "bitplane_unpack")):
+        raise AssertionError(f"[ssm] in_proj launches: load {load} for "
+                             f"{enc_slabs} encode slabs, fetch {fetch} "
+                             f"({n_alone} standalone) for {dec_slabs} "
+                             "decode slabs")
+    st = card.stats
+    print(f"[ssm] (c) layer 0's in_proj {tuple(w.shape)} as 4 units (views "
+          f"{[card.view_for(n).name for n in units]}) through a WeightStore: "
+          f"card == CPU tier (payloads, flags, receipts, stats, fetched "
+          f"words), stored {st.dram_bytes_stored} B for "
+          f"{st.raw_bytes_stored} B (ratio "
+          f"{st.raw_bytes_stored / st.dram_bytes_stored:.4f}); every unit == "
+          f"its source rounded to its view; card launches: load "
+          f"bitplane_pack {load['bitplane_pack']}, lz4_prep "
+          f"{load['lz4_prep']}, lz4_match {load['lz4_match']} over "
+          f"{enc_slabs} encode slabs ({load_s:.3f} s); fetch standalone "
+          f"bitplane_unpack {n_alone} over {dec_slabs} decode slabs "
+          f"({fetch_s:.3f} s); CPU tier load {launches['cpu'][2]:.3f} s, "
+          f"fetch {launches['cpu'][3]:.3f} s", flush=True)
+
+
+def ssm_path(torch, build, k_bitplane, serve, dev="cuda", cfgs=None,
+             smoke=False):
+    """[ssm]: (a) falcon-mamba-7b and (b) zamba2-7b at full width and
+    depth (``cfgs`` overrides them for a rehearsal), then (c) zamba2's
+    in_proj through the tier; each model's params freed after it."""
+    from repro_torch.configs import ARCHS
+
+    dev = torch.device(dev)
+    for arch in SSM_ARCHS:
+        t0 = time.perf_counter()
+        cfg = (cfgs or ARCHS)[arch]
+        params = ssm_model_path(torch, build, serve, arch, dev, cfg, smoke)
+        if cfg.family == "hybrid":
+            hybrid_weights_check(torch, build, k_bitplane, params, dev)
+        del params
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        print(f"[ssm] {arch} done in {time.perf_counter() - t0:.1f} s; peak "
+              f"allocated {_peak(torch, dev)} B; params freed: "
+              f"{_allocated(torch, dev)} B allocated", flush=True)
+
+
+def check_llava_attention(torch, k_attn, results):
+    """Decode attention at llava-next-34b's shape — q (1, 56, 128) over a
+    bf16 (1, 640, 8, 128) cache, a group of 7 query heads a KV head — at
+    the last step's valid length and the first, one position, and the
+    whole cache: within the f32 tolerance of its plain version, bit-equal
+    across two calls; timed beside the plain version, the bound and the
+    fastest SDPA backend (row ``decode_attn_llava``; [frontends] fills in
+    its launches and checks it ran this shape)."""
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    q = torch.randn((1, LLAVA_HEADS, LLAVA_HD), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((1, LLAVA_SEQ, LLAVA_KV, LLAVA_HD), generator=gen,
+                        device="cuda").to(torch.bfloat16) for _ in range(2))
+    errs = []
+    for valid in (LLAVA_VALID, 513, 1, LLAVA_SEQ):
+        got = k_attn.decode_attention(q, k, v, valid)
+        want = k_attn.decode_attention_plain(q, k, v, valid)
+        again = k_attn.decode_attention(q, k, v, valid)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        if not bool((err <= ATOL + RTOL * want.abs()).all()):
+            raise AssertionError(f"decode_attn at llava's shape, valid_len "
+                                 f"{valid}: max error {float(err.max())}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"decode_attn at llava's shape, valid_len "
+                                 f"{valid}: differs between two calls")
+        errs.append(float(err.max()))
+    b, by = attn_bound(LLAVA_VALID, LLAVA_HEADS, LLAVA_KV, LLAVA_HD)
+    sdpa_ms = sdpa_backends(torch, q, k, v, LLAVA_VALID)
+    results["decode_attn_llava"] = dict(
+        name="decode_attn_llava", route="cuda",
+        source="src/repro_torch/csrc/decode_attn.cu",
+        replaces="src/repro/kernels/decode_attn.py:36",
+        max_abs_err=max(errs), launches=0,
+        **timed(torch, lambda: k_attn.decode_attention(q, k, v,
+                                                       LLAVA_VALID)),
+        plain_ms=timed(torch, lambda: k_attn.decode_attention_plain(
+            q, k, v, LLAVA_VALID))["ms"],
+        bound_ms=b, bound_by=by,
+        library_ms=min(sdpa_ms.values()) if sdpa_ms else None)
+    print("[kernel] SDPA at llava-next-34b's decode shape (56 / 8 heads, hd "
+          "128, 576 positions), by backend: "
+          + "; ".join(f"{name} {ms * 1e3:.2f} us"
+                      for name, ms in sdpa_ms.items()), flush=True)
+
+
+def frontends_path(torch, build, results, dev="cuda", cfgs=None):
+    """[frontends]: (a) hubert-xlarge at full width and depth — one
+    forward of seeded embeds (1, 512, 1280) without a cache, the logits
+    finite and of their shape, a full-width layer on the card against
+    the CPU; (b) llava-next-34b at full width, its depth cut to
+    :data:`LLAVA_LAYERS` — a 512-embed prompt, then 64 teacher-forced
+    embed steps, decode == forward, with the launch counts set to 0 just
+    before and read just after: decode attention once a layer a step, at
+    llava's shape.  The params of each freed after it."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import layers, model
+
+    dev = torch.device(dev)
+    cfgs = cfgs or {HUBERT_ARCH: ARCHS[HUBERT_ARCH],
+                    LLAVA_ARCH: dataclasses.replace(ARCHS[LLAVA_ARCH],
+                                                    n_layers=LLAVA_LAYERS)}
+    rng = np.random.default_rng(22)
+
+    def embeds(cfg, n):
+        return torch.from_numpy(rng.standard_normal(
+            (1, n, cfg.d_model)).astype(np.float32)).to(dev, torch.bfloat16)
+
+    for arch, cfg in cfgs.items():
+        t0 = time.perf_counter()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        params = model.init_params(cfg, seed=0, device=dev)
+        _sync(torch, dev)
+        n_params = sum(t.numel() for t in _leaves(params))
+        print(f"[frontends] {arch} ({cfg.n_layers} layers, d {cfg.d_model}): "
+              f"{n_params} parameters ({_allocated(torch, dev)} B on the "
+              f"card) drawn in {time.perf_counter() - t0:.2f} s", flush=True)
+        if not cfg.causal:
+            x = embeds(cfg, FRONT_TOKENS)
+            t1 = time.perf_counter()
+            with torch.no_grad():
+                logits, none = model.forward(cfg, params, {"embeds": x})
+            _sync(torch, dev)
+            if none is not None or tuple(logits.shape) != \
+                    (1, FRONT_TOKENS, cfg.vocab) or \
+                    not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"[frontends] {arch}: logits "
+                                     f"{tuple(logits.shape)} not finite")
+            print(f"[frontends] {arch}: one forward of {FRONT_TOKENS} "
+                  f"frame embeds, no cache: logits {tuple(logits.shape)} "
+                  f"finite, up to {float(logits.abs().max()):.3g}; "
+                  f"{time.perf_counter() - t1:.3f} s wall", flush=True)
+            del logits
+            layer_card_vs_cpu(torch, cfg, params, dev, "frontends", seq=64)
+        else:
+            x = embeds(cfg, LLAVA_VALID)
+            shapes = ShapeRecorder(layers, "decode_attention", lambda q, k,
+                                   *a, **kw: f"{tuple(q.shape)}x"
+                                   f"{tuple(k.shape)}")
+            build.reset_launches()
+            try:
+                decode_vs_forward(torch, cfg, params, x, "embeds",
+                                  FRONT_TOKENS, dev, "frontends")
+                _sync(torch, dev)
+            finally:
+                layers.decode_attention = shapes.original
+            launches = dict(build.LAUNCHES)
+            n_steps = LLAVA_VALID - FRONT_TOKENS
+            want = {f"{(1, LLAVA_HEADS, LLAVA_HD)}x"
+                    f"{(1, LLAVA_SEQ, LLAVA_KV, LLAVA_HD)}":
+                    n_steps * cfg.n_layers}
+            if dev.type == "cuda" and (
+                    launches["decode_attn"] != n_steps * cfg.n_layers
+                    or shapes.counts != want
+                    or sum(launches.values()) != launches["decode_attn"]):
+                raise AssertionError(f"[frontends] {arch}: launches "
+                                     f"{launches}, attention shapes "
+                                     f"{shapes.counts}")
+            results["decode_attn_llava"]["launches"] = \
+                launches["decode_attn"]
+            print(f"[frontends] {arch}: decode attention launches "
+                  f"{launches['decode_attn']} ({n_steps} steps x "
+                  f"{cfg.n_layers} layers, q x cache {shapes.counts}); "
+                  f"peak allocated {_peak(torch, dev)} B", flush=True)
+        del params
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        print(f"[frontends] {arch} done in {time.perf_counter() - t0:.1f} "
+              f"s; params freed: {_allocated(torch, dev)} B allocated",
+              flush=True)
+
+
 # the kernels only the kernel API reaches
 API_ONLY_KERNELS = ("elastic_matmul", "kv_delta_inv")
 # rows of the kernels line for [mla]'s 512-channel shapes
@@ -2614,8 +3216,7 @@ def np_equal(x, y) -> bool:
 
 
 def _to(tree, dev):
-    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
-            for k, v in tree.items()}
+    return _map_leaves(tree, lambda t: t.to(dev))
 
 
 class ShapeRecorder:
@@ -2677,6 +3278,7 @@ def main():
     check_lz4_match(torch, k_bitplane, k_kv, k_lz4, results)
     check_elastic_matmul(torch, k_bitplane, k_mm, ops, results)
     check_latent_kernels(torch, build, k_bitplane, k_kv, k_pnm, results)
+    check_llava_attention(torch, k_attn, results)
     for r in results.values():
         lib = r["library_ms"]
         lib = "-" if lib is None else f"{lib * 1e3:.2f} us"
@@ -2755,7 +3357,8 @@ def main():
     results["pnm_score"]["launches"] = pnm_launches["pnm_score"]
     phase("PNM path")
     cfg, dev = ARCHS["qwen2-0.5b"], torch.device("cuda", 0)
-    sched_path(torch, build, cfg, params, dev)
+    sched_path(torch, build, *cut_depth(cfg, params, SCHED_LAYERS), dev,
+               engine_kw=SCHED_CUT_ENGINE)
     phase("scheduler path")
     streams_path(torch, build, cfg, params, dev)
     phase("multi-stream path")
@@ -2763,6 +3366,10 @@ def main():
     phase("examples")
     mla_path(torch, build, k_bitplane, k_kv, k_pnm, serve, results)
     phase("MLA path")
+    ssm_path(torch, build, k_bitplane, serve)
+    phase("SSM path")
+    frontends_path(torch, build, results)
+    phase("frontends")
     profile_request(torch, serve, params)
     profile_request(torch, serve, params, device_time=False, pnm_topk=16,
                     importance="attention")
@@ -2773,7 +3380,7 @@ def main():
     print(json.dumps({"kernels": [{k: results[n][k] for k in keys}
                                   for n in build.KERNELS
                                   + ("bitplane_unpack_planes",)
-                                  + LATENT_ROWS]}),
+                                  + LATENT_ROWS + ("decode_attn_llava",)]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

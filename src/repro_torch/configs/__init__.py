@@ -1,9 +1,9 @@
 """Architectures: ``--arch <id>`` resolves here.
 
-Every arch of the reference is registered; the model serves the token
-decoders (dense GQA, MLA, MoE) and raises ``NotImplementedError`` for
-the families still to port (SSM, hybrid, encoder-only, modality
-frontends).
+Every arch of the reference is registered, and the model builds,
+forwards and decodes each family: the token decoders (dense GQA, MLA,
+MoE), Mamba1, the Mamba2 hybrid, the encoder-only model and the
+embeds-fed frontends.
 """
 
 from .base import ArchConfig, smoke_config

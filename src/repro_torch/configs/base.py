@@ -76,6 +76,10 @@ class ArchConfig:
         return self.head_dim or (self.d_model // max(self.n_heads, 1))
 
     @property
+    def d_inner(self) -> int:
+        return self.expand * self.d_model
+
+    @property
     def is_encoder_only(self) -> bool:
         return not self.causal
 

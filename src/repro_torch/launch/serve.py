@@ -1,9 +1,12 @@
 """Serving entry point: generation with TRACE-tiered KV offload, on the card.
 
 Serves ``--requests`` requests one after another through a
-:class:`ServeEngine` at full model width (``--smoke`` reduces it), each
-request on its own key namespace of one shared tier device and retired
-when done.  Reports tier traffic, the KV compression ratio, the implied
+:class:`ServeEngine` at full model width (``--smoke`` reduces it), for
+any decoder fed tokens: the token decoders, falcon-mamba-7b and
+zamba2-7b (whose recurrent state pages nothing to the tier); the
+encoder-only and frontend models are refused.  Each request takes
+its own key namespace of one shared tier device and is retired when
+done.  Reports tier traffic, the KV compression ratio, the implied
 tok/s ceiling and the wall-clock rate.  ``--streams N`` serves each
 request as N sequences decoding round-robin on one tier queue
 (:class:`MultiStreamEngine`).
@@ -31,8 +34,12 @@ Usage (on a machine with an NVIDIA GPU):
       --shards 4 --placement hash-stripe
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch deepseek-v2-lite-16b --prompt-len 512 --tokens 64 --requests 1
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch falcon-mamba-7b --prompt-len 512 --tokens 64 --requests 1
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --cpu \\
       --prompt-len 64 --tokens 8 --hbm-kv-budget 16384
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --cpu \\
+      --arch zamba2-7b --prompt-len 80 --tokens 8
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --cpu \\
       --arch deepseek-v2-lite-16b --prompt-len 192 --tokens 8 \\
       --hbm-kv-budget 8192
@@ -62,6 +69,20 @@ from ..runtime import (
     DEFAULT_DEGRADE_LADDER, LOSSLESS_POLICY, PAPER_POLICY, MultiStreamEngine,
     ServeEngine, ServeScheduler,
 )
+from ..runtime.serving import check_servable
+
+
+def arch_config(arch: str, smoke: bool = False,
+                n_layers: Optional[int] = None):
+    """``arch``'s config, at smoke width with ``smoke``, its depth cut to
+    ``n_layers`` if given; refused unless the engine can serve it."""
+    cfg = ARCHS[arch]
+    if smoke:
+        cfg = smoke_config(cfg)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    check_servable(cfg)
+    return cfg
 
 
 def parse_degrade_ladder(spec: str):
@@ -125,6 +146,7 @@ def serve(
     placement: Optional[str] = None,
     sanitize: Optional[bool] = None,
     seed: int = 0,
+    n_layers: Optional[int] = None,
     torch_device=None,
     params=None,
     verbose: bool = True,
@@ -134,11 +156,10 @@ def serve(
     prompts decoding round-robin on one tier queue.  ``device`` names the
     tier kind (``shards`` > 1: a fleet of them under ``placement``);
     ``torch_device`` is where the model and kernels run (default: the
-    card).  ``params`` overrides the seeded random init."""
+    card).  ``n_layers`` cuts the model's depth (its widths stay);
+    ``params`` overrides the seeded random init."""
     dev = devices.resolve(torch_device)
-    cfg = ARCHS[arch]
-    if smoke:
-        cfg = smoke_config(cfg)
+    cfg = arch_config(arch, smoke, n_layers)
     if params is None:
         params = init_params(cfg, seed=seed, device=dev)
     policy = LOSSLESS_POLICY if lossless_only else PAPER_POLICY
@@ -257,9 +278,7 @@ def serve_continuous(
     throughput and latency percentiles.  Returns ``(scheduler, report)``;
     the other arguments are as for :func:`serve`."""
     dev = devices.resolve(torch_device)
-    cfg = ARCHS[arch]
-    if smoke:
-        cfg = smoke_config(cfg)
+    cfg = arch_config(arch, smoke)
     if params is None:
         params = init_params(cfg, seed=seed, device=dev)
     policy = LOSSLESS_POLICY if lossless_only else PAPER_POLICY

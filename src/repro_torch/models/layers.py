@@ -1,6 +1,8 @@
-"""Model building blocks of the token decoders: RMSNorm / LayerNorm,
-RoPE, GQA and MLA attention, the SwiGLU / squared-ReLU / GELU MLPs and
-the top-k MoE with shared experts, as functions on tensors.
+"""Model building blocks: RMSNorm / LayerNorm, RoPE, GQA attention
+(causal or bidirectional, sliding-window, over a linear or a rolling
+cache) and MLA attention, the SwiGLU / squared-ReLU / GELU MLPs, the
+top-k MoE with shared experts, and the Mamba1 / Mamba2 mixers with their
+depthwise causal conv, as functions on tensors.
 
 Numerics follow the reference's bf16 graph op for op (f32 norm
 statistics, f32 rotary angles, f32 attention scores and softmax, bf16
@@ -74,23 +76,34 @@ def _scale(q) -> float:
     return float(_const(q.shape[-1] ** -0.5, q))
 
 
-def attention(q, k, v, *, q_positions, kv_valid_len: Optional[int] = None,
+def attention(q, k, v, *, q_positions, causal: bool = True, window: int = 0,
+              k_positions=None, kv_valid_len: Optional[int] = None,
               q_chunk: int = 0):
-    """Causal GQA attention over a cache (plain PyTorch; the prefill path).
+    """GQA attention (plain PyTorch; the prefill path and every
+    rolling-window or bidirectional one).
 
-    q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) with H % KV == 0; cache slot
-    ``t`` sits at position ``t``.  ``kv_valid_len`` masks slots at or past
-    it; ``q_chunk`` > 0 processes query chunks to bound score memory.
+    q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) with H % KV == 0.  Key ``t``
+    sits at ``k_positions[:, t]`` (default: position ``t``).  ``causal``
+    masks keys after the query, ``window`` > 0 keys at or more than
+    ``window`` positions before it, ``kv_valid_len`` slots at or past it;
+    ``q_chunk`` > 0 processes query chunks to bound score memory.
     """
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     qg = (q.float() * _scale(q)).reshape(B, Sq, KV, H // KV, hd)
-    k_pos = torch.arange(Sk, device=q.device)
+    if k_positions is None:
+        k_positions = torch.arange(Sk, device=q.device)[None]
+    k_pos = k_positions[:, None, None, None, :]
     kf, vf = k.float(), v.float()
 
     def block(qb, qpos):
         s = torch.einsum("bqgrd,bkgd->bgrqk", qb, kf)
-        m = k_pos[None, None, None, None, :] <= qpos[:, None, None, :, None]
+        qp = qpos[:, None, None, :, None]
+        m = torch.ones_like(k_pos, dtype=torch.bool)
+        if causal:
+            m = m & (k_pos <= qp)
+        if window:
+            m = m & (k_pos > qp - window)
         if kv_valid_len is not None:
             m = m & (k_pos < kv_valid_len)
         s = torch.where(m, s, torch.full_like(s, _MASKED))
@@ -107,12 +120,16 @@ def attention(q, k, v, *, q_positions, kv_valid_len: Optional[int] = None,
     return out.reshape(B, Sq, H, v.shape[-1])
 
 
-def gqa_block(x, p, cfg, *, positions, cache, cache_pos: int):
-    """norm → qkv (+bias, +rope) → cache write → attention → out proj.
+def gqa_block(x, p, cfg, *, positions, cache=None, cache_pos: int = 0,
+              window: int = 0):
+    """norm → qkv (+bias; +rope for a causal model) → attention → out proj.
 
-    ``cache`` holds this layer's ``k``/``v`` (B, Smax, KV, hd) tensors,
-    updated in place at ``cache_pos``.  One token (S == 1) attends through
-    the decode-attention kernel; a prompt (S > 1) through plain PyTorch.
+    ``cache`` None: the tokens attend to each other (``cfg.causal`` or
+    bidirectional, within ``window``).  A linear cache holds this layer's
+    ``k``/``v`` (B, Smax, KV, hd), updated in place at ``cache_pos``; one
+    token (S == 1) attends through the decode-attention kernel, a prompt
+    through plain PyTorch.  A rolling cache also holds ``kpos`` (B, W):
+    see :func:`_rolling_attention`.
     """
     B, S, _ = x.shape
     H, KVh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -120,31 +137,69 @@ def gqa_block(x, p, cfg, *, positions, cache, cache_pos: int):
     q, k, v = h @ p["wq"], h @ p["wk"], h @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = rope(q.reshape(B, S, H, hd), positions, cfg.rope_theta)
-    k = rope(k.reshape(B, S, KVh, hd), positions, cfg.rope_theta)
+    q, k = q.reshape(B, S, H, hd), k.reshape(B, S, KVh, hd)
     v = v.reshape(B, S, KVh, hd)
-    kc, vc = cache["k"], cache["v"]
-    kc[:, cache_pos : cache_pos + S] = k.to(kc.dtype)
-    vc[:, cache_pos : cache_pos + S] = v.to(vc.dtype)
-    if S == 1:
-        o = decode_attention(q[:, 0].contiguous(), kc, vc,
-                             valid_len=cache_pos + 1, scale=_scale(q))
-        out = o.to(q.dtype)
+    if cfg.causal:                  # RoPE only for decoder families
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    chunk = 256 if S > 1024 else 0
+    if cache is None:
+        out = attention(q, k, v, q_positions=positions, causal=cfg.causal,
+                        window=window, q_chunk=chunk)
+    elif "kpos" in cache:
+        out = _rolling_attention(q, k, v, cache, positions, window, chunk)
     else:
-        out = attention(q, kc.to(k.dtype), vc.to(v.dtype),
-                        q_positions=positions, kv_valid_len=cache_pos + S,
-                        q_chunk=256 if S > 1024 else 0)
+        kc, vc = cache["k"], cache["v"]
+        kc[:, cache_pos : cache_pos + S] = k.to(kc.dtype)
+        vc[:, cache_pos : cache_pos + S] = v.to(vc.dtype)
+        if S == 1:
+            o = decode_attention(q[:, 0].contiguous(), kc, vc,
+                                 valid_len=cache_pos + 1, scale=_scale(q))
+            out = o.to(q.dtype)
+        else:
+            out = attention(q, kc.to(k.dtype), vc.to(v.dtype),
+                            q_positions=positions, window=window,
+                            kv_valid_len=cache_pos + S, q_chunk=chunk)
     return out.reshape(B, S, H * hd) @ p["wo"]
 
 
-def mla_block(x, p, cfg, *, positions, cache, cache_pos: int):
+def _rolling_attention(q, k, v, cache, positions, window: int, chunk: int):
+    """Attention over a rolling-window cache, then the cache write.
+
+    The cache's ``k``/``v`` (B, W, KV, hd) hold W slots; ``kpos`` (B, W)
+    int32 the absolute position each slot holds (a stale slot holds one
+    the window always excludes).  The new tokens at ``positions`` attend
+    causally within ``window`` over the cache's slots and their own
+    fresh K/V together, so a prompt's early tokens still see what its
+    later ones overwrite; then position ``t`` takes slot ``t % W`` and
+    every written slot records its position (a prompt longer than W
+    leaves its last W tokens).  Always plain PyTorch: the decode kernel
+    has no per-slot position mask.
+    """
+    kc, vc, kpos = cache["k"], cache["v"], cache["kpos"]
+    W, S = kc.shape[1], k.shape[1]
+    keys = torch.cat([kc.to(k.dtype), k], dim=1)
+    vals = torch.cat([vc.to(v.dtype), v], dim=1)
+    kp = torch.cat([kpos, positions.to(kpos.dtype)], dim=1)
+    out = attention(q, keys, vals, q_positions=positions, window=window,
+                    k_positions=kp, q_chunk=chunk)
+    keep = min(S, W)
+    slots = positions[0, S - keep:].long() % W
+    kc[:, slots] = k[:, S - keep:].to(kc.dtype)
+    vc[:, slots] = v[:, S - keep:].to(vc.dtype)
+    kpos[:, slots] = positions[:, S - keep:].to(kpos.dtype)
+    return out
+
+
+def mla_block(x, p, cfg, *, positions, cache=None, cache_pos: int = 0):
     """DeepSeek-V2 multi-head latent attention over a latent cache.
 
     The cache holds this layer's ``c_kv`` (B, Smax, kv_lora_rank) latent
     and shared rope key ``k_rope`` (B, Smax, 1, qk_rope_dim), written in
     place at ``cache_pos``; K and V are re-expanded from the whole latent
     cache every step and attended in plain PyTorch (K is hd + rd wide, V
-    ``v_head_dim``), as the reference does.
+    ``v_head_dim``), as the reference does.  ``cache`` None: the tokens'
+    own latents, causally.
     """
     B, S, _ = x.shape
     H, hd, r = cfg.n_heads, cfg.hd, cfg.kv_lora_rank
@@ -155,17 +210,21 @@ def mla_block(x, p, cfg, *, positions, cache, cache_pos: int):
     ckv_full = h @ p["w_dkv"]                              # (B, S, r + rd)
     c_kv = rmsnorm(ckv_full[..., :r], p["kv_norm"]["scale"])
     k_rope = rope(ckv_full[..., None, r:], positions, cfg.rope_theta)
-    cc, kc = cache["c_kv"], cache["k_rope"]
-    cc[:, cache_pos : cache_pos + S] = c_kv.to(cc.dtype)
-    kc[:, cache_pos : cache_pos + S] = k_rope.to(kc.dtype)
-    c_all, k_rope_all = cc.to(h.dtype), kc.to(h.dtype)
+    if cache is None:
+        c_all, k_rope_all, k_positions, valid = c_kv, k_rope, positions, None
+    else:
+        cc, kc = cache["c_kv"], cache["k_rope"]
+        cc[:, cache_pos : cache_pos + S] = c_kv.to(cc.dtype)
+        kc[:, cache_pos : cache_pos + S] = k_rope.to(kc.dtype)
+        c_all, k_rope_all = cc.to(h.dtype), kc.to(h.dtype)
+        k_positions, valid = None, cache_pos + S
     Sk = c_all.shape[1]
     k_nope = (c_all @ p["w_uk"]).reshape(B, Sk, H, hd)
     v = (c_all @ p["w_uv"]).reshape(B, Sk, H, vh)
     k = torch.cat([k_nope, k_rope_all.expand(B, Sk, H, rd)], dim=-1)
     qfull = torch.cat([q[..., :hd], q_rope], dim=-1)
     out = attention(qfull, k, v, q_positions=positions,
-                    kv_valid_len=cache_pos + S,
+                    k_positions=k_positions, kv_valid_len=valid,
                     q_chunk=256 if S > 1024 else 0)
     return out.reshape(B, S, H * vh) @ p["wo"]
 
@@ -274,3 +333,122 @@ def moe_block(x, p, cfg):
     if cfg.n_shared_experts:
         out = out + mlp_apply(h, p["shared"], cfg.mlp)
     return out
+
+
+def softplus(a):
+    """``jax.nn.softplus`` as the reference computes it, ``logaddexp(a,
+    0)`` = max(a, 0) + log1p(exp(-|a|)), in a's dtype (f32 on the mixers'
+    path).  ``F.softplus`` takes ``log1p(exp(a))`` below its threshold of
+    20 and the identity above: in f32 the two forms agree to an ulp or
+    two, and the port keeps the reference's."""
+    return a.clamp_min(0) + torch.log1p(torch.exp(-a.abs()))
+
+
+def causal_conv1d(x, w, b, state=None):
+    """Depthwise causal conv: x (B, S, C), kernel w (C, K), bias b (C,).
+    ``state`` (B, K-1, C) holds the K-1 inputs before x (zeros if None).
+
+    ``y[t] = sum_j xin[t + j] * w[:, j]`` over the inputs with the state
+    in front, as K shifted products accumulated in f32 and rounded to x's
+    dtype once (as XLA's grouped conv rounds), then the bias added in
+    x's dtype.  Returns ``(y, the last K-1 inputs)``: the next state."""
+    B, S, C = x.shape
+    K = w.shape[-1]
+    head = (x.new_zeros(B, K - 1, C) if state is None
+            else state.to(x.dtype))
+    xin = torch.cat([head, x], dim=1)
+    xf, wf = xin.float(), w.float()
+    acc = xf[:, :S] * wf[:, 0]
+    for j in range(1, K):
+        acc = torch.addcmul(acc, xf[:, j : j + S], wf[:, j])
+    return acc.to(x.dtype) + b, xin[:, S:]
+
+
+def _scan(dA, dBx, C, h, heads: bool):
+    """The selective scan, one step a token as the reference's
+    ``lax.scan``: ``h = dA_t * h + dBx_t`` then ``y_t = h . C_t`` over the
+    state's last axis, in f32.  Mamba1: h (B, di, N), dA / dBx (B, S, di,
+    N); Mamba2 (``heads``): h (B, Hm, P, N), dA (B, S, Hm), dBx (B, S,
+    Hm, P, N).  C (B, S, N) f32.  Returns ``(ys (B, S, ...), h)``."""
+    B, S = dBx.shape[:2]
+    ys = []
+    for t in range(S):
+        a = dA[:, t, :, None, None] if heads else dA[:, t]
+        h = torch.addcmul(dBx[:, t], a, h)
+        y = torch.bmm(h.reshape(B, -1, h.shape[-1]), C[:, t, :, None])
+        ys.append(y.reshape(h.shape[:-1]))
+    return torch.stack(ys, 1), h
+
+
+def _write_state(state, conv, h):
+    """A decode step's new conv inputs and f32 scan state, in place."""
+    state["conv"].copy_(conv.to(state["conv"].dtype))
+    state["ssm"].copy_(h)
+
+
+def mamba1_mix(x, p, cfg, state=None):
+    """Mamba1 mixer (falcon-mamba): in_proj → conv → SiLU → x_proj →
+    softplus dt → the f32 selective scan over (d_inner, N) → D skip →
+    SiLU(z) gate → out_proj.  x (B, S, d) bf16 → (B, S, d).
+
+    ``state``: this layer's ``conv`` (B, K-1, d_inner) and f32 ``ssm``
+    (B, d_inner, N), read as the state before x and overwritten with the
+    state after it; None starts from zeros and keeps nothing.  dtypes
+    follow the reference op for op: bf16 projections, dt promoted to f32
+    by the f32 ``dt_bias``, dA / dBx and the scan in f32, y back to bf16
+    before the skip and the gate."""
+    B, S, d = x.shape
+    di, N = cfg.d_inner, cfg.ssm_state
+    r = max(d // 16, 1)
+    xz = x @ p["in_proj"]
+    xs, z = xz[..., :di], xz[..., di:]
+    xs, conv = causal_conv1d(xs, p["conv_w"], p["conv_b"],
+                             None if state is None else state["conv"])
+    xs = silu(xs)
+    xdbc = xs @ p["x_proj"]                       # (B, S, r + 2N)
+    dt = softplus(xdbc[..., :r] @ p["dt_proj"] + p["dt_bias"])   # f32
+    Bm, Cm = xdbc[..., r : r + N], xdbc[..., r + N :]
+    A = -torch.exp(p["A_log"].float())            # (di, N)
+    dA = torch.exp(dt[..., None] * A)             # (B, S, di, N)
+    dBx = (dt * xs)[..., None] * Bm[:, :, None, :].float()
+    h0 = (x.new_zeros(B, di, N, dtype=torch.float32) if state is None
+          else state["ssm"].float())
+    ys, h = _scan(dA, dBx, Cm.float(), h0, heads=False)
+    y = ys.to(x.dtype) + xs * p["D"]
+    y = y * silu(z)
+    if state is not None:
+        _write_state(state, conv, h)
+    return y @ p["out_proj"]
+
+
+def mamba2_mix(x, p, cfg, state=None):
+    """Mamba2 mixer (zamba2's backbone; the SSD recurrence in scan form,
+    as the reference runs it): one in_proj split into z / x / B / C /
+    dt, a conv over x‖B‖C → SiLU, softplus dt per head, the f32 scan over
+    (heads, P, N) → D skip → a gated rmsnorm → out_proj.  x (B, S, d)
+    bf16 → (B, S, d).  ``state``: ``conv`` (B, K-1, d_inner + 2N) and
+    f32 ``ssm`` (B, heads, P, N), as for :func:`mamba1_mix`."""
+    B, S, d = x.shape
+    di, N = cfg.d_inner, cfg.ssm_state
+    Hm = cfg.ssm_heads or max(di // 64, 1)
+    P = di // Hm
+    proj = x @ p["in_proj"]                       # (B, S, 2di + 2N + Hm)
+    z = proj[..., :di]
+    dt = softplus(proj[..., 2 * di + 2 * N :] + p["dt_bias"])    # f32
+    conv_out, conv = causal_conv1d(proj[..., di : 2 * di + 2 * N],
+                                   p["conv_w"], p["conv_b"],
+                                   None if state is None else state["conv"])
+    conv_out = silu(conv_out)
+    xs = conv_out[..., :di].reshape(B, S, Hm, P)
+    Bm, Cm = conv_out[..., di : di + N], conv_out[..., di + N :]
+    A = -torch.exp(p["A_log"].float())            # (Hm,)
+    dA = torch.exp(dt * A)                        # (B, S, Hm)
+    dBx = (dt[..., None] * xs)[..., None] * Bm[:, :, None, None, :].float()
+    h0 = (x.new_zeros(B, Hm, P, N, dtype=torch.float32) if state is None
+          else state["ssm"].float())
+    ys, h = _scan(dA, dBx, Cm.float(), h0, heads=True)
+    y = ys.to(x.dtype) + xs * p["D"][:, None]
+    y = rmsnorm(y.reshape(B, S, di) * silu(z), p["norm_gated"]["scale"])
+    if state is not None:
+        _write_state(state, conv, h)
+    return y @ p["out_proj"]

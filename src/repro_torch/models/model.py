@@ -1,16 +1,20 @@
-"""Token decoders (dense GQA, MLA, MoE with shared experts and leading
-dense layers): parameter layout, seeded init, conversion from the
-reference's parameters, forward (prefill and decode) and the KV cache.
+"""Every model family of the reference — the token decoders (dense GQA,
+MLA, MoE with shared experts and leading dense layers), Mamba1
+(falcon-mamba), the Mamba2 hybrid with its one shared attention block
+(zamba2), the encoder-only model (hubert) and the embeds-fed frontends
+(llava): parameter layout, seeded init, conversion from the reference's
+parameters, forward (with or without a cache) and the decode-time cache.
 
 Parameters are a nested dict of tensors in the reference's layout, with
 per-layer weights stacked on a leading ``layers`` axis, so
 :func:`params_from_jax` is a leaf-by-leaf conversion.  Forward runs the
-layer loop in Python (PyTorch is eager; the reference scans).
+layer loop in Python (PyTorch is eager; the reference scans).  Training
+is not ported yet (ROADMAP.md Queue 1 item 7).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -21,19 +25,16 @@ from . import layers as L
 
 DTYPE = torch.bfloat16
 KV_DTYPES = {"bfloat16": torch.bfloat16, "float8_e4m3fn": torch.float8_e4m3fn}
+# init kinds whose leaves stay f32, as the reference's abstract_params says
+F32_INITS = ("a_log", "a_log2", "dt_bias")
 
 Device = Union[str, torch.device, None]
 
 
-def check_ported(cfg: ArchConfig):
-    """Raise ``NotImplementedError`` for a family the port does not serve
-    yet: SSM, hybrid, encoder-only and non-token (vision / audio
-    frontend) models.  Dense GQA, MLA and MoE token decoders pass."""
-    if (cfg.ssm or cfg.family in ("ssm", "hybrid") or not cfg.causal
-            or not cfg.uses_tokens):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            "(ROADMAP.md Queue 1 lists what is left)")
+def leaf_dtype(init: str) -> torch.dtype:
+    """A parameter's dtype from its init kind: the SSMs' ``A_log`` and
+    ``dt_bias`` are f32, every other leaf bf16."""
+    return torch.float32 if init in F32_INITS else DTYPE
 
 
 def cfg_layers(cfg: ArchConfig) -> int:
@@ -111,19 +112,83 @@ def _block_specs(cfg, n, moe: bool):
     return block
 
 
-def schema(cfg: ArchConfig) -> Dict[str, object]:
-    """Nested dict of ``(shape, init)`` leaves: ``"normal"`` (scaled by
-    1/sqrt(shape[-2])) or ``"zeros"`` — the reference's schema for the
-    token decoders: ``layers`` stacks every layer but the ``first_dense``
-    leading ones, which ``dense0`` stacks with a dense MLP."""
-    check_ported(cfg)
-    d, V = cfg.d_model, cfg.vocab
-    s: Dict[str, object] = {
-        "embed": ((V, d), "normal"),
-        "layers": _block_specs(cfg, cfg_layers(cfg), bool(cfg.n_experts)),
+def _mamba1_specs(cfg):
+    n, d, di, N, K = (cfg.n_layers, cfg.d_model, cfg.d_inner,
+                      cfg.ssm_state, cfg.d_conv)
+    r = max(d // 16, 1)
+    return {
+        "norm": {"scale": ((n, d), "zeros")},
+        "in_proj": ((n, d, 2 * di), "normal"),
+        "conv_w": ((n, di, K), "normal"),
+        "conv_b": ((n, di), "zeros"),
+        "x_proj": ((n, di, r + 2 * N), "normal"),
+        "dt_proj": ((n, r, di), "normal"),
+        "dt_bias": ((n, di), "dt_bias"),
+        "A_log": ((n, di, N), "a_log"),
+        "D": ((n, di), "ones"),
+        "out_proj": ((n, di, d), "normal"),
     }
-    if cfg.first_dense:
-        s["dense0"] = _block_specs(cfg, cfg.first_dense, False)
+
+
+def ssm_heads(cfg: ArchConfig) -> int:
+    """Mamba2 heads (the reference's default when the config names none)."""
+    return cfg.ssm_heads or max(cfg.d_inner // 64, 1)
+
+
+def _mamba2_specs(cfg):
+    n, d, di, N, K = (cfg.n_layers, cfg.d_model, cfg.d_inner,
+                      cfg.ssm_state, cfg.d_conv)
+    Hm = ssm_heads(cfg)
+    return {
+        "norm": {"scale": ((n, d), "zeros")},
+        "in_proj": ((n, d, 2 * di + 2 * N + Hm), "normal"),
+        "conv_w": ((n, di + 2 * N, K), "normal"),
+        "conv_b": ((n, di + 2 * N), "zeros"),
+        "dt_bias": ((n, Hm), "dt_bias"),
+        "A_log": ((n, Hm), "a_log2"),
+        "D": ((n, Hm), "ones"),
+        "norm_gated": {"scale": ((n, di), "zeros")},
+        "out_proj": ((n, di, d), "normal"),
+    }
+
+
+def _shared_block_specs(cfg):
+    """zamba2's one shared attention + MLP block (unstacked; rmsnorm, no
+    biases, as the reference's)."""
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    mlp = {"norm": {"scale": ((d,), "zeros")}, **_ffn_specs(cfg, (), cfg.d_ff)}
+    return {
+        "attn": {"norm": {"scale": ((d,), "zeros")},
+                 "wq": ((d, H * hd), "normal"),
+                 "wk": ((d, KV * hd), "normal"),
+                 "wv": ((d, KV * hd), "normal"),
+                 "wo": ((H * hd, d), "normal")},
+        "mlp": mlp,
+    }
+
+
+def schema(cfg: ArchConfig) -> Dict[str, object]:
+    """Nested dict of ``(shape, init)`` leaves — the reference's schema.
+    Inits: ``"normal"`` (scaled by 1/sqrt(shape[-2])), ``"zeros"``,
+    ``"ones"``, and the SSMs' f32 ``"a_log"`` / ``"a_log2"`` /
+    ``"dt_bias"`` (:func:`leaf_dtype`).  ``embed`` only for a token
+    model; ``layers`` stacks the Mamba1 or Mamba2 blocks, or every
+    transformer layer but the ``first_dense`` leading ones, which
+    ``dense0`` stacks with a dense MLP; ``shared`` is the hybrid's one
+    attention block."""
+    d, V = cfg.d_model, cfg.vocab
+    s: Dict[str, object] = {}
+    if cfg.uses_tokens:
+        s["embed"] = ((V, d), "normal")
+    if cfg.ssm == "mamba1":
+        s["layers"] = _mamba1_specs(cfg)
+    elif cfg.family == "hybrid":
+        s["layers"] = _mamba2_specs(cfg)
+        s["shared"] = _shared_block_specs(cfg)
+    else:
+        s["layers"] = _block_specs(cfg, cfg_layers(cfg), bool(cfg.n_experts))
+        if cfg.first_dense:
+            s["dense0"] = _block_specs(cfg, cfg.first_dense, False)
     s["final_norm"] = _norm_spec(cfg, ())
     if not cfg.tie_embeddings:
         s["lm_head"] = ((d, V), "normal")
@@ -136,29 +201,44 @@ def _map(tree, fn, path=()):
     return fn(path, tree)
 
 
+def _init_leaf(shape, init, gen, dev):
+    f32 = dict(dtype=torch.float32, device=dev)
+    if init == "zeros":
+        return torch.zeros(shape, dtype=DTYPE, device=dev)
+    if init == "ones":
+        return torch.ones(shape, dtype=DTYPE, device=dev)
+    if init == "a_log":             # mamba1: A = -(1..N) per channel
+        a = torch.arange(1, shape[-1] + 1, **f32)
+        return torch.log(a).expand(shape).contiguous()
+    if init == "a_log2":            # mamba2: one A a head, in [1, 16)
+        u = torch.rand(shape, generator=gen, **f32)
+        return torch.log(u.mul_(15.0).add_(1.0))
+    if init == "dt_bias":           # softplus^-1 of dt in [1e-3, 0.1)
+        u = torch.rand(shape, generator=gen, **f32)
+        lo, hi = np.log(1e-3), np.log(0.1)
+        return torch.log(torch.expm1(torch.exp(u.mul_(hi - lo).add_(lo))))
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    w = torch.randn(shape, generator=gen, **f32)
+    return w.mul_(1.0 / np.sqrt(fan_in)).to(DTYPE)
+
+
 def init_params(cfg: ArchConfig, seed: int = 0, device: Device = None) -> dict:
     """Random parameters from ``seed`` on ``device`` (default: the card),
-    drawn by a ``torch.Generator`` on that device.  Weights are normal
-    with std 1/sqrt(fan_in), norm scales and biases zero, all bf16."""
+    drawn leaf by leaf by a ``torch.Generator`` on that device.  Weights
+    are normal with std 1/sqrt(fan_in), norm scales and biases zero, the
+    SSMs' ``D`` one, all bf16; ``A_log`` (log 1..N, or log of a uniform
+    draw in [1, 16) a head) and ``dt_bias`` (softplus^-1 of a log-uniform
+    dt in [1e-3, 0.1)) f32, as the reference draws them."""
     dev = devices.resolve(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-
-    def leaf(path, spec):
-        shape, init = spec
-        if init == "zeros":
-            return torch.zeros(shape, dtype=DTYPE, device=dev)
-        fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-        w = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
-        return w.mul_(1.0 / np.sqrt(fan_in)).to(DTYPE)
-
-    return _map(schema(cfg), leaf)
+    return _map(schema(cfg), lambda path, spec: _init_leaf(*spec, gen, dev))
 
 
 def params_from_jax(cfg: ArchConfig, tree: dict, device: Device = None) -> dict:
     """Convert the reference's ``init_params`` output, given as a nested
     dict of numpy arrays, into the port's parameters on ``device``.
     Shapes are checked against :func:`schema`; bf16 arrays are moved bit
-    for bit."""
+    for bit, and the f32 leaves (:data:`F32_INITS`) stay f32."""
     dev = devices.resolve(device)
 
     def leaf(path, spec):
@@ -171,31 +251,73 @@ def params_from_jax(cfg: ArchConfig, tree: dict, device: Device = None) -> dict:
         if tuple(arr.shape) != tuple(spec[0]):
             raise ValueError(f"parameter {'.'.join(path)}: shape "
                              f"{arr.shape} != {spec[0]}")
-        if arr.dtype.name == "bfloat16":
+        dtype = leaf_dtype(spec[1])
+        if dtype == DTYPE and arr.dtype.name == "bfloat16":
             t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16).copy())
             t = t.view(torch.bfloat16)
         else:
-            t = torch.from_numpy(np.array(arr, dtype=np.float32)).to(DTYPE)
+            t = torch.from_numpy(np.array(arr, dtype=np.float32)).to(dtype)
         return t.to(dev)
 
     return _map(schema(cfg), leaf)
 
 
-def cache_spec(cfg: ArchConfig, batch: int, max_seq: int
-               ) -> Dict[str, Dict[str, tuple]]:
-    """Shapes of the decode-time cache, nothing allocated: ``layers``
-    holds the stacked layers' ``k``/``v`` (n, batch, max_seq, kv_heads,
-    hd), or for MLA their ``c_kv`` latent (n, batch, max_seq,
-    kv_lora_rank) and ``k_rope`` (n, batch, max_seq, 1, qk_rope_dim);
-    ``dense0`` the same for the leading dense layers."""
-    check_ported(cfg)
+class CacheLeaf(NamedTuple):
+    """One cache tensor: its shape, dtype and fill value."""
+
+    shape: tuple
+    dtype: torch.dtype
+    fill: int = 0
+
+
+def cache_spec(cfg: ArchConfig, batch: int, max_seq: int,
+               dtype: Optional[torch.dtype] = None) -> Dict[str, object]:
+    """The decode-time cache as nested :class:`CacheLeaf` s, nothing
+    allocated; KV leaves in ``dtype`` (default ``cfg.kv_dtype``).
+
+    * token decoders: ``layers`` holds the stacked layers' ``k``/``v``
+      (n, batch, max_seq, kv_heads, hd), or for MLA their ``c_kv`` latent
+      (n, batch, max_seq, kv_lora_rank) and ``k_rope`` (n, batch,
+      max_seq, 1, qk_rope_dim); ``dense0`` the same for the leading dense
+      layers;
+    * Mamba1: ``layers``' ``conv`` (n, batch, K-1, d_inner) in ``dtype``
+      and ``ssm`` (n, batch, d_inner, N) f32;
+    * the hybrid: ``layers``' ``conv`` (…, d_inner + 2N) and ``ssm`` (n,
+      batch, heads, P, N) f32, and per shared-block application its
+      rolling window of W = min(window or max_seq, max_seq) slots:
+      ``attn_k`` / ``attn_v`` (apps, batch, W, kv_heads, hd) and
+      ``attn_pos`` (apps, batch, W) int32, filled with -2 * window (a
+      position every window excludes)."""
+    dtype = dtype or KV_DTYPES[cfg.kv_dtype]
+    f32 = torch.float32
+    di, N, K = cfg.d_inner, cfg.ssm_state, cfg.d_conv
+    if cfg.ssm == "mamba1":
+        return {"layers": {
+            "conv": CacheLeaf((cfg.n_layers, batch, K - 1, di), dtype),
+            "ssm": CacheLeaf((cfg.n_layers, batch, di, N), f32)}}
+    if cfg.family == "hybrid":
+        Hm = ssm_heads(cfg)
+        W = min(cfg.window or max_seq, max_seq)
+        apps = cfg.n_layers // cfg.attn_every
+        kv = CacheLeaf((apps, batch, W, cfg.n_kv_heads, cfg.hd), dtype)
+        return {
+            "layers": {
+                "conv": CacheLeaf((cfg.n_layers, batch, K - 1, di + 2 * N),
+                                  dtype),
+                "ssm": CacheLeaf((cfg.n_layers, batch, Hm, di // Hm, N), f32)},
+            "attn_k": kv, "attn_v": kv,
+            "attn_pos": CacheLeaf((apps, batch, W), torch.int32,
+                                  -2 * (cfg.window or 1)),
+        }
 
     def kinds(n):
         if cfg.mla:
-            return {"c_kv": (n, batch, max_seq, cfg.kv_lora_rank),
-                    "k_rope": (n, batch, max_seq, 1, cfg.qk_rope_dim)}
-        shape = (n, batch, max_seq, cfg.n_kv_heads, cfg.hd)
-        return {"k": shape, "v": shape}
+            return {"c_kv": CacheLeaf((n, batch, max_seq, cfg.kv_lora_rank),
+                                      dtype),
+                    "k_rope": CacheLeaf((n, batch, max_seq, 1,
+                                         cfg.qk_rope_dim), dtype)}
+        leaf = CacheLeaf((n, batch, max_seq, cfg.n_kv_heads, cfg.hd), dtype)
+        return {"k": leaf, "v": leaf}
 
     spec = {"layers": kinds(cfg_layers(cfg))}
     if cfg.first_dense:
@@ -206,13 +328,16 @@ def cache_spec(cfg: ArchConfig, batch: int, max_seq: int
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                device: Device = None, dtype: Optional[torch.dtype] = None
                ) -> dict:
-    """Zeroed decode-time cache of :func:`cache_spec`'s shapes in
-    ``cfg.kv_dtype`` (bf16 or fp8-e4m3) on ``device``."""
+    """The decode-time cache of :func:`cache_spec` on ``device``, each
+    leaf filled with its fill value."""
     dev = devices.resolve(device)
-    dtype = dtype or KV_DTYPES[cfg.kv_dtype]
-    return {part: {kind: torch.zeros(shape, dtype=dtype, device=dev)
-                   for kind, shape in kinds.items()}
-            for part, kinds in cache_spec(cfg, batch, max_seq).items()}
+
+    def alloc(leaf):
+        if isinstance(leaf, dict):
+            return {k: alloc(v) for k, v in leaf.items()}
+        return torch.full(leaf.shape, leaf.fill, dtype=leaf.dtype, device=dev)
+
+    return alloc(cache_spec(cfg, batch, max_seq, dtype))
 
 
 def _layer(tree, i):
@@ -221,8 +346,8 @@ def _layer(tree, i):
 
 
 def _block(cfg, p, x, *, positions, cache, cache_pos):
-    """One decoder layer: MLA or GQA attention, then the MoE or the MLP,
-    each as a residual."""
+    """One decoder (or encoder) layer: MLA or GQA attention, then the MoE
+    or the MLP, each as a residual."""
     attn = L.mla_block if cfg.mla else L.gqa_block
     x = x + attn(x, p["attn"], cfg, positions=positions, cache=cache,
                  cache_pos=cache_pos)
@@ -231,33 +356,104 @@ def _block(cfg, p, x, *, positions, cache, cache_pos):
     return x + L.mlp_block(x, p["mlp"], cfg)
 
 
-def forward(cfg: ArchConfig, params: dict, batch: dict,
-            cache: dict) -> Tuple[torch.Tensor, dict]:
-    """``batch``: ``tokens`` (B, S) int and ``cache_pos`` (int, the cache
-    position of the first token).  Runs the ``dense0`` layers, then the
-    stacked ones, writing the tokens' KV into ``cache`` in place, and
-    returns ``(logits (B, S, vocab) bf16, cache)``."""
-    tokens = batch["tokens"]
-    cache_pos = int(batch["cache_pos"])
-    B, S = tokens.shape
-    x = params["embed"][tokens.long()]
-    positions = (cache_pos + torch.arange(S, device=x.device,
-                                          dtype=torch.int32))[None].expand(B, S)
-    for part in ("dense0", "layers"):
+def _forward_transformer(cfg, params, x, positions, cache, cache_pos):
+    """The ``dense0`` layers, then the stacked ones."""
+    for part, n in (("dense0", cfg.first_dense), ("layers", cfg_layers(cfg))):
         if part not in params:
             continue
-        lp, kv = params[part], cache[part]
-        for i in range(next(iter(kv.values())).shape[0]):
-            x = _block(cfg, _layer(lp, i), x, positions=positions,
-                       cache={k: v[i] for k, v in kv.items()},
+        lp = params[part]
+        for i in range(n):
+            c = None if cache is None else {k: v[i] for k, v in
+                                            cache[part].items()}
+            x = _block(cfg, _layer(lp, i), x, positions=positions, cache=c,
                        cache_pos=cache_pos)
+    return x
+
+
+def _forward_mamba(cfg, params, x, cache):
+    """Mamba1: a residual mixer a layer, each with its layer's state."""
+    for i in range(cfg.n_layers):
+        p = _layer(params["layers"], i)
+        st = None if cache is None else _layer(cache["layers"], i)
+        x = x + L.mamba1_mix(L.norm(x, p["norm"], cfg.norm), p, cfg, st)
+    return x
+
+
+def shared_applications(cfg: ArchConfig):
+    """The hybrid's shared-block applications as ``(layer, app)`` pairs:
+    after Mamba2 layer ``i`` where ``i % attn_every == 0`` and ``i //
+    attn_every`` < ``n_layers // attn_every``, with cache slot ``app = i
+    // attn_every`` (zamba2: 13 over 81 layers, at 0, 6, …, 72)."""
+    every = cfg.attn_every
+    apps = cfg.n_layers // every
+    return [(i, i // every) for i in range(cfg.n_layers)
+            if i % every == 0 and i // every < apps]
+
+
+def _forward_hybrid(cfg, params, x, positions, cache):
+    """zamba2: the Mamba2 layers, and after each application layer the one
+    shared attention + MLP block, windowed, over its own application's
+    rolling cache."""
+    shared = params["shared"]
+    apps = dict(shared_applications(cfg))
+    for i in range(cfg.n_layers):
+        p = _layer(params["layers"], i)
+        st = None if cache is None else _layer(cache["layers"], i)
+        x = x + L.mamba2_mix(L.norm(x, p["norm"], cfg.norm), p, cfg, st)
+        if i in apps:
+            a = apps[i]
+            c = None if cache is None else {
+                "k": cache["attn_k"][a], "v": cache["attn_v"][a],
+                "kpos": cache["attn_pos"][a]}
+            x = x + L.gqa_block(x, shared["attn"], cfg, positions=positions,
+                                cache=c, window=cfg.window)
+            x = x + L.mlp_block(x, shared["mlp"], cfg)
+    return x
+
+
+def _embed_in(cfg, params, batch):
+    """Token ids through the embedding, or a frontend model's ``embeds``
+    (B, S, d) as bf16."""
+    if cfg.uses_tokens:
+        return params["embed"][batch["tokens"].long()]
+    return batch["embeds"].to(DTYPE)
+
+
+def forward(cfg: ArchConfig, params: dict, batch: dict,
+            cache: Optional[dict] = None) -> Tuple[torch.Tensor, Optional[dict]]:
+    """``batch``: ``tokens`` (B, S) int, or ``embeds`` (B, S, d) for a
+    frontend model; with a cache also ``cache_pos`` (int, the position of
+    the first token).  Without a cache the tokens attend to each other
+    from position 0 (causally, or both ways for an encoder) and nothing
+    is kept; with one their KV (or recurrent state) is written into it in
+    place.  Returns ``(logits (B, S, vocab) bf16, cache)``."""
+    if cache is not None and not cfg.causal:
+        raise ValueError(f"{cfg.name} is encoder-only: it has no decode "
+                         "step, so its forward takes no cache")
+    x = _embed_in(cfg, params, batch)
+    B, S = x.shape[:2]
+    cache_pos = 0 if cache is None else int(batch["cache_pos"])
+    positions = (cache_pos + torch.arange(S, device=x.device,
+                                          dtype=torch.int32))[None].expand(B, S)
+    if cfg.ssm == "mamba1":
+        x = _forward_mamba(cfg, params, x, cache)
+    elif cfg.family == "hybrid":
+        x = _forward_hybrid(cfg, params, x, positions, cache)
+    else:
+        x = _forward_transformer(cfg, params, x, positions, cache, cache_pos)
     x = L.norm(x, params["final_norm"], cfg.norm)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return x @ head, cache
 
 
 def decode_step(cfg: ArchConfig, params: dict, batch: dict, cache: dict):
-    """One forward over ``batch["tokens"]`` at ``batch["cache_pos"]``
-    (a prompt or a single token) with the cache → ``(logits, cache)``."""
+    """One forward over ``batch``'s tokens (or embeds) at
+    ``batch["cache_pos"]`` (a prompt or a single token) with the cache →
+    ``(logits, cache)``.  An encoder-only model has no decode step, and
+    training is not ported yet (ROADMAP.md Queue 1 item 7)."""
+    if not cfg.causal:
+        raise ValueError(f"{cfg.name} is encoder-only: it has no decode "
+                         "step; forward(cfg, params, batch) runs it "
+                         "without a cache (training is not ported yet)")
     with torch.no_grad():
         return forward(cfg, params, batch, cache)

@@ -71,7 +71,9 @@ from .paging import (
 
 
 # KV kinds the tier pages, in commit order; the key-bearing ones carry
-# the attention masses (V pages take their K twin's)
+# the attention masses (V pages take their K twin's).  An SSM or hybrid
+# cache (conv / ssm state, the hybrid's rolling attn_k / attn_v) holds
+# none of them, so it pages nothing, as in the reference.
 PAGED_KINDS = ("k", "v", "c_kv")
 KEY_KINDS = ("k", "c_kv")
 
@@ -107,6 +109,20 @@ class ServeStats:
         )
 
 
+def check_servable(cfg: ArchConfig):
+    """Raise ``ValueError`` for a model the engine cannot serve: an
+    encoder-only one (no decode step) or one fed ``embeds`` by a modality
+    frontend (the engine feeds token ids; the reference's engine cannot
+    serve one either).  ``models.model.forward`` runs both."""
+    if cfg.is_encoder_only:
+        raise ValueError(f"{cfg.name} is encoder-only: it has no decode "
+                         "step to serve; run it with models.model.forward")
+    if not cfg.uses_tokens:
+        raise ValueError(f"{cfg.name} takes {cfg.frontend} frontend embeds, "
+                         "not tokens: the serving engine feeds token ids; "
+                         "run it with models.model.forward / decode_step")
+
+
 class ServeEngine:
     """Single-host serving of one model with paged, tiered KV, on
     ``device`` (default: the card).  ``params`` must live there.
@@ -132,15 +148,15 @@ class ServeEngine:
         importance: str = "recency",
         device: Union[str, torch.device, None] = None,
     ):
-        assert not cfg.is_encoder_only, "serving needs a decoder"
+        check_servable(cfg)
         if importance not in ("recency", "attention"):
             raise ValueError(f"unknown importance mode {importance!r}")
         if pnm_topk is not None and pnm_topk < 0:
             raise ValueError("pnm_topk must be >= 0 (or None to disable)")
         self.device = devices.resolve(device)
-        emb = params["embed"]
-        if emb.device != self.device:
-            raise ValueError(f"params live on {emb.device}, engine on "
+        where = params["final_norm"]["scale"].device
+        if where != self.device:
+            raise ValueError(f"params live on {where}, engine on "
                              f"{self.device}")
         self.cfg = cfg
         self.params = params
@@ -574,8 +590,8 @@ def _kv_bytes_per_token_b1(cfg: ArchConfig) -> int:
     layers, counted at 2 bytes an element whatever ``kv_dtype`` is, as
     the reference counts them.  One cache entry per architecture."""
     layers = cache_spec(cfg, 1, 8)["layers"]
-    return sum(shape[0] * int(np.prod(shape[3:])) * 2
-               for kind, shape in layers.items() if kind in PAGED_KINDS)
+    return sum(leaf.shape[0] * int(np.prod(leaf.shape[3:])) * 2
+               for kind, leaf in layers.items() if kind in PAGED_KINDS)
 
 
 def _kv_bytes_per_token(cfg: ArchConfig, batch: int) -> int:
@@ -758,6 +774,7 @@ class ServeScheduler:
             # looks at: a ladder could only destroy precision
             raise ValueError(
                 "degrade_ladder requires capacity_model='physical'")
+        check_servable(cfg)
         self.cfg = cfg
         self.params = params
         self.device = devices.resolve(device)

@@ -1,8 +1,12 @@
-"""Port vs reference: every token decoder the port serves, at
+"""Port vs reference: every architecture of the reference, at
 ``smoke_config`` with the reference's weights (``params_from_jax``) —
-deepseek-v2-lite-16b (MLA, MoE with a shared expert, a dense first
-layer), stablelm-12b (layernorm), qwen1.5-32b (QKV bias), grok-1-314b
-(MoE, GELU, no shared experts) and nemotron-4-340b (squared ReLU).
+the token decoders deepseek-v2-lite-16b (MLA, MoE with a shared expert,
+a dense first layer), stablelm-12b (layernorm), qwen1.5-32b (QKV bias),
+grok-1-314b (MoE, GELU, no shared experts) and nemotron-4-340b (squared
+ReLU); the encoder-only hubert-xlarge and the embeds-fed llava-next-34b;
+and every arch's parameter tree and cache layout, dtypes included
+(falcon-mamba-7b and zamba2-7b are held to the reference's numbers in
+``tests/test_torch_ssm.py`` and ``tests/test_torch_hybrid.py``).
 
 Tolerances:
 * prefill and teacher-forced decode logits against the reference's
@@ -16,7 +20,11 @@ Tolerances:
   ``tests/test_kv_dtype.py::test_fp8_cache_decode_tracks_bf16`` (a bf16
   ulp apart before the cast can be an fp8 step apart after it);
 * the MLA block: its output within 2 bf16 ulps of its largest value, the
-  written ``c_kv`` / ``k_rope`` bit-equal.
+  written ``c_kv`` / ``k_rope`` bit-equal;
+* hubert's forward and llava's forward and teacher-forced decode from
+  embeds against the reference's jitted ``forward`` / ``decode_step``:
+  atol 0.0625 and RMS 0.01; llava's decode == forward within the port:
+  rtol = atol = 0.15.
 
 The reference's compiled CPU graph keeps some bf16 products in f32 (XLA
 drops bf16 round trips), so its router logits are not always the bf16
@@ -36,7 +44,9 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import ARCHS as RARCHS  # noqa: E402
+from repro.models import abstract_params as jabstract  # noqa: E402
 from repro.models import decode_step as jdecode  # noqa: E402
+from repro.models import forward as jforward  # noqa: E402
 from repro.models import init_cache as jinit_cache  # noqa: E402
 from repro.models import layers as rlayers  # noqa: E402
 from repro_torch.configs import ARCHS, smoke_config  # noqa: E402
@@ -44,6 +54,7 @@ from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models import model as tm  # noqa: E402
 from repro_torch.runtime import ServeEngine  # noqa: E402
+from repro_torch.runtime import serving as tserving  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -60,10 +71,10 @@ pytestmark = pytest.mark.slow   # model-forward module
 
 ATOL, RMS = 0.0625, 0.01
 B, PROMPT, STEPS, MAX_SEQ = 2, 40, 12, 64
-PORTED = ["deepseek-v2-lite-16b", "stablelm-12b", "qwen1.5-32b",
-          "grok-1-314b", "nemotron-4-340b"]
-UNPORTED = ["falcon-mamba-7b", "zamba2-7b", "hubert-xlarge",
-            "llava-next-34b"]
+PORTED = sorted(ARCHS)
+DECODERS = ["deepseek-v2-lite-16b", "stablelm-12b", "qwen1.5-32b",
+            "grok-1-314b", "nemotron-4-340b"]
+FRONTENDS = ["hubert-xlarge", "llava-next-34b"]
 
 
 @pytest.fixture(scope="module")
@@ -122,7 +133,7 @@ def _margin_bound(ref, got):
     assert np.corrcoef(ref.ravel(), got.ravel())[0, 1] > 0.99
 
 
-@pytest.mark.parametrize("name", PORTED)
+@pytest.mark.parametrize("name", DECODERS)
 def test_prefill_and_decode_logits_match_reference(pairs, name):
     ref, got = _trajectories(pairs(name))
     assert np.isfinite(got).all()
@@ -130,6 +141,20 @@ def test_prefill_and_decode_logits_match_reference(pairs, name):
     assert diff.max() <= ATOL, diff.max()
     assert np.sqrt(np.mean(diff ** 2)) <= RMS
     _margin_bound(ref, got)
+
+
+@pytest.mark.parametrize("name", DECODERS)
+def test_forward_without_cache_equals_prefill(pairs, name):
+    """A forward without a cache keeps nothing and gives, bit for bit,
+    the logits of a prefill through a cache of the prompt's length: the
+    GQA and MLA blocks attend to the tokens' own K / V (or latents)."""
+    _, _, cfg, params = pairs(name)
+    toks = torch.from_numpy(_tokens(cfg, 24, seed=5))
+    full, none = tm.forward(cfg, params, {"tokens": toks})
+    pre, _ = tm.decode_step(cfg, params, {"tokens": toks, "cache_pos": 0},
+                            tm.init_cache(cfg, B, 24, device="cpu"))
+    assert none is None
+    assert torch.equal(full, pre)
 
 
 def _recording_routes(monkeypatch):
@@ -146,7 +171,7 @@ def _recording_routes(monkeypatch):
     return calls
 
 
-@pytest.mark.parametrize("name", PORTED)
+@pytest.mark.parametrize("name", DECODERS)
 def test_decode_matches_forward(pairs, name, monkeypatch):
     """Teacher-forced single-token decode reproduces the logits of one
     forward over the whole sequence (smoke capacity never drops).
@@ -258,16 +283,36 @@ def test_params_from_jax_is_bit_exact_and_checked(pairs):
     del tree["dense0"]
     with pytest.raises(KeyError, match="dense0"):
         tm.params_from_jax(tcfg, tree, device="cpu")
+    # every arch, every leaf: the reference's dtype (the SSMs' f32 A_log
+    # and dt_bias stay f32) and its bits
+    for name in PORTED:
+        _, rparams, _, tparams = pairs(name)
+        for path, want in jax.tree_util.tree_flatten_with_path(rparams)[0]:
+            got = tparams
+            for k in path:
+                got = got[k.key]
+            want = np.asarray(want)
+            assert str(got.dtype).split(".")[-1] == want.dtype.name, path
+            bits = np.int32 if want.dtype == np.float32 else np.int16
+            np.testing.assert_array_equal(
+                got.view(getattr(torch, bits.__name__)).numpy(),
+                want.view(bits))
 
 
 @pytest.mark.parametrize("name", PORTED)
 def test_schema_matches_reference_tree(pairs, name):
-    """Every leaf of the reference's parameter tree, at its shape, and no
-    other: the schema carries dense0, the MLA and MoE leaves and the
-    layernorm biases."""
+    """Every leaf of the reference's parameter tree, at its shape and
+    dtype, and no other: the schema carries dense0, the MLA and MoE
+    leaves, the layernorm biases, the Mamba1 / Mamba2 blocks with their
+    f32 ``A_log`` / ``dt_bias``, the hybrid's shared block, and no
+    ``embed`` for a frontend model."""
     rcfg, rparams, tcfg, _ = pairs(name)
-    flat = {jax.tree_util.keystr(p): tuple(a.shape)
-            for p, a in jax.tree_util.tree_flatten_with_path(rparams)[0]}
+    flat = {jax.tree_util.keystr(p): (tuple(a.shape), a.dtype.name)
+            for p, a in jax.tree_util.tree_flatten_with_path(
+                jabstract(rcfg))[0]}
+    assert flat == {jax.tree_util.keystr(p): (tuple(a.shape), a.dtype.name)
+                    for p, a in jax.tree_util.tree_flatten_with_path(
+                        rparams)[0]}
     mine = {}
 
     def walk(tree, path):
@@ -275,7 +320,8 @@ def test_schema_matches_reference_tree(pairs, name):
             if isinstance(v, dict):
                 walk(v, path + (k,))
             else:
-                mine["".join(f"['{p}']" for p in path + (k,))] = v[0]
+                dtype = str(tm.leaf_dtype(v[1])).split(".")[-1]
+                mine["".join(f"['{p}']" for p in path + (k,))] = (v[0], dtype)
     walk(tm.schema(tcfg), ())
     assert mine == flat
 
@@ -298,28 +344,103 @@ def test_seeded_init_fan_in_and_zeros():
 
 
 def test_cache_layout_matches_reference():
+    """Every arch's cache: the reference's leaves at their shapes, dtypes
+    and fill (the SSMs' f32 ``ssm``, the hybrid's int32 ``attn_pos`` at
+    -2 * window), in bf16 and fp8."""
     for name in PORTED:
-        cfg = smoke_config(ARCHS[name])
-        rc = jinit_cache(smoke_config(RARCHS[name]), 2, 48)
-        tc = tm.init_cache(cfg, 2, 48, device="cpu")
-        assert {p: {k: tuple(v.shape) for k, v in kinds.items()}
-                for p, kinds in tc.items()} == \
-            {p: {k: tuple(v.shape) for k, v in kinds.items()}
-             for p, kinds in rc.items()}, name
+        for kv in ("bfloat16", "float8_e4m3fn"):
+            cfg = dataclasses.replace(smoke_config(ARCHS[name]), kv_dtype=kv)
+            rcfg = dataclasses.replace(smoke_config(RARCHS[name]), kv_dtype=kv)
+            rc = jax.tree_util.tree_flatten_with_path(jinit_cache(rcfg, 2, 48))
+            tc = jax.tree_util.tree_flatten_with_path(
+                tm.init_cache(cfg, 2, 48, device="cpu"))
+            want = {jax.tree_util.keystr(p): (tuple(a.shape), a.dtype.name,
+                                              np.unique(np.asarray(a)
+                                                        .astype(np.float32)))
+                    for p, a in rc[0]}
+            got = {jax.tree_util.keystr(p): (tuple(t.shape),
+                                             str(t.dtype).split(".")[-1],
+                                             np.unique(t.float().numpy()))
+                   for p, t in tc[0]}
+            assert got.keys() == want.keys(), name
+            for k in got:
+                assert got[k][:2] == want[k][:2], (name, k)
+                np.testing.assert_array_equal(got[k][2], want[k][2])
 
 
-@pytest.mark.parametrize("name", UNPORTED)
-def test_unported_family_raises(name):
-    cfg = smoke_config(ARCHS[name])
-    for build in (lambda: tm.schema(cfg),
-                  lambda: tm.init_params(cfg, device="cpu"),
-                  lambda: tm.init_cache(cfg, 1, 16, device="cpu")):
-        with pytest.raises(NotImplementedError):
-            build()
-    params = tm.init_params(smoke_config(ARCHS["qwen2-0.5b"]), device="cpu")
-    if cfg.causal:
-        with pytest.raises(NotImplementedError):
-            ServeEngine(cfg, params, device="cpu")
+@pytest.mark.parametrize("name", FRONTENDS)
+def test_engines_refuse_encoder_and_frontend_models(pairs, name):
+    """The serving engine feeds token ids: an encoder-only model (no
+    decode step) or an embeds-fed one is refused with a ValueError at
+    construction, by the engine, the scheduler and the CLI's ``serve``
+    (the reference's engine fails deep inside); the model runs them."""
+    _, _, cfg, params = pairs(name)
+    with pytest.raises(ValueError, match=cfg.name):
+        ServeEngine(cfg, params, device="cpu")
+    with pytest.raises(ValueError, match=cfg.name):
+        tserving.ServeScheduler(cfg, params, device="cpu")
+    with pytest.raises(ValueError, match=cfg.name):
+        tserve.serve(arch=name, smoke=True, torch_device="cpu", params=params)
+    if not cfg.causal:
+        with pytest.raises(ValueError, match="encoder-only"):
+            tm.decode_step(cfg, params, {"embeds": torch.zeros(
+                1, 1, cfg.d_model), "cache_pos": 0},
+                tm.init_cache(cfg, 1, 8, device="cpu"))
+
+
+def _embeds(cfg, S, seed=21):
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+
+
+def test_encoder_forward_matches_reference(pairs):
+    """hubert-xlarge: bidirectional attention, no RoPE, layernorm, GELU,
+    from embeds, with no cache."""
+    rcfg, rparams, tcfg, tparams = pairs("hubert-xlarge")
+    emb = _embeds(tcfg, 48)
+    want, _, _ = jax.jit(lambda p, b: jforward(rcfg, p, b))(
+        rparams, {"embeds": jnp.asarray(emb, jnp.bfloat16)})
+    got, cache = tm.forward(tcfg, tparams, {"embeds": torch.from_numpy(emb)})
+    assert cache is None and got.shape == (B, 48, tcfg.vocab)
+    want = np.asarray(want, np.float32)
+    diff = np.abs(want - got.float().numpy())
+    assert diff.max() <= ATOL and np.sqrt(np.mean(diff ** 2)) <= RMS
+    # bidirectional: the first position sees the last
+    emb2 = emb.copy()
+    emb2[:, -1] += 1.0
+    got2, _ = tm.forward(tcfg, tparams, {"embeds": torch.from_numpy(emb2)})
+    assert not torch.equal(got2[:, 0], got[:, 0])
+
+
+def test_frontend_decode_matches_forward_and_reference(pairs):
+    """llava-next-34b from embeds: a prompt prefill and teacher-forced
+    single-embed steps against the reference's jitted ``decode_step`` and
+    against the port's own forward over the whole sequence."""
+    rcfg, rparams, tcfg, tparams = pairs("llava-next-34b")
+    emb = _embeds(tcfg, PROMPT + STEPS)
+    spans = [(0, PROMPT)] + [(PROMPT + t, PROMPT + t + 1)
+                             for t in range(STEPS)]
+    step = jax.jit(jdecode, static_argnums=0)
+    jc = jinit_cache(rcfg, B, MAX_SEQ)
+    tc = tm.init_cache(tcfg, B, MAX_SEQ, device="cpu")
+    js, ts = [], []
+    for lo, hi in spans:
+        piece = emb[:, lo:hi]
+        lj, jc = step(rcfg, rparams, {"embeds": jnp.asarray(piece,
+                                                            jnp.bfloat16),
+                                      "cache_pos": jnp.int32(lo)}, jc)
+        lt, tc = tm.decode_step(tcfg, tparams, {
+            "embeds": torch.from_numpy(piece), "cache_pos": lo}, tc)
+        js.append(np.asarray(lj[:, -1], np.float32))
+        ts.append(lt[:, -1].float().numpy())
+    ref, got = np.stack(js, 1), np.stack(ts, 1)
+    diff = np.abs(ref - got)
+    assert diff.max() <= ATOL and np.sqrt(np.mean(diff ** 2)) <= RMS
+    _margin_bound(ref, got)
+    full, _ = tm.forward(tcfg, tparams, {"embeds": torch.from_numpy(emb)})
+    np.testing.assert_allclose(
+        got, full[:, [hi - 1 for _, hi in spans]].float().numpy(),
+        rtol=0.15, atol=0.15)
 
 
 def test_serve_cli_deepseek_smoke_and_unported(monkeypatch, capsys):
@@ -330,7 +451,16 @@ def test_serve_cli_deepseek_smoke_and_unported(monkeypatch, capsys):
     tserve.main()
     out = capsys.readouterr().out
     assert "generated tok/s" in out and "spilled pages 2, read back 2" in out
-    monkeypatch.setattr("sys.argv", ["serve", "--arch", "falcon-mamba-7b",
-                                     "--smoke", "--cpu"])
-    with pytest.raises(NotImplementedError):
+    for arch in ("falcon-mamba-7b", "zamba2-7b"):
+        monkeypatch.setattr("sys.argv", [
+            "serve", "--arch", arch, "--smoke", "--cpu", "--prompt-len", "80",
+            "--tokens", "4", "--requests", "1"])
         tserve.main()
+        out = capsys.readouterr().out
+        assert f"arch={arch}" in out and "generated tok/s" in out
+        assert "spilled pages 0, read back 0, gathered 0" in out
+    for arch in FRONTENDS:
+        monkeypatch.setattr("sys.argv", ["serve", "--arch", arch, "--smoke",
+                                         "--cpu"])
+        with pytest.raises(ValueError, match=arch):
+            tserve.main()

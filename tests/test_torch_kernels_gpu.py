@@ -250,6 +250,9 @@ def test_match_kernel_rejects_what_it_cannot_take(card, lz4_slabs):
 @pytest.mark.parametrize("B,H,KV,hd,S,valid", [
     (1, 14, 2, 64, 640, 576), (2, 14, 2, 64, 200, 200),
     (2, 8, 2, 32, 256, 37), (1, 4, 4, 128, 96, 1), (3, 16, 1, 64, 33, 33),
+    # llava-next-34b: 56 query heads over 8 KV heads (a group of 7), hd 128
+    (1, 56, 8, 128, 640, 576), (2, 56, 8, 128, 640, 513),
+    (1, 56, 8, 128, 96, 1),
 ])
 def test_decode_attention_kernel_matches_plain(card, kv, B, H, KV, hd, S,
                                                valid):
@@ -1037,3 +1040,76 @@ def test_moe_routing_on_card_matches_cpu(card):
     assert torch.equal(e0, e1) and torch.equal(p0, p1) and torch.equal(k0, k1)
     torch.testing.assert_close(g1, g0, rtol=0, atol=2 * 2.0 ** -23)
     assert bool((e0 < 6).any()) and not bool(k0.all())
+
+
+@pytest.mark.parametrize("name", ["falcon-mamba-7b", "zamba2-7b"])
+@pytest.mark.parametrize("S", [1, 40])
+def test_mamba_mixers_on_card_match_cpu(card, name, S):
+    """The Mamba1 / Mamba2 mixer of one smoke layer on the card against
+    the CPU from the same weights, input and incoming state: the output
+    within 4 bf16 ulps of its largest value (the bf16 projections sum in
+    other orders on the two devices, so a value may round apart), and so
+    are the f32 scan state and the conv inputs, which come from those
+    projections."""
+    from repro_torch.models import layers, model
+
+    cfg = smoke_config(ARCHS[name])
+    p = model._layer(init_params(cfg, seed=4, device="cpu")["layers"], 0)
+    mix = layers.mamba1_mix if cfg.ssm == "mamba1" else layers.mamba2_mix
+    rng = np.random.default_rng(S)
+    x = torch.from_numpy(rng.standard_normal((2, S, cfg.d_model)).astype(
+        np.float32)).to(torch.bfloat16)
+    spec = model.cache_spec(cfg, 2, 64)["layers"]
+    state = {k: torch.from_numpy((rng.standard_normal(leaf.shape[1:]) * 0.5)
+                                 .astype(np.float32)).to(leaf.dtype)
+             for k, leaf in spec.items()}
+    out = []
+    for dev in (card, torch.device("cpu")):
+        st = {k: v.clone().to(dev) for k, v in state.items()}
+        y = mix(x.to(dev), _tree_to(p, dev), cfg, state=st)
+        assert st["ssm"].dtype == torch.float32
+        out.append((y.float().cpu(), st["ssm"].cpu(), st["conv"].cpu()))
+    (yc, hc, cc), (yp, hp, cp) = out
+
+    def ulp(t):
+        return 2.0 ** (np.floor(np.log2(float(t.abs().max()))) - 7)
+    assert float((yc - yp).abs().max()) <= 4 * ulp(yp)
+    assert float((hc - hp).abs().max()) <= 4 * ulp(hp)
+    assert float((cc.float() - cp.float()).abs().max()) <= 4 * ulp(cp.float())
+
+
+def test_hybrid_decode_on_card_matches_cpu(card):
+    """A smoke zamba2 past its 64-slot window on the card against the CPU:
+    a 70-token prompt through the rolling cache, then 4 steps; logits
+    within a few bf16 ulps; every slot's recorded position equal; no
+    decode-attention launch (the rolling cache attends in plain
+    PyTorch)."""
+    from repro_torch.models import model
+
+    cfg = smoke_config(ARCHS["zamba2-7b"])
+    params = init_params(cfg, seed=2, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (1, 74)))
+    out = []
+    for dev in (card, torch.device("cpu")):
+        p = _tree_to(params, dev)
+        cache = model.init_cache(cfg, 1, 96, device=dev)
+        before = build.LAUNCHES["decode_attn"]
+        rows = []
+        lg, cache = model.decode_step(cfg, p, {"tokens": toks[:, :70].to(dev),
+                                               "cache_pos": 0}, cache)
+        rows.append(lg[0, -1].float().cpu())
+        for t in range(70, 74):
+            lg, cache = model.decode_step(cfg, p, {
+                "tokens": toks[:, t:t + 1].to(dev), "cache_pos": t}, cache)
+            rows.append(lg[0, -1].float().cpu())
+        assert build.LAUNCHES["decode_attn"] == before
+        out.append((torch.stack(rows), cache["attn_pos"].cpu()))
+    (lc, pc), (lp, pp) = out
+    assert torch.equal(pc, pp)
+    assert float((lc - lp).abs().max()) <= 0.05 * float(lp.abs().max())
+
+
+def _tree_to(tree, dev):
+    return {k: _tree_to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
