@@ -62,8 +62,8 @@ Phases (any failure exits non-zero and prints no result line):
    flags, and the match kernel once each);
    then ``kv_through_tier`` of every layer's K and V and ``layer_traffic``
    of one more such request equal a CPU pool's fed its page stream;
-6. the weight stream at full width (``[weights]``): the 28 decoder
-   matrices of qwen2-0.5b's first 4 layers (of 24: a depth cut for
+6. the weight stream at full width (``[weights]``): the 14 decoder
+   matrices of qwen2-0.5b's first 2 layers (of 24: a depth cut for
    the time limit; wq, wk, wv, wo, w1, w3, w2 at their real shapes,
    importance falling with the layer) loaded by one
    ``WeightStore.put_many`` into a ``trace`` tier on the card (a pack,
@@ -77,7 +77,7 @@ Phases (any failure exits non-zero and prints no result line):
    equal; the standalone unpack held to its plain version and timed at
    a weight's decode slab at each view (its own row in the ``kernels``
    line, apart from the fused KV read's ``bitplane_unpack``); the
-   first 2 layers on a 4-shard ``replicate-weights`` fleet (words and
+   first layer on a 4-shard ``replicate-weights`` fleet (words and
    per-shard bytes the single device's, async reads spread over the
    replicas) and one request of 512 + 64 tokens served on that fleet
    (tokens equal one device's);
@@ -100,7 +100,8 @@ Phases (any failure exits non-zero and prints no result line):
    (d) c on 4 shards — c's tokens and bytes; the tier empty after each;
    wall tok/s and per-request wall latency from a synchronizing host
    clock around every ``step()``, beside the modeled report;
-9. two streams through ``MultiStreamEngine`` (``[streams]``), each
+9. two streams through ``MultiStreamEngine`` (``[streams]``; [sched]'s
+   6 layers and 1 MiB budget, a depth cut for the time limit), each
    stream's tokens equal to its solo run;
 10. the four example twins (``repro_torch.examples``: quickstart,
    serve_async, serve_continuous, serve_elastic) on the card, as run
@@ -125,11 +126,12 @@ Phases (any failure exits non-zero and prints no result line):
    under cProfile; the params freed (the KV forward, the fused read
    and page scoring at these 512-channel shapes are checked and timed
    in phase 2, rows ``*_latent``; [mla] checks it ran those shapes);
-12. the recurrent families at full width and depth (``[ssm]``, random
-   bf16 weights from seed 0 drawn on the card, freed after each):
-   (a) falcon-mamba-7b (64 Mamba1 layers, 7.27 B parameters) and (b)
-   zamba2-7b (81 Mamba2 layers and one shared windowed attention block
-   applied 13 times) each serve one request of 512 + 64 tokens with the
+12. the recurrent families at full width (``[ssm]``, random bf16
+   weights from seed 0 drawn on the card, freed after each; the depth
+   cut to about a quarter for the time limit, every op still run): (a)
+   falcon-mamba-7b (16 of its 64 Mamba1 layers) and (b) zamba2-7b (18 of
+   its 81 Mamba2 layers and one shared windowed attention block applied
+   3 times of its 13) each serve one request of 512 + 64 tokens with the
    launch counts set to 0 just before and read just after — no page
    spilled, no kernel launched (the state pages nothing; the hybrid's
    rolling cache attends in plain PyTorch), nothing stored — then
@@ -148,7 +150,25 @@ Phases (any failure exits non-zero and prints no result line):
    f32 draw do not fit): a 512-embed prompt, then 64 teacher-forced
    embed steps, decode == forward, decode attention launched once a
    layer a step at its shape (row ``decode_attn_llava``);
-14. profile one more classic request (host split from cProfile, device
+14. training on the card (``[train]``; no kernel of the port may
+   launch, counts set to 0 before each part and read after): (a)
+   qwen2-0.5b at full width and depth (24 layers, 494 M random bf16
+   parameters from seed 0, remat on) takes 4 steps of ``train`` at
+   TRAIN_4K's 4096 tokens x a global batch of 2 (cut from 256), grad
+   compression on, f32 moments — per step wall, tokens/s, loss,
+   grad_norm and lr, the peak memory, every loss and norm finite, every
+   leaf changed — and one more step under ``torch.profiler`` (device
+   time by phase, busy share); (b) one step card vs CPU from the same
+   weights and batch (2 layers at full width, 2 x 256 tokens): loss,
+   each leaf's gradient and the updated params within stated bounds;
+   (c) 4 steps straight == 2 + checkpoint + restore + 2 (2 layers, 2 x
+   512 tokens) under deterministic algorithms: the restored state
+   byte-identical, the data step resumed, the losses equal; (d)
+   deepseek-v2-lite-16b at full width, its depth cut to the dense layer
+   and 3 MoE layers, 2 steps of 4096 tokens: aux loss, capacity drops,
+   loss, peak memory; (e) the ``train_100m`` twin, 100 of its default
+   300 steps (the time limit), its loss falling by more than 0.5;
+15. profile one more classic request (host split from cProfile, device
    busy time from ``torch.profiler``) and one PNM request (cProfile).
 
 Prints the card's name and power limit, a ``kernels`` JSON line, and as
@@ -158,6 +178,9 @@ its last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import math
+import os
+import statistics
 import subprocess
 import sys
 import time
@@ -1798,9 +1821,9 @@ def streams_path(torch, build, cfg, params, dev, trace_kw=SCHED_TRACE,
 # real shape; a unit's importance falls with its layer.
 WEIGHT_MATS = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
                ("attn", "wo"), ("mlp", "w1"), ("mlp", "w3"), ("mlp", "w2"))
-WEIGHT_LAYERS = 4            # the first sixth of the 24 decoder layers:
-                             # a depth cut for the script's time limit
-FLEET_LAYERS = 2             # the replicate-weights fleet's share
+WEIGHT_LAYERS = 2            # the first 2 of the 24 decoder layers: a
+                             # depth cut for the script's time limit
+FLEET_LAYERS = 1             # the replicate-weights fleet's share
 FLEET_SHARDS = 4
 BLOCK_ELEMS = 2048           # core.bitplane.BLOCK_ELEMS: a 4 KB block
 
@@ -2651,6 +2674,10 @@ def examples_path(torch, build, dev="cuda"):
 # (its state pages nothing, so the tier stays empty and no tier kernel
 # runs); the frontend models run from seeded embeds.
 SSM_ARCHS = ("falcon-mamba-7b", "zamba2-7b")
+# a depth cut for the time limit: 16 of falcon-mamba's 64 Mamba1 layers,
+# and 18 of zamba2's 81 Mamba2 layers with 3 of its 13 shared-block
+# applications (after layers 0, 6 and 12): every op still runs
+SSM_LAYERS = {"falcon-mamba-7b": 16, "zamba2-7b": 18}
 SSM_SERVE = dict(smoke=False, device="trace", prompt_len=512, n_tokens=64,
                  batch=1, requests=1, hbm_kv_budget=1 << 22, page_tokens=64,
                  seed=0, verbose=False)
@@ -2797,7 +2824,7 @@ def layer_card_vs_cpu(torch, cfg, params, dev, tag, seq=LAYER_TOKENS):
             if mix is None:
                 pos = torch.arange(seq, device=where,
                                    dtype=torch.int32)[None]
-                y = model._block(cfg, pw, x.to(where), positions=pos,
+                y, _ = model._block(cfg, pw, x.to(where), positions=pos,
                                  cache=None, cache_pos=0)
                 out[where.type] = (y.float().cpu(),)
             else:
@@ -2838,7 +2865,7 @@ def _map_leaves(tree, fn):
 
 def ssm_model_path(torch, build, serve, arch, dev="cuda", cfg=None,
                    smoke=False):
-    """[ssm] (a) / (b): ``arch`` at full width and depth — random bf16
+    """[ssm] (a) / (b): ``arch`` at full width (``cfg``'s depth) — random bf16
     weights from seed 0 drawn on the card leaf by leaf, one classic
     request of 512 + 64 tokens served with the launch counts set to 0
     just before and read just after (no spill, no tier kernel, no decode
@@ -2878,7 +2905,7 @@ def ssm_model_path(torch, build, serve, arch, dev="cuda", cfg=None,
     build.reset_launches()
     try:
         rep = serve(arch=arch, **{**SSM_SERVE, "smoke": smoke},
-                    params=params, torch_device=dev)
+                    params=params, torch_device=dev, n_layers=cfg.n_layers)
         _sync(torch, dev)
     finally:
         ServeEngine._step = step
@@ -3047,15 +3074,19 @@ def hybrid_weights_check(torch, build, k_bitplane, params, dev="cuda"):
 
 def ssm_path(torch, build, k_bitplane, serve, dev="cuda", cfgs=None,
              smoke=False):
-    """[ssm]: (a) falcon-mamba-7b and (b) zamba2-7b at full width and
-    depth (``cfgs`` overrides them for a rehearsal), then (c) zamba2's
-    in_proj through the tier; each model's params freed after it."""
+    """[ssm]: (a) falcon-mamba-7b and (b) zamba2-7b at full width, their
+    depth cut to :data:`SSM_LAYERS` (``cfgs`` overrides them for a
+    rehearsal), then (c) zamba2's in_proj through the tier; each model's
+    params freed after it."""
+    import dataclasses
+
     from repro_torch.configs import ARCHS
 
     dev = torch.device(dev)
     for arch in SSM_ARCHS:
         t0 = time.perf_counter()
-        cfg = (cfgs or ARCHS)[arch]
+        cfg = (cfgs or {}).get(arch) or dataclasses.replace(
+            ARCHS[arch], n_layers=SSM_LAYERS[arch])
         params = ssm_model_path(torch, build, serve, arch, dev, cfg, smoke)
         if cfg.family == "hybrid":
             hybrid_weights_check(torch, build, k_bitplane, params, dev)
@@ -3204,6 +3235,410 @@ def frontends_path(torch, build, results, dev="cuda", cfgs=None):
               flush=True)
 
 
+# [train]: training on the card.  qwen2-0.5b at full width and depth
+# takes train steps at TRAIN_4K's sequence length; one step card vs CPU;
+# a checkpoint and resume; deepseek-v2-lite-16b's MoE at full width; the
+# train_100m twin.  Training launches no kernel of the port: the
+# reference's train step reaches no Pallas kernel (its attention over the
+# prompt, MoE and scans are jnp), and the port's attends in plain PyTorch.
+TRAIN_ARCH = "qwen2-0.5b"
+TRAIN_SEQ = 4096             # TRAIN_4K's sequence length
+TRAIN_BATCH = 2              # TRAIN_4K's global batch of 256, cut to 2
+TRAIN_STEPS = 4
+CMP_LAYERS, CMP_SEQ, CMP_BATCH = 2, 256, 2       # (b) card vs CPU
+RESUME_LAYERS, RESUME_SEQ, RESUME_BATCH = 2, 512, 2   # (c)
+MOE_TRAIN_ARCH = "deepseek-v2-lite-16b"
+MOE_TRAIN_LAYERS = 4         # the dense layer and 3 of 26 MoE layers
+MOE_TRAIN_SEQ, MOE_TRAIN_BATCH, MOE_TRAIN_STEPS = 4096, 1, 2
+TRAIN_100M_STEPS = 100       # of the twin's default 300: the time limit
+# (b)'s bounds: the two devices sum bf16 GEMMs in other orders
+CMP_LOSS_ATOL = 1e-2         # |loss card - loss CPU|
+CMP_GRAD_RTOL = 0.05         # each leaf's gradient, relative L2
+CMP_PARAM_SHARE = 0.99       # updated params bit-equal, at least this share
+
+
+def cut_arch(arch: str, n_layers: int) -> str:
+    """Register ``arch`` cut to ``n_layers`` layers (every width kept) in
+    the port's ``ARCHS`` under ``<arch>-<n>l``, for ``train``."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+
+    name = f"{arch}-{n_layers}l"
+    ARCHS[name] = dataclasses.replace(ARCHS[arch], name=name,
+                                      n_layers=n_layers)
+    return name
+
+
+def _history_lines(tag: str, out, tokens: int):
+    for h in out["history"]:
+        print(f"[train] {tag} step {h['step']}: {h['seconds']:.3f} s wall, "
+              f"{tokens / h['seconds']:.1f} tokens/s, loss {h['loss']:.5f}, "
+              f"grad_norm {h['grad_norm']:.5f}, lr {h['lr']:.4g}",
+              flush=True)
+        if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                and h["grad_norm"] > 0):
+            raise AssertionError(f"[train] {tag}: step {h['step']} {h}")
+
+
+def profile_train_step(torch, cfg, out, dev, tokens):
+    """One more train step of (a)'s state, its phases as ``train_step``
+    runs them — forward (``lm_loss``), backward (``autograd.grad``, which
+    recomputes each layer's forward under remat), compression, the
+    optimizer — with CUDA events between them (each phase's span on the
+    device's timeline, idle gaps included), under ``torch.profiler``
+    (device activity only) for the kernels' busy time: the busy share of
+    the step's wall time, the rest host-bound, and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.steps import default_adamw
+    from repro_torch.models.model import lm_loss
+    from repro_torch.optim import update
+    from repro_torch.optim.grad_compress import compress_grads
+
+    params, state, err = out["params"], out["opt_state"], out["err"]
+    leaves = []
+    _map_leaves(params, leaves.append)
+    batch = {"tokens": tokens, "labels": tokens}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    _sync(torch, dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ev[0].record()
+        loss = lm_loss(cfg, params, batch)
+        ev[1].record()
+        found = iter(torch.autograd.grad(loss, leaves))
+        ev[2].record()
+        grads = _map_leaves(params, lambda p: next(found))
+        grads, err = compress_grads(grads, err)
+        ev[3].record()
+        update(default_adamw(cfg), grads, state, params)
+        ev[4].record()
+        float(loss.detach())
+        _sync(torch, dev)
+        wall = time.perf_counter() - t0
+    spans = {name: ev[i].elapsed_time(ev[i + 1]) / 1e3 for i, name in
+             enumerate(("forward", "backward", "compress", "optimizer"))}
+    kernels = [(e.key, _self_device_us(e), e.count)
+               for e in prof.key_averages()]
+    busy = sum(us for _, us, _ in kernels) / 1e6
+    top = sorted(kernels, key=lambda t: -t[1])[:5]
+    print(f"[train] one {cfg.name} step of {tokens.numel()} tokens under "
+          f"torch.profiler: wall {wall:.3f} s, device busy {busy:.3f} s "
+          f"({100 * busy / wall:.1f}%), host-bound (wall not busy) "
+          f"{wall - busy:.3f} s; on the device's timeline: "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in spans.items())
+          + f"; {sum(n for *_, n in kernels)} kernels; top: "
+          + "; ".join(f"{k[:50]} {us / 1e3:.1f} ms x{n}" for k, us, n in top),
+          flush=True)
+
+
+def train_full_width(torch, train, dev, arch=TRAIN_ARCH,
+                     seq=TRAIN_SEQ, batch=TRAIN_BATCH, steps=TRAIN_STEPS,
+                     smoke=False):
+    """(a): ``arch`` at full width and depth, random bf16 weights from
+    seed 0, remat as its config says, grad compression on, f32 moments:
+    ``steps`` steps of ``train`` at ``seq`` x ``batch``; per step wall,
+    tokens/s, loss, grad_norm, lr; peak allocated; every loss and norm
+    finite, grad_norm > 0, every leaf changed from its initial draw;
+    then one step profiled."""
+    import numpy as np
+
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.models import model
+    from repro_torch.tree import leaves_with_paths
+
+    cfg = smoke_config(ARCHS[arch]) if smoke else ARCHS[arch]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = train(arch=arch, steps=steps, smoke=smoke, seq_len=seq,
+                global_batch=batch, grad_compression=True, seed=0,
+                device=dev, log_every=steps)
+    _sync(torch, dev)
+    n_params = sum(t.numel() for _, t in leaves_with_paths(out["params"]))
+    print(f"[train] (a) {arch}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{n_params} parameters, remat {cfg.remat}, {steps} steps of "
+          f"{batch} x {seq} tokens in {time.perf_counter() - t0:.2f} s; "
+          f"peak allocated {_peak(torch, dev)} B", flush=True)
+    _history_lines("(a)", out, batch * seq)
+    init = dict(leaves_with_paths(model.init_params(cfg, seed=0,
+                                                    device=dev)))
+    shares = {}
+    for path, p in leaves_with_paths(out["params"]):
+        p0 = init[path]
+        shares[path] = float((p.detach() != p0).float().mean())
+    del init
+    if min(shares.values()) <= 0:
+        raise AssertionError(f"[train] (a): leaves unchanged: "
+                             f"{[k for k, v in shares.items() if v <= 0]}")
+    print(f"[train] (a) every leaf changed; the share of elements changed "
+          f"per leaf: " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                    shares.items()), flush=True)
+    tokens = torch.from_numpy(np.ascontiguousarray(
+        _stream(cfg, seq, batch).batch_at(steps)["tokens"])).to(dev)
+    if dev.type == "cuda":
+        profile_train_step(torch, cfg, out, dev, tokens)
+    del out
+
+
+def _stream(cfg, seq, batch, seed=0):
+    from repro_torch.data import DataConfig, ShardedTokenStream
+
+    return ShardedTokenStream(DataConfig(cfg.vocab, seq, batch, seed=seed))
+
+
+def _ulps_apart(torch, a, b):
+    """Per element, |a - b| in bf16 ulps of the larger magnitude."""
+    mag = torch.maximum(a.float().abs(), b.float().abs()).clamp_min(1e-30)
+    return (a.float() - b.float()).abs() / torch.exp2(
+        torch.floor(torch.log2(mag)) - 7)
+
+
+def train_card_vs_cpu(torch, dev, cfg=None):
+    """(b): one train step from the same weights and batch on the card and
+    on the CPU — qwen2-0.5b at full width, its depth cut to
+    :data:`CMP_LAYERS`, :data:`CMP_BATCH` x :data:`CMP_SEQ` tokens: the
+    loss, each leaf's gradient (relative L2) and the params after
+    compression and AdamW (the share bit-equal, the largest difference
+    in bf16 ulps) within :data:`CMP_LOSS_ATOL`, :data:`CMP_GRAD_RTOL`,
+    :data:`CMP_PARAM_SHARE` and, for the params that differ, 1 ulp or
+    2 lr (a near-zero gradient's sign may flip between the devices, and
+    the first step moves an element by at most lr (1 + wd |p|))."""
+    import numpy as np
+
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.steps import default_adamw, loss_and_grads
+    from repro_torch.models import model
+    from repro_torch.optim import init as opt_init
+    from repro_torch.optim import update
+    from repro_torch.optim.grad_compress import (
+        compress_grads, init_error_feedback,
+    )
+    from repro_torch.tree import leaves_with_paths
+
+    cfg = cfg or dataclasses.replace(ARCHS[TRAIN_ARCH], n_layers=CMP_LAYERS)
+    ocfg = default_adamw(cfg)
+    toks = np.ascontiguousarray(
+        _stream(cfg, CMP_SEQ, CMP_BATCH).batch_at(0)["tokens"])
+    params = model.init_params(cfg, seed=0, device=dev)
+    res = {}
+    t0 = time.perf_counter()
+    for where in ("card", "cpu"):
+        d = dev if where == "card" else torch.device("cpu")
+        p = _map_leaves(params, lambda t: t.detach().to(d, copy=True))
+        t = torch.from_numpy(toks).to(d)
+        loss, grads = loss_and_grads(cfg, p, {"tokens": t, "labels": t})
+        grads = _map_leaves(grads, lambda g: g.detach())
+        deq, err = compress_grads(grads, init_error_feedback(p))
+        p, _, m = update(ocfg, deq, opt_init(ocfg, p), p)
+        res[where] = (float(loss), grads, p, float(m["lr"]))
+        _sync(torch, dev)
+    (lc, gc, pc, lr), (lh, gh, ph, _) = res["card"], res["cpu"]
+    worst_g, share, worst_u, n_far = 0.0, [], 0.0, 0
+    gh, ph = dict(leaves_with_paths(gh)), dict(leaves_with_paths(ph))
+    for path, a in leaves_with_paths(gc):
+        a, b = a.float().cpu(), gh[path].float()
+        worst_g = max(worst_g, float((a - b).norm() / b.norm().clamp_min(
+            1e-30)))
+    for path, a in leaves_with_paths(pc):
+        a, b = a.detach().cpu(), ph[path].detach()
+        eq = a.view(torch.int16) == b.view(torch.int16) \
+            if a.dtype == torch.bfloat16 else a == b
+        share.append((float(eq.float().sum()), eq.numel()))
+        u = _ulps_apart(torch, a, b)
+        worst_u = max(worst_u, float(u.max()))
+        far = (u > 1) & ((a.float() - b.float()).abs() > 2 * lr)
+        n_far += int(far.sum())
+    bit_share = sum(s for s, _ in share) / sum(n for _, n in share)
+    print(f"[train] (b) one step card vs CPU ({cfg.n_layers} layers at full "
+          f"width, {CMP_BATCH} x {CMP_SEQ} tokens, {time.perf_counter() - t0:.1f}"
+          f" s): loss {lc:.6f} vs {lh:.6f}, |diff| {abs(lc - lh):.3g} (bound "
+          f"{CMP_LOSS_ATOL}); worst leaf gradient relative L2 {worst_g:.4g} "
+          f"(bound {CMP_GRAD_RTOL}); updated params bit-equal {bit_share:.6f}"
+          f" (bound {CMP_PARAM_SHARE}), largest difference {worst_u:.3g} "
+          f"bf16 ulps, {n_far} elements more than 1 ulp and 2 lr apart "
+          f"(bound 0)", flush=True)
+    if abs(lc - lh) > CMP_LOSS_ATOL or worst_g > CMP_GRAD_RTOL or \
+            bit_share < CMP_PARAM_SHARE or n_far:
+        raise AssertionError("[train] (b) card vs CPU past its bounds")
+
+
+def _raw(torch, t) -> tuple:
+    """A tensor's dtype, shape and bytes."""
+    t = t.detach().cpu().contiguous()
+    bits = t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+    return str(t.dtype), tuple(t.shape), bits.numpy().tobytes()
+
+
+def train_resume(torch, train, dev, arch=None, smoke=False):
+    """(c): 4 steps straight against 2 steps, a checkpoint,
+    a restore into fresh state and 2 more steps, under
+    ``torch.use_deterministic_algorithms(True)`` (``CUBLAS_WORKSPACE_
+    CONFIG`` is set at the top of :func:`main`, before the first cuBLAS
+    call): the restored state byte-identical to the saved one, the data
+    step resumed where it stopped, the resumed losses equal to the
+    straight run's."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.tree import leaves_with_paths
+
+    arch = arch or cut_arch(TRAIN_ARCH, RESUME_LAYERS)
+    kw = dict(arch=arch, smoke=smoke, seq_len=RESUME_SEQ,
+              global_batch=RESUME_BATCH, ckpt_every=100, seed=0, device=dev,
+              log_every=100)
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    try:
+        straight = train(steps=4, **kw)
+        with tempfile.TemporaryDirectory(prefix="train_resume_") as ckpt:
+            first = train(steps=2, ckpt_dir=ckpt, **kw)
+            saved = {"params": first["params"], "opt": first["opt_state"],
+                     "err": first["err"]}
+            restored, manifest = CheckpointManager(ckpt).restore(
+                saved, device=dev)
+            resumed = train(steps=4, ckpt_dir=ckpt, **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    _sync(torch, dev)
+    want = dict(leaves_with_paths(saved))
+    got = leaves_with_paths(restored)
+    bad = [path for path, t in got
+           if _raw(torch, t) != _raw(torch, want[path])]
+    if bad or manifest["step"] != 2 or resumed["start_step"] != 2:
+        raise AssertionError(f"[train] (c) restore: leaves differ {bad}, "
+                             f"manifest {manifest}, resumed from "
+                             f"{resumed['start_step']}")
+    if resumed["losses"] != straight["losses"][2:]:
+        raise AssertionError(f"[train] (c) resumed losses "
+                             f"{resumed['losses']} != straight "
+                             f"{straight['losses'][2:]}")
+    print(f"[train] (c) {arch}, {RESUME_BATCH} x {RESUME_SEQ} tokens, "
+          f"deterministic algorithms: 4 steps straight, losses "
+          f"{straight['losses']}; 2 + save + restore + 2, the {len(got)} "
+          f"restored "
+          f"leaves byte-identical to the saved state, data resumed at step "
+          f"{resumed['start_step']}, losses {resumed['losses']} == the "
+          f"straight run's ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def train_moe(torch, train, dev, arch=None, smoke=False):
+    """(d): deepseek-v2-lite-16b at full width, its depth cut to the dense
+    layer and 3 MoE layers, :data:`MOE_TRAIN_STEPS` steps of
+    ``MOE_TRAIN_BATCH`` x ``MOE_TRAIN_SEQ`` tokens: per step the aux
+    loss (the forward's, summed over the MoE layers), the share of
+    (token, choice) pairs the capacity dropped, the loss and the peak
+    memory."""
+    from repro_torch.models import layers, model
+    from repro_torch.tree import leaves_with_paths
+
+    arch = arch or cut_arch(MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS)
+    rec = {"aux": [], "drop": [], "pairs": [], "active": False}
+    fwd, slots = model.forward_with_aux, layers.capacity_slots
+
+    def recording_forward(*a, **kw):
+        rec["active"] = True
+        rec["drop"].append([])
+        try:
+            out = fwd(*a, **kw)
+        finally:
+            rec["active"] = False
+        rec["aux"].append(out[2].detach())
+        return out
+
+    def recording_slots(experts, n_experts, cap):
+        pos, keep = slots(experts, n_experts, cap)
+        if rec["active"]:      # the forward; not remat's recompute
+            rec["drop"][-1].append(((~keep).sum(), keep.numel()))
+        return pos, keep
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    model.forward_with_aux, layers.capacity_slots = (recording_forward,
+                                                     recording_slots)
+    t0 = time.perf_counter()
+    try:
+        out = train(arch=arch, steps=MOE_TRAIN_STEPS, smoke=smoke,
+                    seq_len=MOE_TRAIN_SEQ, global_batch=MOE_TRAIN_BATCH,
+                    grad_compression=True, seed=0, device=dev,
+                    log_every=MOE_TRAIN_STEPS)
+    finally:
+        model.forward_with_aux, layers.capacity_slots = fwd, slots
+    _sync(torch, dev)
+    n_params = sum(t.numel() for _, t in leaves_with_paths(out["params"]))
+    print(f"[train] (d) {arch}: {n_params} parameters, {MOE_TRAIN_STEPS} "
+          f"steps of {MOE_TRAIN_BATCH} x {MOE_TRAIN_SEQ} tokens in "
+          f"{time.perf_counter() - t0:.2f} s; peak allocated "
+          f"{_peak(torch, dev)} B", flush=True)
+    _history_lines("(d)", out, MOE_TRAIN_BATCH * MOE_TRAIN_SEQ)
+    for h, aux, drops in zip(out["history"], rec["aux"], rec["drop"]):
+        dropped = sum(int(d) for d, _ in drops)
+        pairs = sum(n for _, n in drops)
+        aux = float(aux)
+        if not math.isfinite(aux) or aux <= 0 or not drops:
+            raise AssertionError(f"[train] (d) aux {aux}, {len(drops)} MoE "
+                                 f"layers")
+        print(f"[train] (d) step {h['step']}: aux loss {aux:.5f} over "
+              f"{len(drops)} MoE layers, capacity dropped {dropped} of "
+              f"{pairs} (token, choice) pairs ({dropped / pairs:.4f}), loss "
+              f"{h['loss']:.5f}", flush=True)
+    del out
+
+
+def train_100m_path(torch, dev):
+    """(e): the ``train_100m`` twin on the card, :data:`TRAIN_100M_STEPS`
+    steps; its own assertion (at 100 steps or more the loss ends more
+    than 0.5 below its start)."""
+    import contextlib
+    import io
+
+    from repro_torch.examples import train_100m
+
+    argv = ["--steps", str(TRAIN_100M_STEPS)]
+    if dev.type == "cpu":
+        argv.append("--cpu")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = train_100m.main(argv)
+    _sync(torch, dev)
+    for line in buf.getvalue().splitlines():
+        if line.strip():
+            print(f"[train] (e) train_100m | {line}", flush=True)
+    secs = [h["seconds"] for h in out["history"]]
+    print(f"[train] (e) train_100m: {len(secs)} steps in "
+          f"{time.perf_counter() - t0:.1f} s, median step "
+          f"{statistics.median(secs) * 1e3:.1f} ms; loss "
+          f"{out['losses'][0]:.4f} -> {out['losses'][-1]:.4f}", flush=True)
+
+
+def train_path(torch, build, dev="cuda"):
+    """[train]: (a)–(e), the launch counts set to 0 before each and read
+    after: no kernel of the port may launch."""
+    from repro_torch.launch.train import train
+
+    dev = torch.device(dev)
+    for part, fn in (
+            ("(a)", lambda: train_full_width(torch, train, dev)),
+            ("(b)", lambda: train_card_vs_cpu(torch, dev)),
+            ("(c)", lambda: train_resume(torch, train, dev)),
+            ("(d)", lambda: train_moe(torch, train, dev)),
+            ("(e)", lambda: train_100m_path(torch, dev))):
+        t0 = time.perf_counter()
+        build.reset_launches()
+        fn()
+        if any(build.LAUNCHES.values()):
+            raise AssertionError(f"[train] {part} launched a kernel of the "
+                                 f"port: {dict(build.LAUNCHES)}")
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        print(f"[train] {part} done in {time.perf_counter() - t0:.1f} s; "
+              f"{_allocated(torch, dev)} B allocated", flush=True)
+
+
 # the kernels only the kernel API reaches
 API_ONLY_KERNELS = ("elastic_matmul", "kv_delta_inv")
 # rows of the kernels line for [mla]'s 512-channel shapes
@@ -3240,6 +3675,9 @@ def main():
         fail("run from a checkout of the repository: src/repro_torch is "
              "missing next to this script", 2)
     sys.path.insert(0, str(ROOT / "src"))
+    # cuBLAS reads this at its first call: [train] (c) runs under
+    # torch.use_deterministic_algorithms(True), which needs it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -3360,7 +3798,8 @@ def main():
     sched_path(torch, build, *cut_depth(cfg, params, SCHED_LAYERS), dev,
                engine_kw=SCHED_CUT_ENGINE)
     phase("scheduler path")
-    streams_path(torch, build, cfg, params, dev)
+    streams_path(torch, build, *cut_depth(cfg, params, SCHED_LAYERS), dev,
+                 engine_kw=SCHED_CUT_ENGINE)
     phase("multi-stream path")
     examples_path(torch, build)
     phase("examples")
@@ -3370,6 +3809,8 @@ def main():
     phase("SSM path")
     frontends_path(torch, build, results)
     phase("frontends")
+    train_path(torch, build)
+    phase("train")
     profile_request(torch, serve, params)
     profile_request(torch, serve, params, device_time=False, pnm_topk=16,
                     importance="attention")

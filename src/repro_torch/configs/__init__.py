@@ -1,12 +1,16 @@
 """Architectures: ``--arch <id>`` resolves here.
 
 Every arch of the reference is registered, and the model builds,
-forwards and decodes each family: the token decoders (dense GQA, MLA,
-MoE), Mamba1, the Mamba2 hybrid, the encoder-only model and the
-embeds-fed frontends.
+forwards, decodes and trains each family: the token decoders (dense
+GQA, MLA, MoE), Mamba1, the Mamba2 hybrid, the encoder-only model and
+the embeds-fed frontends.  ``SHAPES`` holds the reference's input-shape
+cells.
 """
 
-from .base import ArchConfig, smoke_config
+from .base import (
+    DECODE_32K, LONG_500K, PREFILL_32K, SHAPES, TRAIN_4K, ArchConfig,
+    ShapeConfig, applicable_shapes, smoke_config,
+)
 from .deepseek_v2_lite_16b import CONFIG as deepseek_v2_lite_16b
 from .falcon_mamba_7b import CONFIG as falcon_mamba_7b
 from .grok_1_314b import CONFIG as grok_1_314b
@@ -34,4 +38,6 @@ ARCHS: dict[str, ArchConfig] = {
     )
 }
 
-__all__ = ["ARCHS", "ArchConfig", "smoke_config"]
+__all__ = ["ARCHS", "ArchConfig", "DECODE_32K", "LONG_500K", "PREFILL_32K",
+           "SHAPES", "ShapeConfig", "TRAIN_4K", "applicable_shapes",
+           "smoke_config"]

@@ -87,6 +87,11 @@ class ArchConfig:
     def uses_tokens(self) -> bool:
         return self.frontend == ""
 
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic decode: SSM state or sliding-window hybrid."""
+        return self.family in ("ssm", "hybrid")
+
     def kv_bytes_per_token(self, elem_bytes: int = 2) -> float:
         if self.ssm == "mamba1":
             return 0.0  # constant-size state, not per-token
@@ -97,6 +102,40 @@ class ArchConfig:
         if self.attn_every:
             n_attn = self.n_layers // self.attn_every
         return n_attn * 2 * self.n_kv_heads * self.hd * elem_bytes
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell: a train step, a prompt's prefill or a decode
+    step at ``seq_len`` tokens for ``global_batch`` sequences."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                    # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
+
+
+def applicable_shapes(cfg: ArchConfig) -> list[ShapeConfig]:
+    """The shape cells defined for ``cfg``: an encoder-only model has no
+    decode step, and ``long_500k`` needs sub-quadratic attention (the
+    SSM and hybrid families)."""
+    out = [TRAIN_4K, PREFILL_32K]
+    if not cfg.is_encoder_only:
+        out.append(DECODE_32K)
+        if cfg.supports_long_context:
+            out.append(LONG_500K)
+    return out
 
 
 def smoke_config(cfg: ArchConfig) -> ArchConfig:

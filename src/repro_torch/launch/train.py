@@ -1,0 +1,183 @@
+"""Train loop of the port on one device: eager train steps on the
+synthetic token stream, with checkpoints and restart.
+
+The reference's loop (``repro.launch.train``) with its fault-tolerance
+contract, on one device (the mesh comes with its own slice):
+  * a checkpoint every ``ckpt_every`` steps (host copy at once,
+    serialized on a thread) and one at the end;
+  * a restart resumes from the latest committed manifest — params,
+    optimizer moments, error-feedback buffers and the data step, so the
+    token stream continues exactly where it stopped;
+  * a straggler watchdog: a step slower than ``straggler_factor`` times
+    the trailing median is logged with its index.
+
+Labels are aligned with the positions: the stream's ``tokens`` go to
+:func:`..models.model.lm_loss` as both inputs and labels, and its causal
+shift scores the logit at position t against token t + 1.  The
+reference's loop passes the stream's ``labels`` (already shifted by one)
+and so trains on the token two ahead (ROADMAP.md Queue 3); the port does
+not copy that.
+
+A frontend model (no token embedding) is fed a stub: a normal draw from
+a ``torch.Generator`` seeded by ``(seed, step)`` on the run's device,
+plus ``tokens * 1e-3``, as the reference draws one with JAX's PRNG.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
+      --steps 20 --seq-len 4096 --global-batch 2
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --cpu \\
+      --steps 20 --ckpt-dir ckpt
+"""
+
+from __future__ import annotations
+
+import argparse
+import statistics
+import time
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from .. import devices
+from ..checkpoint import CheckpointManager
+from ..configs import ARCHS, smoke_config
+from ..data import DataConfig, ShardedTokenStream
+from ..models.model import DTYPE, init_params, schema
+from ..optim import init as opt_init
+from ..optim.grad_compress import init_error_feedback
+from .steps import make_train_step
+
+
+def frontend_embeds(cfg, tokens: torch.Tensor, seed: int, step: int
+                    ) -> torch.Tensor:
+    """The frontend stub's (B, S, d) bf16 embeds for ``step``: a standard
+    normal draw from a generator on ``tokens``' device seeded by ``(seed,
+    step)``, plus ``tokens * 1e-3``."""
+    dev = tokens.device
+    key = int(np.random.SeedSequence([seed, step]).generate_state(1)[0])
+    gen = torch.Generator(device=dev).manual_seed(key)
+    B, S = tokens.shape
+    noise = torch.randn((B, S, cfg.d_model), generator=gen, device=dev,
+                        dtype=DTYPE)
+    return noise + tokens.to(DTYPE)[..., None] * 1e-3
+
+
+def train(
+    arch: str = "qwen2-0.5b",
+    steps: int = 20,
+    smoke: bool = True,
+    seq_len: int = 128,
+    global_batch: int = 8,
+    ckpt_dir: Optional[str] = None,
+    ckpt_every: int = 10,
+    grad_compression: bool = True,
+    straggler_factor: float = 3.0,
+    log_every: int = 1,
+    seed: int = 0,
+    device: Union[str, torch.device, None] = None,
+) -> dict:
+    """Train ``arch`` (``smoke``: its reduced config) to step ``steps`` on
+    ``device`` (default: the card), from step 0 or the latest checkpoint
+    under ``ckpt_dir``.  Returns ``losses`` and ``history`` (per step run:
+    ``step``, ``loss``, ``grad_norm``, ``lr``, ``seconds``), the first
+    step run (``start_step``) and the final ``params``, ``opt_state``
+    and ``err`` (the error-feedback buffers)."""
+    dev = devices.resolve(device)
+    cfg = ARCHS[arch]
+    if smoke:
+        cfg = smoke_config(cfg)
+    train_step, ocfg = make_train_step(cfg, grad_compression=grad_compression)
+
+    # --- state init or restore ------------------------------------------------
+    mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
+    start_step = 0
+    if mgr and mgr.latest_step() is not None:
+        spec = schema(cfg)          # the keys a restore reads
+        state, manifest = mgr.restore(
+            {"params": spec, "opt": {"mu": spec, "nu": spec, "step": 0},
+             "err": spec}, device=dev)
+        params, opt_state, err = state["params"], state["opt"], state["err"]
+        start_step = manifest["step"]
+        print(f"[train] restored step {start_step} from {ckpt_dir}",
+              flush=True)
+    else:
+        params = init_params(cfg, seed=seed, device=dev)
+        opt_state = opt_init(ocfg, params)
+        err = init_error_feedback(params)
+
+    data = ShardedTokenStream(
+        DataConfig(cfg.vocab, seq_len, global_batch, seed=seed))
+
+    # --- loop -------------------------------------------------------------------
+    losses, durations, history = [], [], []
+    for step in range(start_step, steps):
+        tokens = torch.from_numpy(
+            np.ascontiguousarray(data.batch_at(step)["tokens"])).to(dev)
+        batch = {"labels": tokens}
+        if cfg.uses_tokens:
+            batch["tokens"] = tokens
+        else:
+            batch["embeds"] = frontend_embeds(cfg, tokens, seed, step)
+        t0 = time.perf_counter()
+        params, opt_state, err, metrics = train_step(
+            params, opt_state, err, batch)
+        loss = float(metrics["loss"])
+        dt = time.perf_counter() - t0
+        losses.append(loss)
+        durations.append(dt)
+        history.append({"step": step, "loss": loss,
+                        "grad_norm": float(metrics["grad_norm"]),
+                        "lr": float(metrics["lr"]), "seconds": dt})
+        if len(durations) >= 5:
+            med = statistics.median(durations[-20:])
+            if dt > straggler_factor * med:
+                print(f"[straggler] step {step}: {dt:.3f}s vs median "
+                      f"{med:.3f}s", flush=True)
+        if step % log_every == 0:
+            print(f"[train] step {step} loss {loss:.4f} gnorm "
+                  f"{history[-1]['grad_norm']:.3f} lr "
+                  f"{history[-1]['lr']:.3g} {dt * 1e3:.0f}ms", flush=True)
+        if mgr and (step + 1) % ckpt_every == 0:
+            mgr.save(step + 1, {"params": params, "opt": opt_state,
+                                "err": err},
+                     blocking=False, extra={"arch": arch, "loss": loss})
+    if mgr:
+        mgr.save(steps, {"params": params, "opt": opt_state, "err": err},
+                 extra={"arch": arch, "loss": losses[-1] if losses else None})
+        mgr.wait()
+    return {"losses": losses, "history": history, "start_step": start_step,
+            "params": params, "opt_state": opt_state, "err": err}
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="qwen2-0.5b", choices=sorted(ARCHS))
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced-width model (the CPU smoke config)")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=10)
+    ap.add_argument("--no-grad-compression", action="store_true")
+    ap.add_argument("--cpu", action="store_true",
+                    help="train on the CPU instead of the card")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the initial weights and the data stream")
+    args = ap.parse_args()
+    out = train(
+        arch=args.arch, steps=args.steps, smoke=args.smoke,
+        seq_len=args.seq_len, global_batch=args.global_batch,
+        ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+        grad_compression=not args.no_grad_compression, seed=args.seed,
+        device="cpu" if args.cpu else None,
+    )
+    if out["losses"]:
+        print(f"[train] done; final loss {out['losses'][-1]:.4f}")
+    else:
+        print(f"[train] done; already at step {out['start_step']}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,7 +1,9 @@
 from . import layers
 from .model import (
-    decode_step, forward, init_cache, init_params, params_from_jax, schema,
+    decode_step, forward, forward_with_aux, init_cache, init_params, lm_loss,
+    params_from_jax, prefill, schema,
 )
 
-__all__ = ["layers", "decode_step", "forward", "init_cache", "init_params",
-           "params_from_jax", "schema"]
+__all__ = ["layers", "decode_step", "forward", "forward_with_aux",
+           "init_cache", "init_params", "lm_loss", "params_from_jax",
+           "prefill", "schema"]

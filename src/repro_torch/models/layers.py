@@ -268,16 +268,32 @@ def _expert_ffn(buf, p, cfg):
     return z @ p["w2"]
 
 
+def router_probs(flat, router):
+    """The f32 softmax of the bf16 router logits ``flat @ router``."""
+    return torch.softmax((flat @ router).float(), dim=-1)
+
+
 def route(flat, router, k: int):
-    """Top-k routing: f32 softmax of the bf16 router logits, the k largest
-    probabilities (ties to the lower expert index, as ``jax.lax.top_k``
-    takes them, through a stable descending sort) and their gates
-    renormalised to sum to 1.  Returns ``(gates (T, k) f32, experts (T,
-    k) int64)``."""
-    probs = torch.softmax((flat @ router).float(), dim=-1)
+    """Top-k routing: the k largest :func:`router_probs` (ties to the
+    lower expert index, as ``jax.lax.top_k`` takes them, through a stable
+    descending sort) and their gates renormalised to sum to 1.  Returns
+    ``(gates (T, k) f32, experts (T, k) int64)``."""
+    probs = router_probs(flat, router)
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, experts = vals[:, :k], idx[:, :k]
     return gates / gates.sum(-1, keepdim=True), experts
+
+
+def balance_loss(probs, experts):
+    """The Switch-style load-balance loss ``E * sum(frac_tokens *
+    frac_probs)``: ``frac_tokens`` the share of tokens whose **first**
+    choice is each expert, ``frac_probs`` the mean of the f32 router
+    probabilities (the softmax of the bf16 logits, :func:`router_probs`)
+    over the tokens.  f32 scalar; its gradient reaches the router through
+    ``frac_probs`` only."""
+    E = probs.shape[-1]
+    frac_tokens = F.one_hot(experts[:, 0], E).float().mean(0)
+    return E * (frac_tokens * probs.mean(0)).sum()
 
 
 def capacity_slots(experts, n_experts: int, cap: int):
@@ -309,7 +325,12 @@ def moe_block(x, p, cfg):
     capacity buffer of ``int(max(1, capacity_factor * k * T / E))`` rows,
     dropping the overflow in the reference's cumsum order, and combines
     the expert outputs weighted by the gates; a single token takes the
-    dense path.  The training-only aux loss is not computed.
+    dense path.  Returns ``(out (B, S, d), aux)``: ``aux`` the prompt's
+    :func:`balance_loss` over the experts :func:`route` chose, read from
+    the probabilities of the bf16 router logits (the source's dtype;
+    ROADMAP.md Queue 3); None for a single token, where the reference's
+    is a zero (a decode step launches nothing for it).  Routing goes
+    through the module's ``route``, so a caller may pin it.
     """
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
@@ -319,6 +340,7 @@ def moe_block(x, p, cfg):
     gates, experts = route(flat, p["router"], k)
     if S == 1:
         out = _moe_dense_decode(flat, p, cfg, gates, experts)
+        aux = None
     else:
         cap = int(max(1, cfg.capacity_factor * k * T / E))
         pos, keep = capacity_slots(experts, E, cap)
@@ -329,10 +351,11 @@ def moe_block(x, p, cfg):
         gathered = torch.zeros(T, k, d, dtype=x.dtype, device=x.device)
         gathered[keep] = y_buf[experts[keep], pos[keep]]
         out = (gathered * gates[..., None].to(x.dtype)).sum(dim=1)
+        aux = balance_loss(router_probs(flat, p["router"]), experts)
     out = out.reshape(B, S, d)
     if cfg.n_shared_experts:
         out = out + mlp_apply(h, p["shared"], cfg.mlp)
-    return out
+    return out, aux
 
 
 def softplus(a):

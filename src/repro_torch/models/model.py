@@ -3,21 +3,25 @@ MLA, MoE with shared experts and leading dense layers), Mamba1
 (falcon-mamba), the Mamba2 hybrid with its one shared attention block
 (zamba2), the encoder-only model (hubert) and the embeds-fed frontends
 (llava): parameter layout, seeded init, conversion from the reference's
-parameters, forward (with or without a cache) and the decode-time cache.
+parameters, forward (with or without a cache), the training loss and
+the decode-time cache.
 
 Parameters are a nested dict of tensors in the reference's layout, with
 per-layer weights stacked on a leading ``layers`` axis, so
 :func:`params_from_jax` is a leaf-by-leaf conversion.  Forward runs the
-layer loop in Python (PyTorch is eager; the reference scans).  Training
-is not ported yet (ROADMAP.md Queue 1 item 7).
+layer loop in Python (PyTorch is eager; the reference scans), each layer
+under activation checkpointing when the config asks for remat and
+autograd records.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import devices
 from ..configs.base import ArchConfig
@@ -347,17 +351,41 @@ def _layer(tree, i):
 
 def _block(cfg, p, x, *, positions, cache, cache_pos):
     """One decoder (or encoder) layer: MLA or GQA attention, then the MoE
-    or the MLP, each as a residual."""
+    or the MLP, each as a residual.  Returns ``(x, aux)``: the MoE's
+    balance loss, or None (an MLP, or a single token)."""
     attn = L.mla_block if cfg.mla else L.gqa_block
     x = x + attn(x, p["attn"], cfg, positions=positions, cache=cache,
                  cache_pos=cache_pos)
     if "moe" in p:
-        return x + L.moe_block(x, p["moe"], cfg)
-    return x + L.mlp_block(x, p["mlp"], cfg)
+        y, aux = L.moe_block(x, p["moe"], cfg)
+        return x + y, aux
+    return x + L.mlp_block(x, p["mlp"], cfg), None
+
+
+def _remat(cfg: ArchConfig, cache) -> bool:
+    """Checkpoint each layer: ``cfg.remat``, no cache, autograd on — as
+    the reference wraps its scan body in ``jax.checkpoint`` for a
+    forward without a cache (its ``jax.grad`` is what records)."""
+    return cfg.remat and cache is None and torch.is_grad_enabled()
+
+
+def _call(remat: bool, fn, x):
+    """``fn(x)``; under ``remat`` through ``torch.utils.checkpoint``
+    (non-reentrant), so the layer keeps only its input for the backward
+    and recomputes the rest there.  ``fn`` is a ``functools.partial``,
+    bound before the recompute runs."""
+    if remat:
+        return checkpoint(fn, x, use_reentrant=False)
+    return fn(x)
 
 
 def _forward_transformer(cfg, params, x, positions, cache, cache_pos):
-    """The ``dense0`` layers, then the stacked ones."""
+    """The ``dense0`` layers, then the stacked ones.  Returns ``(x,
+    aux)``: the MoE layers' balance losses summed in layer order, or None
+    if there are none.  Only stacked layers have a MoE (``dense0`` holds
+    dense MLPs; the reference's ``dense0`` loop drops their zero aux)."""
+    remat = _remat(cfg, cache)
+    aux = None
     for part, n in (("dense0", cfg.first_dense), ("layers", cfg_layers(cfg))):
         if part not in params:
             continue
@@ -365,17 +393,25 @@ def _forward_transformer(cfg, params, x, positions, cache, cache_pos):
         for i in range(n):
             c = None if cache is None else {k: v[i] for k, v in
                                             cache[part].items()}
-            x = _block(cfg, _layer(lp, i), x, positions=positions, cache=c,
-                       cache_pos=cache_pos)
-    return x
+            x, a = _call(remat, functools.partial(
+                _block, cfg, _layer(lp, i), positions=positions, cache=c,
+                cache_pos=cache_pos), x)
+            if a is not None:
+                aux = a if aux is None else aux + a
+    return x, aux
+
+
+def _mamba1_layer(cfg, p, st, x):
+    return x + L.mamba1_mix(L.norm(x, p["norm"], cfg.norm), p, cfg, st)
 
 
 def _forward_mamba(cfg, params, x, cache):
     """Mamba1: a residual mixer a layer, each with its layer's state."""
+    remat = _remat(cfg, cache)
     for i in range(cfg.n_layers):
-        p = _layer(params["layers"], i)
         st = None if cache is None else _layer(cache["layers"], i)
-        x = x + L.mamba1_mix(L.norm(x, p["norm"], cfg.norm), p, cfg, st)
+        x = _call(remat, functools.partial(
+            _mamba1_layer, cfg, _layer(params["layers"], i), st), x)
     return x
 
 
@@ -390,24 +426,33 @@ def shared_applications(cfg: ArchConfig):
             if i % every == 0 and i // every < apps]
 
 
+def _hybrid_layer(cfg, p, st, shared, c, positions, x):
+    """One Mamba2 layer, then (``shared`` not None) the shared attention
+    + MLP block over its application's cache ``c``."""
+    x = x + L.mamba2_mix(L.norm(x, p["norm"], cfg.norm), p, cfg, st)
+    if shared is not None:
+        x = x + L.gqa_block(x, shared["attn"], cfg, positions=positions,
+                            cache=c, window=cfg.window)
+        x = x + L.mlp_block(x, shared["mlp"], cfg)
+    return x
+
+
 def _forward_hybrid(cfg, params, x, positions, cache):
     """zamba2: the Mamba2 layers, and after each application layer the one
     shared attention + MLP block, windowed, over its own application's
     rolling cache."""
-    shared = params["shared"]
+    remat = _remat(cfg, cache)
     apps = dict(shared_applications(cfg))
     for i in range(cfg.n_layers):
-        p = _layer(params["layers"], i)
         st = None if cache is None else _layer(cache["layers"], i)
-        x = x + L.mamba2_mix(L.norm(x, p["norm"], cfg.norm), p, cfg, st)
-        if i in apps:
+        c = None
+        if cache is not None and i in apps:
             a = apps[i]
-            c = None if cache is None else {
-                "k": cache["attn_k"][a], "v": cache["attn_v"][a],
-                "kpos": cache["attn_pos"][a]}
-            x = x + L.gqa_block(x, shared["attn"], cfg, positions=positions,
-                                cache=c, window=cfg.window)
-            x = x + L.mlp_block(x, shared["mlp"], cfg)
+            c = {"k": cache["attn_k"][a], "v": cache["attn_v"][a],
+                 "kpos": cache["attn_pos"][a]}
+        x = _call(remat, functools.partial(
+            _hybrid_layer, cfg, _layer(params["layers"], i), st,
+            params["shared"] if i in apps else None, c, positions), x)
     return x
 
 
@@ -419,14 +464,13 @@ def _embed_in(cfg, params, batch):
     return batch["embeds"].to(DTYPE)
 
 
-def forward(cfg: ArchConfig, params: dict, batch: dict,
-            cache: Optional[dict] = None) -> Tuple[torch.Tensor, Optional[dict]]:
-    """``batch``: ``tokens`` (B, S) int, or ``embeds`` (B, S, d) for a
-    frontend model; with a cache also ``cache_pos`` (int, the position of
-    the first token).  Without a cache the tokens attend to each other
-    from position 0 (causally, or both ways for an encoder) and nothing
-    is kept; with one their KV (or recurrent state) is written into it in
-    place.  Returns ``(logits (B, S, vocab) bf16, cache)``."""
+def forward_with_aux(cfg: ArchConfig, params: dict, batch: dict,
+                     cache: Optional[dict] = None):
+    """:func:`forward`, and the MoE balance loss summed over the stacked
+    layers (an f32 zero for every other family, as the reference's):
+    ``(logits, cache, aux)``, the reference's ``forward``.  Only
+    :func:`lm_loss` reads ``aux``, so :func:`forward`, which every
+    serving caller uses, keeps its pair."""
     if cache is not None and not cfg.causal:
         raise ValueError(f"{cfg.name} is encoder-only: it has no decode "
                          "step, so its forward takes no cache")
@@ -435,25 +479,66 @@ def forward(cfg: ArchConfig, params: dict, batch: dict,
     cache_pos = 0 if cache is None else int(batch["cache_pos"])
     positions = (cache_pos + torch.arange(S, device=x.device,
                                           dtype=torch.int32))[None].expand(B, S)
+    aux = None
     if cfg.ssm == "mamba1":
         x = _forward_mamba(cfg, params, x, cache)
     elif cfg.family == "hybrid":
         x = _forward_hybrid(cfg, params, x, positions, cache)
     else:
-        x = _forward_transformer(cfg, params, x, positions, cache, cache_pos)
+        x, aux = _forward_transformer(cfg, params, x, positions, cache,
+                                      cache_pos)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x = L.norm(x, params["final_norm"], cfg.norm)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x @ head, cache
+    return x @ head, cache, aux
+
+
+def forward(cfg: ArchConfig, params: dict, batch: dict,
+            cache: Optional[dict] = None) -> Tuple[torch.Tensor, Optional[dict]]:
+    """``batch``: ``tokens`` (B, S) int, or ``embeds`` (B, S, d) for a
+    frontend model; with a cache also ``cache_pos`` (int, the position of
+    the first token).  Without a cache the tokens attend to each other
+    from position 0 (causally, or both ways for an encoder) and nothing
+    is kept; with one their KV (or recurrent state) is written into it in
+    place.  Returns ``(logits (B, S, vocab) bf16, cache)``."""
+    logits, cache, _ = forward_with_aux(cfg, params, batch, cache)
+    return logits, cache
+
+
+def lm_loss(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
+    """The training loss, as the reference's: the mean cross-entropy of
+    the f32 ``log_softmax`` of the logits against ``batch["labels"]``
+    (B, S) — for a causal model the logit at position t against the
+    label at t + 1, so ``labels`` are aligned with the positions (pass
+    the tokens themselves) — plus ``0.01 * aux``.  f32 scalar."""
+    logits, _, aux = forward_with_aux(cfg, params, batch)
+    labels = batch["labels"].long()
+    if cfg.causal:
+        logits, labels = logits[:, :-1], labels[:, 1:]
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    loss = -lp.gather(-1, labels[..., None])[..., 0].mean()
+    return loss + 0.01 * aux
+
+
+def prefill(cfg: ArchConfig, params: dict, batch: dict,
+            max_seq: Optional[int] = None) -> torch.Tensor:
+    """The whole prompt's logits without autograd, as the reference's
+    ``prefill``: a forward without a cache (``max_seq`` is unused there
+    too)."""
+    with torch.no_grad():
+        return forward(cfg, params, batch)[0]
 
 
 def decode_step(cfg: ArchConfig, params: dict, batch: dict, cache: dict):
     """One forward over ``batch``'s tokens (or embeds) at
     ``batch["cache_pos"]`` (a prompt or a single token) with the cache →
-    ``(logits, cache)``.  An encoder-only model has no decode step, and
-    training is not ported yet (ROADMAP.md Queue 1 item 7)."""
+    ``(logits, cache)``, without autograd.  An encoder-only model has no
+    decode step: :func:`forward` runs it without a cache, and
+    :func:`lm_loss` trains it."""
     if not cfg.causal:
         raise ValueError(f"{cfg.name} is encoder-only: it has no decode "
                          "step; forward(cfg, params, batch) runs it "
-                         "without a cache (training is not ported yet)")
+                         "without a cache")
     with torch.no_grad():
         return forward(cfg, params, batch, cache)

@@ -71,7 +71,7 @@ def _run_both(rcfg, rp, tcfg, tp, x):
     return (dict(experts=np.asarray(experts), gates=np.asarray(gates),
                  keep=np.asarray(keep), out=np.asarray(out, np.float32)),
             dict(experts=te.numpy(), gates=tg.numpy(), keep=tkeep.numpy(),
-                 out=tlayers.moe_block(xt, tp, tcfg).float().numpy()))
+                 out=tlayers.moe_block(xt, tp, tcfg)[0].float().numpy()))
 
 
 def _assert_out_close(got, want):
