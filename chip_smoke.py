@@ -128,10 +128,11 @@ Phases (any failure exits non-zero and prints no result line):
    in phase 2, rows ``*_latent``; [mla] checks it ran those shapes);
 12. the recurrent families at full width (``[ssm]``, random bf16
    weights from seed 0 drawn on the card, freed after each; the depth
-   cut to about a quarter for the time limit, every op still run): (a)
-   falcon-mamba-7b (16 of its 64 Mamba1 layers) and (b) zamba2-7b (18 of
-   its 81 Mamba2 layers and one shared windowed attention block applied
-   3 times of its 13) each serve one request of 512 + 64 tokens with the
+   cut for the time limit, every op still run — since PR 24 (the [mesh]
+   phase) to 12 layers each, from 16 / 18): (a) falcon-mamba-7b (12 of
+   its 64 Mamba1 layers) and (b) zamba2-7b (12 of its 81 Mamba2 layers
+   and one shared windowed attention block applied 2 times of its 13)
+   each serve one request of 512 + 64 tokens with the
    launch counts set to 0 just before and read just after — no page
    spilled, no kernel launched (the state pages nothing; the hybrid's
    rolling cache attends in plain PyTorch), nothing stored — then
@@ -168,7 +169,23 @@ Phases (any failure exits non-zero and prints no result line):
    and 3 MoE layers, 2 steps of 4096 tokens: aux loss, capacity drops,
    loss, peak memory; (e) the ``train_100m`` twin, 100 of its default
    300 steps (the time limit), its loss falling by more than 0.5;
-15. profile one more classic request (host split from cProfile, device
+15. the mesh layer (``[mesh]``; no kernel of the port may launch, counts
+   set to 0 before each part and read after): a world of one on the
+   card (NCCL over a ``FileStore``) and its (1, 1) (data, model) mesh —
+   (a) qwen2-0.5b at full width, its depth cut to 4 of 24 layers, 2
+   steps of 2 x 512 tokens with ``mesh=`` against the same 2 without
+   under deterministic algorithms: losses and params bit-equal (else
+   [train] (b)'s bounds); (b) [train] (d)'s deepseek-v2-lite-16b cut,
+   one step of 1 x 4096 tokens whose MoE layers go through
+   ``moe_block_ep`` (counted), its loss against the no-mesh step's,
+   step time and peak memory; (c) the pipelined prefill on a (1, 1, 1)
+   (stage, data, model) mesh, 4 layers, 4 x 512 tokens (4 rows, so 4
+   microbatches split them), 2 and 4 microbatches, against ``forward``
+   within 3e-2; then the group destroyed and (d) four gloo CPU ranks,
+   spawned by this script at the phase's start so they start up while
+   (a)–(c) run, at (2, 2): one deepseek smoke train step against the
+   single-rank port (losses within 1e-4 relative);
+16. profile one more classic request (host split from cProfile, device
    busy time from ``torch.profiler``) and one PNM request (cProfile).
 
 Prints the card's name and power limit, a ``kernels`` JSON line, and as
@@ -2674,10 +2691,10 @@ def examples_path(torch, build, dev="cuda"):
 # (its state pages nothing, so the tier stays empty and no tier kernel
 # runs); the frontend models run from seeded embeds.
 SSM_ARCHS = ("falcon-mamba-7b", "zamba2-7b")
-# a depth cut for the time limit: 16 of falcon-mamba's 64 Mamba1 layers,
-# and 18 of zamba2's 81 Mamba2 layers with 3 of its 13 shared-block
-# applications (after layers 0, 6 and 12): every op still runs
-SSM_LAYERS = {"falcon-mamba-7b": 16, "zamba2-7b": 18}
+# a depth cut for the time limit: 12 of falcon-mamba's 64 Mamba1 layers,
+# and 12 of zamba2's 81 Mamba2 layers with 2 of its 13 shared-block
+# applications (after layers 0 and 6): every op still runs
+SSM_LAYERS = {"falcon-mamba-7b": 12, "zamba2-7b": 12}
 SSM_SERVE = dict(smoke=False, device="trace", prompt_len=512, n_tokens=64,
                  batch=1, requests=1, hbm_kv_budget=1 << 22, page_tokens=64,
                  seed=0, verbose=False)
@@ -3639,6 +3656,289 @@ def train_path(torch, build, dev="cuda"):
               f"{_allocated(torch, dev)} B allocated", flush=True)
 
 
+MESH_ARCH = "qwen2-0.5b"
+MESH_LAYERS = 4              # [mesh] (a), (c): the first 4 of its 24 layers
+MESH_SEQ, MESH_BATCH = 512, 2
+MESH_PP_BATCH = 4            # (c): 4 rows, so 4 microbatches split them
+MESH_RANKS = 4               # (d): gloo CPU ranks at (data, model) (2, 2)
+MESH_SMOKE_SEQ, MESH_SMOKE_BATCH = 32, 4
+MESH_RANK_TIMEOUT = 240      # seconds (d)'s ranks may take, spawn included
+PP_TOL = 3e-2                # (c) pipelined prefill vs forward
+
+
+def _group_of_one(torch, dev, tmp):
+    """A process group of this process alone: NCCL over a ``FileStore``
+    on the card, gloo on the CPU."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            store=dist.FileStore(os.path.join(tmp, "store"),
+                                                 1), rank=0, world_size=1)
+
+
+def _whole(torch, tree):
+    from repro_torch.models.sharding import full
+    from repro_torch.tree import leaves_with_paths
+
+    return {k: full(v).detach() for k, v in leaves_with_paths(tree)}
+
+
+def _state_diff(torch, a, b, lr_sum: float) -> dict:
+    """Params ``a`` against ``b``: the share bit-equal, the largest
+    difference in bf16 ulps and the elements more than 1 ulp and 2 x
+    ``lr_sum`` apart."""
+    same = total = far = 0
+    worst = 0.0
+    for k, x in a.items():
+        y = b[k]
+        eq = x.view(torch.int16) == y.view(torch.int16) \
+            if x.dtype == torch.bfloat16 else x == y
+        same, total = same + int(eq.sum()), total + eq.numel()
+        u = _ulps_apart(torch, x, y)
+        worst = max(worst, float(u.max()))
+        far += int(((u > 1) & ((x.float() - y.float()).abs()
+                               > 2 * lr_sum)).sum())
+    return {"share": same / total, "ulps": worst, "far": far}
+
+
+def mesh_train_vs_plain(torch, train, dev, mesh, arch=None, smoke=False,
+                        seq=MESH_SEQ, batch=MESH_BATCH):
+    """(a): two train steps with ``mesh=`` (a world of one) against the
+    same two without, under deterministic algorithms: losses and params
+    bit-equal (a world of one reorders no sum), else within [train]
+    (b)'s bounds."""
+    arch = arch or cut_arch(MESH_ARCH, MESH_LAYERS)
+    kw = dict(arch=arch, steps=2, smoke=smoke, seq_len=seq,
+              global_batch=batch, grad_compression=True, seed=0,
+              device=dev, log_every=100)
+    torch.use_deterministic_algorithms(True)
+    try:
+        plain = train(**kw)
+        want = _whole(torch, plain["params"])
+        del plain["params"], plain["opt_state"], plain["err"]
+        t0 = time.perf_counter()
+        meshed = train(mesh=mesh, **kw)
+        _sync(torch, dev)
+        wall = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    got = _whole(torch, meshed["params"])
+    d = _state_diff(torch, got, want, sum(h["lr"] for h in meshed["history"]))
+    dl = max(abs(a - b) for a, b in zip(meshed["losses"], plain["losses"]))
+    print(f"[mesh] (a) {arch}: 2 steps of {batch} x {seq} tokens with "
+          f"mesh (1, 1) in {wall:.2f} s (steps "
+          + ", ".join(f"{h['seconds']:.3f}" for h in meshed["history"])
+          + f" s): losses {meshed['losses']} vs {plain['losses']} without, "
+          f"largest |diff| {dl:.3g}; params bit-equal {d['share']:.6f}, "
+          f"largest difference {d['ulps']:.3g} bf16 ulps, {d['far']} "
+          f"elements more than 1 ulp and 2 lr apart", flush=True)
+    if dl > CMP_LOSS_ATOL or d["share"] < CMP_PARAM_SHARE or d["far"]:
+        raise AssertionError("[mesh] (a) mesh vs plain past [train] (b)'s "
+                             "bounds")
+    return {"bit_equal": dl == 0 and d["share"] == 1.0}
+
+
+def mesh_moe(torch, train, dev, mesh, arch=None, smoke=False,
+             seq=MOE_TRAIN_SEQ, batch=MOE_TRAIN_BATCH):
+    """(b): [train] (d)'s deepseek cut, one step with ``mesh=`` whose MoE
+    layers go through ``moe_block_ep`` (counted), its loss against the
+    step without (a unit mesh's local capacity is the global one); step
+    time and peak memory."""
+    from repro_torch.models import layers
+
+    arch = arch or cut_arch(MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS)
+    kw = dict(arch=arch, steps=1, smoke=smoke, seq_len=seq,
+              global_batch=batch, grad_compression=True, seed=0, device=dev,
+              log_every=100)
+    plain = train(**kw)["losses"]
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    calls, ep = [], layers.moe_block_ep
+    layers.moe_block_ep = lambda *a, **k: calls.append(1) or ep(*a, **k)
+    try:
+        out = train(mesh=mesh, **kw)
+    finally:
+        layers.moe_block_ep = ep
+    _sync(torch, dev)
+    loss = out["losses"][0]
+    print(f"[mesh] (b) {arch}: one step of {batch} x {seq} tokens on mesh "
+          f"(1, 1): {out['history'][0]['seconds']:.3f} s, peak allocated "
+          f"{_peak(torch, dev)} B; moe_block_ep called {len(calls)} times "
+          f"(forward and remat's recompute); loss {loss:.6f} vs "
+          f"{plain[0]:.6f} without, |diff| {abs(loss - plain[0]):.3g} "
+          f"(bound {CMP_LOSS_ATOL})", flush=True)
+    if not calls or abs(loss - plain[0]) > CMP_LOSS_ATOL:
+        raise AssertionError("[mesh] (b) no EP call, or the loss is off")
+    del out
+
+
+def mesh_pipeline(torch, dev, cfg=None):
+    """(c): the pipelined prefill on a (1, 1, 1) (stage, data, model)
+    mesh with 2 and 4 microbatches of :data:`MESH_PP_BATCH` x
+    :data:`MESH_SEQ` tokens against ``forward``."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.pipeline import make_pp_prefill_step
+    from repro_torch.models.model import forward, init_params
+
+    cfg = cfg or dataclasses.replace(ARCHS[MESH_ARCH], n_layers=MESH_LAYERS)
+    mesh = make_mesh((1, 1, 1), ("stage", "data", "model"), dev)
+    params = init_params(cfg, seed=0, device=dev)
+    toks = torch.from_numpy(np.ascontiguousarray(_stream(
+        cfg, MESH_SEQ, MESH_PP_BATCH).batch_at(0)["tokens"])).to(dev)
+    with torch.no_grad():
+        want = forward(cfg, params, {"tokens": toks})[0].float()
+    line = []
+    for n in (2, 4):
+        t0 = time.perf_counter()
+        got = make_pp_prefill_step(cfg, mesh, n_micro=n)(
+            params, {"tokens": toks}).float()
+        _sync(torch, dev)
+        err = float((got - want).abs().max())
+        line.append(f"n_micro {n}: {time.perf_counter() - t0:.3f} s, max "
+                    f"|pp - forward| {err:.3g}")
+        if got.shape != want.shape or not err <= PP_TOL:
+            raise AssertionError(f"[mesh] (c) n_micro {n}: {err}")
+    print(f"[mesh] (c) {cfg.name} ({cfg.n_layers} layers), {MESH_PP_BATCH} "
+          f"x {MESH_SEQ} tokens, pipelined prefill on (1, 1, 1): "
+          + "; ".join(line) + f" (bound {PP_TOL})", flush=True)
+
+
+def _mesh_rank(rank, store, out):
+    """One gloo CPU rank of (d): deepseek-v2-lite-16b at smoke width, one
+    train step on a (2, 2) mesh; rank 0 saves the loss and the params."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import train
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store, MESH_RANKS),
+                            rank=rank, world_size=MESH_RANKS)
+    try:
+        m = make_mesh((2, 2), ("data", "model"), "cpu")
+        r = train(arch=MOE_TRAIN_ARCH, steps=1, smoke=True,
+                  seq_len=MESH_SMOKE_SEQ, global_batch=MESH_SMOKE_BATCH,
+                  seed=0, device="cpu", mesh=m, log_every=100)
+        whole = _whole(torch, r["params"])
+        if rank == 0:
+            torch.save({"losses": r["losses"], "params": whole,
+                        "lr": r["history"][0]["lr"]}, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def start_gloo_ranks(tmp):
+    """(d)'s :data:`MESH_RANKS` gloo CPU ranks, spawned now so that they
+    start while (a)–(c) run on the card."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    store, out = os.path.join(tmp, "gloo_store"), os.path.join(tmp, "r0.pt")
+    procs = [ctx.Process(target=_mesh_rank, args=(r, store, out))
+             for r in range(MESH_RANKS)]
+    for p in procs:
+        p.start()
+    return procs, out, time.perf_counter()
+
+
+def mesh_gloo_ranks(torch, started):
+    """(d): the spawned ranks at (2, 2), one deepseek smoke train step,
+    against the single-rank port: the loss within 1e-4 relative, the
+    params within [train] (b)'s bounds.  A rank that fails or outlives
+    :data:`MESH_RANK_TIMEOUT` from its start fails the phase (and is
+    killed)."""
+    from repro_torch.launch.train import train
+
+    procs, out, t0 = started
+    try:
+        deadline = t0 + MESH_RANK_TIMEOUT
+        for p in procs:
+            p.join(max(0.0, deadline - time.perf_counter()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    codes = [p.exitcode for p in procs]
+    if any(codes) or not os.path.exists(out):
+        raise AssertionError(f"[mesh] (d) ranks exited {codes}")
+    got = torch.load(out, weights_only=False)
+    one = train(arch=MOE_TRAIN_ARCH, steps=1, smoke=True,
+                seq_len=MESH_SMOKE_SEQ, global_batch=MESH_SMOKE_BATCH,
+                seed=0, device="cpu", log_every=100)
+    d = _state_diff(torch, got["params"], _whole(torch, one["params"]),
+                    got["lr"])
+    rel = abs(got["losses"][0] - one["losses"][0]) / abs(one["losses"][0])
+    print(f"[mesh] (d) {MESH_RANKS} gloo CPU ranks at (2, 2), "
+          f"{MOE_TRAIN_ARCH} at smoke width, one step of "
+          f"{MESH_SMOKE_BATCH} x {MESH_SMOKE_SEQ} tokens, "
+          f"{time.perf_counter() - t0:.1f} s from their spawn: loss "
+          f"{got['losses'][0]:.6f} vs one rank {one['losses'][0]:.6f} "
+          f"(relative {rel:.3g}, bound 1e-4); params bit-equal "
+          f"{d['share']:.6f}, {d['far']} elements more than 1 ulp and 2 lr "
+          f"apart", flush=True)
+    if rel > 1e-4 or d["share"] < CMP_PARAM_SHARE or d["far"]:
+        raise AssertionError("[mesh] (d) ranks vs one rank past bounds")
+
+
+def mesh_path(torch, build, dev="cuda", smoke=False):
+    """[mesh]: (d)'s gloo CPU ranks spawned first, then a world of one
+    on ``dev`` and its (1, 1) mesh for (a)–(c), then (d) collected; the
+    launch counts set to 0 before each part and read after (no kernel of
+    the port is on this path); the world of one destroyed after (c)."""
+    import dataclasses
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import train
+
+    dev = torch.device(dev)
+    small = dict(smoke=True, seq=MESH_SMOKE_SEQ, batch=2) if smoke else {}
+    with tempfile.TemporaryDirectory(prefix="mesh_") as tmp:
+        ranks = start_gloo_ranks(tmp)
+        _group_of_one(torch, dev, tmp)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"), dev)
+            parts = (
+                ("(a)", lambda: mesh_train_vs_plain(
+                    torch, train, dev, mesh,
+                    arch=MESH_ARCH if smoke else None, **small)),
+                ("(b)", lambda: mesh_moe(
+                    torch, train, dev, mesh,
+                    arch=MOE_TRAIN_ARCH if smoke else None, **small)),
+                ("(c)", lambda: mesh_pipeline(torch, dev, dataclasses.replace(
+                    smoke_config(ARCHS[MESH_ARCH]), n_layers=MESH_LAYERS)
+                    if smoke else None)))
+            for part, fn in parts:
+                t0 = time.perf_counter()
+                build.reset_launches()
+                fn()
+                if any(build.LAUNCHES.values()):
+                    raise AssertionError(f"[mesh] {part} launched a kernel "
+                                         f"of the port: "
+                                         f"{dict(build.LAUNCHES)}")
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+                print(f"[mesh] {part} done in {time.perf_counter() - t0:.1f}"
+                      f" s", flush=True)
+        finally:
+            dist.destroy_process_group()
+        t0 = time.perf_counter()
+        mesh_gloo_ranks(torch, ranks)
+        print(f"[mesh] (d) done in {time.perf_counter() - t0:.1f} s after "
+              f"(c)", flush=True)
+
+
 # the kernels only the kernel API reaches
 API_ONLY_KERNELS = ("elastic_matmul", "kv_delta_inv")
 # rows of the kernels line for [mla]'s 512-channel shapes
@@ -3811,6 +4111,8 @@ def main():
     phase("frontends")
     train_path(torch, build)
     phase("train")
+    mesh_path(torch, build)
+    phase("mesh")
     profile_request(torch, serve, params)
     profile_request(torch, serve, params, device_time=False, pnm_topk=16,
                     importance="attention")

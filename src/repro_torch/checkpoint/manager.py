@@ -13,6 +13,11 @@ other saved, bit for bit.
 * **Async save**: ``save(..., blocking=False)`` copies the tensors to
   host memory at once, then serializes on a worker thread.
 * **Retention**: keeps the newest ``keep`` checkpoints.
+* **Mesh-independence (elastic restart)**: a DTensor leaf is saved as
+  its unsharded logical value, gathered on every rank (a collective
+  each rank of the mesh calls) and written by rank 0 alone; a restore
+  given ``shardings`` re-shards every leaf onto the *current* mesh, so a
+  run saved on one mesh resumes on another, or on one device.
 """
 
 from __future__ import annotations
@@ -28,18 +33,27 @@ import numpy as np
 import torch
 
 from .. import devices
+from ..models.sharding import distribute, full
 from ..tree import leaves_with_paths, map_tree
 
 Device = Union[str, torch.device, None]
 
 
 def _host(leaf) -> Union[torch.Tensor, np.ndarray]:
-    """A leaf as host data owned by the snapshot: a tensor copied to the
-    CPU (a copy even there, since the train step writes in place), or a
-    numpy array."""
+    """A leaf as host data owned by the snapshot: a tensor (a DTensor's
+    whole value) copied to the CPU (a copy even there, since the train
+    step writes in place), or a numpy array."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True)
+        return full(leaf.detach()).to("cpu", copy=True)
     return np.array(leaf)
+
+
+def _writer() -> bool:
+    """Whether this process writes: rank 0 of a process group, or the
+    only process."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _to_numpy(leaf) -> tuple:
@@ -69,10 +83,15 @@ def save_pytree(tree: dict, directory: str):
 
 
 def restore_pytree(template: dict, directory: str,
-                   device: Device = None) -> dict:
+                   device: Device = None, shardings: Optional[dict] = None
+                   ) -> dict:
     """Restore into the structure of ``template`` (a tree with any
     leaves: only its keys are read) as tensors on ``device`` (default:
-    the card).  Raises ``KeyError`` for a leaf the checkpoint lacks."""
+    the card).  ``shardings``: a matching tree of
+    :class:`..models.sharding.NamedSharding` (None for a leaf kept whole)
+    that places each leaf as a DTensor on the current mesh; every rank
+    reads the file and keeps its shards.  Raises ``KeyError`` for a leaf
+    the checkpoint lacks."""
     dev = devices.resolve(device)
     with np.load(os.path.join(directory, "arrays.npz")) as z:
         data = {k: z[k] for k in z.files}
@@ -89,12 +108,17 @@ def restore_pytree(template: dict, directory: str,
                 torch.bfloat16).to(dev)
         return torch.from_numpy(arr).to(dev)
 
-    def walk(tree, prefix):
-        return {k: walk(v, f"{prefix}{k}/") if isinstance(v, dict)
-                else leaf(f"{prefix}{k}") for k, v in tree.items()
-                if v is not None}
+    def place(key, sharding):
+        t = leaf(key)
+        return t if sharding is None else distribute(t, sharding)
 
-    return walk(template, "")
+    def walk(tree, sh, prefix):
+        return {k: walk(v, (sh or {}).get(k), f"{prefix}{k}/")
+                if isinstance(v, dict)
+                else place(f"{prefix}{k}", (sh or {}).get(k))
+                for k, v in tree.items() if v is not None}
+
+    return walk(template, shardings, "")
 
 
 class CheckpointManager:
@@ -128,8 +152,11 @@ class CheckpointManager:
     def save(self, step: int, tree: dict, blocking: bool = True,
              extra: Optional[dict] = None):
         """Copy ``tree`` to host memory now; serialize it (a)synchronously
-        after the previous save has finished."""
+        after the previous save has finished.  On a mesh every rank calls
+        this (it gathers each DTensor) and rank 0 alone writes."""
         host_tree = map_tree(_host, tree)
+        if not _writer():
+            return
 
         def work():
             tmp = tempfile.mkdtemp(dir=self.root, prefix=".tmp_")
@@ -177,12 +204,13 @@ class CheckpointManager:
 
     # -- restore ---------------------------------------------------------------
     def restore(self, template: dict, step: Optional[int] = None,
-                device: Device = None):
-        """``(tree, manifest)`` of ``step`` (default: the latest)."""
+                device: Device = None, shardings: Optional[dict] = None):
+        """``(tree, manifest)`` of ``step`` (default: the latest), leaves
+        placed by ``shardings`` where given (:func:`restore_pytree`)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.root}")
-        tree = restore_pytree(template, self._dir(step), device)
+        tree = restore_pytree(template, self._dir(step), device, shardings)
         with open(os.path.join(self._dir(step), "manifest.json")) as f:
             manifest = json.load(f)
         return tree, manifest

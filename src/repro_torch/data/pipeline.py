@@ -87,16 +87,45 @@ class ShardedTokenStream:
         return {"tokens": arr[:, :-1], "labels": arr[:, 1:]}
 
 
+def batch_rows(sharding) -> tuple:
+    """``(rank, world)`` of this rank's rows of the global batch under
+    ``sharding`` (a :class:`..models.sharding.NamedSharding` of the (B, S)
+    arrays): its index along the mesh dims of dim 0, outer dim first;
+    ``(0, 1)`` for None."""
+    if sharding is None:
+        return 0, 1
+    from ..models.sharding import coordinate, mesh_dims
+
+    return coordinate(sharding.mesh, mesh_dims(sharding.spec[0]))
+
+
 def make_train_iterator(cfg: DataConfig,
                         device: Union[str, torch.device, None] = None,
-                        start_step: int = 0):
+                        start_step: int = 0, batch_sharding=None):
     """Yield ``(step, batch)`` forever from ``start_step``: the stream's
-    arrays as int32 tensors on ``device`` (default: the card)."""
+    arrays as int32 tensors on ``device`` (default: the card).
+    ``batch_sharding``: a ``NamedSharding`` of the (B, S) arrays; each
+    rank then draws only its rows (the stream's bytes, row for row) and
+    gets them as a DTensor of that sharding."""
     dev = devices.resolve(device)
     stream = ShardedTokenStream(cfg)
+    rank, world = batch_rows(batch_sharding)
     step = start_step
     while True:
-        host = stream.batch_at(step)
-        yield step, {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-                     for k, v in host.items()}
+        host = stream.batch_at(step, rank, world)
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                 for k, v in host.items()}
+        if batch_sharding is not None:
+            batch = {k: _rows_dtensor(v, batch_sharding, cfg.global_batch)
+                     for k, v in batch.items()}
+        yield step, batch
         step += 1
+
+
+def _rows_dtensor(rows: torch.Tensor, sharding, global_batch: int):
+    from torch.distributed.tensor import DTensor
+
+    shape = (global_batch,) + tuple(rows.shape[1:])
+    return DTensor.from_local(rows, sharding.mesh, sharding.placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())

@@ -1,15 +1,22 @@
-"""Train loop of the port on one device: eager train steps on the
-synthetic token stream, with checkpoints and restart.
+"""Train loop of the port: eager train steps on the synthetic token
+stream, with checkpoints and restart, on one device or on a mesh.
 
 The reference's loop (``repro.launch.train``) with its fault-tolerance
-contract, on one device (the mesh comes with its own slice):
+contract:
   * a checkpoint every ``ckpt_every`` steps (host copy at once,
     serialized on a thread) and one at the end;
   * a restart resumes from the latest committed manifest — params,
     optimizer moments, error-feedback buffers and the data step, so the
     token stream continues exactly where it stopped;
   * a straggler watchdog: a step slower than ``straggler_factor`` times
-    the trailing median is logged with its index.
+    the trailing median is logged with its index;
+  * ``mesh=`` (a ``DeviceMesh`` with ``data`` and ``model`` dims, and
+    optionally ``pod``; one process per rank, its process group started):
+    the rules of the train cell (``launch.mesh.rules_for``) place the
+    parameters, moments and error buffers as DTensors, each rank reads
+    its rows of the batch, and a restart re-shards the checkpoint onto
+    the current mesh (elastic: save on one mesh, resume on another or on
+    one device).  Only rank 0 prints and writes checkpoints.
 
 Labels are aligned with the positions: the stream's ``tokens`` go to
 :func:`..models.model.lm_loss` as both inputs and labels, and its causal
@@ -27,6 +34,11 @@ Usage:
       --steps 20 --seq-len 4096 --global-batch 2
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --cpu \\
       --steps 20 --ckpt-dir ckpt
+
+On a mesh, one process per rank (``torchrun`` sets the rendezvous)::
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --smoke \\
+      --mesh 2,2 --steps 20 --global-batch 8
 """
 
 from __future__ import annotations
@@ -42,24 +54,30 @@ import torch
 from .. import devices
 from ..checkpoint import CheckpointManager
 from ..configs import ARCHS, smoke_config
+from ..configs.base import ShapeConfig
 from ..data import DataConfig, ShardedTokenStream
+from ..data.pipeline import batch_rows
 from ..models.model import DTYPE, init_params, schema
+from ..models.sharding import mesh_dims
 from ..optim import init as opt_init
 from ..optim.grad_compress import init_error_feedback
+from . import mesh as mesh_lib
 from .steps import make_train_step
 
 
-def frontend_embeds(cfg, tokens: torch.Tensor, seed: int, step: int
-                    ) -> torch.Tensor:
+def frontend_embeds(cfg, tokens: torch.Tensor, seed: int, step: int,
+                    rank: int = 0, world: int = 1) -> torch.Tensor:
     """The frontend stub's (B, S, d) bf16 embeds for ``step``: a standard
     normal draw from a generator on ``tokens``' device seeded by ``(seed,
-    step)``, plus ``tokens * 1e-3``."""
+    step)``, plus ``tokens * 1e-3``.  ``tokens`` may be rows ``rank`` of
+    ``world`` equal shares of the global batch: the draw is the global
+    batch's, and those rows of it are kept."""
     dev = tokens.device
     key = int(np.random.SeedSequence([seed, step]).generate_state(1)[0])
     gen = torch.Generator(device=dev).manual_seed(key)
     B, S = tokens.shape
-    noise = torch.randn((B, S, cfg.d_model), generator=gen, device=dev,
-                        dtype=DTYPE)
+    noise = torch.randn((B * world, S, cfg.d_model), generator=gen,
+                        device=dev, dtype=DTYPE)[rank * B : (rank + 1) * B]
     return noise + tokens.to(DTYPE)[..., None] * 1e-3
 
 
@@ -76,33 +94,57 @@ def train(
     log_every: int = 1,
     seed: int = 0,
     device: Union[str, torch.device, None] = None,
+    mesh=None,
 ) -> dict:
     """Train ``arch`` (``smoke``: its reduced config) to step ``steps`` on
     ``device`` (default: the card), from step 0 or the latest checkpoint
-    under ``ckpt_dir``.  Returns ``losses`` and ``history`` (per step run:
-    ``step``, ``loss``, ``grad_norm``, ``lr``, ``seconds``), the first
-    step run (``start_step``) and the final ``params``, ``opt_state``
-    and ``err`` (the error-feedback buffers)."""
+    under ``ckpt_dir``; on ``mesh`` (a ``DeviceMesh`` on ``device``'s
+    type) with the train cell's rules.  Returns ``losses`` and
+    ``history`` (per step run: ``step``, ``loss``, ``grad_norm``, ``lr``,
+    ``seconds``; the loss the global batch's), the first step run
+    (``start_step``), the final ``params``, ``opt_state`` and ``err``
+    (the error-feedback buffers; DTensors on a mesh) and the ``rules``
+    (None without a mesh)."""
     dev = devices.resolve(device)
     cfg = ARCHS[arch]
     if smoke:
         cfg = smoke_config(cfg)
-    train_step, ocfg = make_train_step(cfg, grad_compression=grad_compression)
+    rules = shardings = batch_sh = None
+    if mesh is not None:
+        rules = mesh_lib.rules_for(
+            cfg, ShapeConfig("train", seq_len, global_batch, "train"), mesh)
+        shardings = mesh_lib.param_shardings(cfg, rules)
+        batch_sh = rules.act().sharding_for_shape(("batch", "seq"),
+                                                  (global_batch, seq_len))
+        if mesh_dims(batch_sh.spec[0]) != rules.batch_axes():
+            raise ValueError(f"global batch {global_batch} does not split "
+                             f"over the batch dims {rules.batch_axes()}")
+    rank, world = batch_rows(batch_sh)
+    main = _is_main()
+    train_step, ocfg = make_train_step(cfg, rules=rules,
+                                       grad_compression=grad_compression)
 
     # --- state init or restore ------------------------------------------------
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
     start_step = 0
     if mgr and mgr.latest_step() is not None:
         spec = schema(cfg)          # the keys a restore reads
+        place = None if shardings is None else {
+            "params": shardings, "opt": {"mu": shardings, "nu": shardings},
+            "err": shardings}
         state, manifest = mgr.restore(
             {"params": spec, "opt": {"mu": spec, "nu": spec, "step": 0},
-             "err": spec}, device=dev)
+             "err": spec}, device=dev, shardings=place)
         params, opt_state, err = state["params"], state["opt"], state["err"]
         start_step = manifest["step"]
-        print(f"[train] restored step {start_step} from {ckpt_dir}",
-              flush=True)
+        if main:
+            print(f"[train] restored step {start_step} from {ckpt_dir}",
+                  flush=True)
     else:
-        params = init_params(cfg, seed=seed, device=dev)
+        if rules is None:
+            params = init_params(cfg, seed=seed, device=dev)
+        else:
+            params = mesh_lib.init_sharded_params(cfg, rules, seed, dev)
         opt_state = opt_init(ocfg, params)
         err = init_error_feedback(params)
 
@@ -112,13 +154,14 @@ def train(
     # --- loop -------------------------------------------------------------------
     losses, durations, history = [], [], []
     for step in range(start_step, steps):
-        tokens = torch.from_numpy(
-            np.ascontiguousarray(data.batch_at(step)["tokens"])).to(dev)
+        tokens = torch.from_numpy(np.ascontiguousarray(
+            data.batch_at(step, rank, world)["tokens"])).to(dev)
         batch = {"labels": tokens}
         if cfg.uses_tokens:
             batch["tokens"] = tokens
         else:
-            batch["embeds"] = frontend_embeds(cfg, tokens, seed, step)
+            batch["embeds"] = frontend_embeds(cfg, tokens, seed, step, rank,
+                                              world)
         t0 = time.perf_counter()
         params, opt_state, err, metrics = train_step(
             params, opt_state, err, batch)
@@ -129,12 +172,12 @@ def train(
         history.append({"step": step, "loss": loss,
                         "grad_norm": float(metrics["grad_norm"]),
                         "lr": float(metrics["lr"]), "seconds": dt})
-        if len(durations) >= 5:
+        if len(durations) >= 5 and main:
             med = statistics.median(durations[-20:])
             if dt > straggler_factor * med:
                 print(f"[straggler] step {step}: {dt:.3f}s vs median "
                       f"{med:.3f}s", flush=True)
-        if step % log_every == 0:
+        if step % log_every == 0 and main:
             print(f"[train] step {step} loss {loss:.4f} gnorm "
                   f"{history[-1]['grad_norm']:.3f} lr "
                   f"{history[-1]['lr']:.3g} {dt * 1e3:.0f}ms", flush=True)
@@ -146,8 +189,16 @@ def train(
         mgr.save(steps, {"params": params, "opt": opt_state, "err": err},
                  extra={"arch": arch, "loss": losses[-1] if losses else None})
         mgr.wait()
+        if mesh is not None:        # every rank sees the committed step
+            torch.distributed.barrier()
     return {"losses": losses, "history": history, "start_step": start_step,
-            "params": params, "opt_state": opt_state, "err": err}
+            "params": params, "opt_state": opt_state, "err": err,
+            "rules": rules}
+
+
+def _is_main() -> bool:
+    return (not torch.distributed.is_initialized()
+            or torch.distributed.get_rank() == 0)
 
 
 def main():
@@ -165,18 +216,31 @@ def main():
                     help="train on the CPU instead of the card")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the initial weights and the data stream")
+    ap.add_argument("--mesh", default=None,
+                    help="data,model (or pod,data,model) sizes: train on a "
+                    "mesh, one process per rank, as torchrun starts them")
     args = ap.parse_args()
+    device = "cpu" if args.cpu else None
+    mesh = None
+    if args.mesh:
+        shape = tuple(int(n) for n in args.mesh.split(","))
+        axes = ("data", "model") if len(shape) == 2 else ("pod", "data",
+                                                          "model")
+        mesh = mesh_lib.make_mesh(shape, axes, device)
     out = train(
         arch=args.arch, steps=args.steps, smoke=args.smoke,
         seq_len=args.seq_len, global_batch=args.global_batch,
         ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
         grad_compression=not args.no_grad_compression, seed=args.seed,
-        device="cpu" if args.cpu else None,
+        device=device, mesh=mesh,
     )
-    if out["losses"]:
-        print(f"[train] done; final loss {out['losses'][-1]:.4f}")
-    else:
-        print(f"[train] done; already at step {out['start_step']}")
+    if _is_main():
+        if out["losses"]:
+            print(f"[train] done; final loss {out['losses'][-1]:.4f}")
+        else:
+            print(f"[train] done; already at step {out['start_step']}")
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

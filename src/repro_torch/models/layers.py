@@ -19,6 +19,10 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.decode_attn import decode_attention
+from .sharding import (
+    all_to_all, axis_sizes, coordinate, current_rules, gather_rows, gathered,
+    logical, sharded_batch_dims, split_rows, sum_over,
+)
 
 _MASKED = -1e30
 
@@ -144,6 +148,8 @@ def gqa_block(x, p, cfg, *, positions, cache=None, cache_pos: int = 0,
         k = rope(k, positions, cfg.rope_theta)
     chunk = 256 if S > 1024 else 0
     if cache is None:
+        q = logical(q, "batch", "seq", "heads", None)
+        k = logical(k, "batch", "seq", "kv_heads", None)
         out = attention(q, k, v, q_positions=positions, causal=cfg.causal,
                         window=window, q_chunk=chunk)
     elif "kpos" in cache:
@@ -152,6 +158,8 @@ def gqa_block(x, p, cfg, *, positions, cache=None, cache_pos: int = 0,
         kc, vc = cache["k"], cache["v"]
         kc[:, cache_pos : cache_pos + S] = k.to(kc.dtype)
         vc[:, cache_pos : cache_pos + S] = v.to(vc.dtype)
+        kc = logical(kc, "batch", "kv_seq", "kv_heads", None)
+        vc = logical(vc, "batch", "kv_seq", "kv_heads", None)
         if S == 1:
             o = decode_attention(q[:, 0].contiguous(), kc, vc,
                                  valid_len=cache_pos + 1, scale=_scale(q))
@@ -250,6 +258,7 @@ def mlp_apply(h, p, kind: str):
         z = F.relu(h @ p["w1"]).square()
     else:
         z = gelu(h @ p["w1"])
+    z = logical(z, "batch", "seq", "mlp")
     return z @ p["w2"]
 
 
@@ -265,6 +274,7 @@ def _expert_ffn(buf, p, cfg):
         z = silu(buf @ p["w1"]) * (buf @ p["w3"])
     else:
         z = gelu(buf @ p["w1"])
+    z = logical(z, "experts", "capacity", "moe_mlp")
     return z @ p["w2"]
 
 
@@ -318,6 +328,94 @@ def _moe_dense_decode(flat, p, cfg, gates, experts):
     return torch.einsum("etd,te->td", y_all, weight.to(flat.dtype))
 
 
+def _dispatch(flat, experts, pos, keep, n_experts: int, cap: int):
+    """Each kept (token, choice)'s row of ``flat`` at its slot of the
+    (E, cap, d) capacity buffer; dropped pairs are left out."""
+    k = experts.shape[1]
+    buf = flat.new_zeros(n_experts, cap, flat.shape[1])
+    buf[experts[keep], pos[keep]] = flat.repeat_interleave(k, dim=0)[
+        keep.reshape(-1)]
+    return buf
+
+
+def _combine(y_buf, experts, pos, keep, gates):
+    """Each token's kept expert outputs weighted by its gates and summed
+    (a dropped pair adds nothing)."""
+    T, k = keep.shape
+    got = y_buf.new_zeros(T, k, y_buf.shape[-1])
+    got[keep] = y_buf[experts[keep], pos[keep]]
+    return (got * gates[..., None].to(y_buf.dtype)).sum(dim=1)
+
+
+def _ep_axes(rules, B: int, S: int, n_experts: int):
+    """The token axes of the expert-parallel path under ``rules`` (the
+    batch dims + ``model``), or None where the reference takes the plain
+    block: a single token, no ``model`` dim, experts that do not divide
+    it, or local tokens that do not split over it."""
+    if rules is None or S == 1 or not hasattr(rules.mesh, "get_group"):
+        return None
+    sizes = axis_sizes(rules.mesh)
+    if "model" not in sizes or n_experts % sizes["model"]:
+        return None
+    if (B * S) % sizes["model"]:
+        return None
+    return tuple(a for a in ("pod", "data") if a in sizes) + ("model",)
+
+
+def moe_block_ep(x, p, cfg, mesh, token_axes):
+    """Expert-parallel MoE: the reference's ``moe_block_ep`` (shard_map +
+    ``all_to_all``), on this rank's local tensors.
+
+    ``x`` (B, S, d) holds this rank's batch rows, the same on every rank
+    along ``model``; its B·S tokens split over ``model``, so the token
+    axes (``token_axes``: the batch dims + ``model``) partition them and
+    each rank routes its T_l tokens into a local capacity buffer of
+    ``cap_l = int(max(1, capacity_factor * k * T_l / E))`` rows an expert
+    — local capacity, so overflowing tokens drop as in the reference's
+    expert-parallel path, not its plain block.  Experts are sharded over
+    ``model`` (their weights gathered over the other dims only); one
+    ``all_to_all`` moves each rank's (E, cap_l, d) buffer to the experts'
+    owners as (E/M, M·cap_l, d), the expert FFN runs there, a second
+    brings the results back, and the tokens' outputs are gathered over
+    ``model`` again.  ``aux`` is ``E * sum(mean(frac_tokens) *
+    mean(frac_probs))``, both means over every token axis.  Returns
+    ``(out (B, S, d), aux)``."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    M = axis_sizes(mesh)["model"]
+    batch = token_axes[:-1]
+    dense = gathered({n: p[n] for n in ("norm", "shared") if n in p},
+                     differ=batch)
+    router = gathered(p["router"], differ=token_axes)
+    ffn = gathered({n: p[n] for n in ("w1", "w2", "w3") if n in p},
+                   differ=batch, keep=("model",))
+    h = norm(x, dense["norm"], cfg.norm)
+    flat = split_rows(h.reshape(B * S, d), mesh, ("model",))
+    T_l = flat.shape[0]
+    cap = int(max(1, cfg.capacity_factor * k * T_l / E))
+    gates, experts = route(flat, router, k)
+    pos, keep = capacity_slots(experts, E, cap)
+    buf = _dispatch(flat, experts, pos, keep, E, cap)
+    # (E, cap, d) → from each rank its block of my experts → (E/M, M·cap, d)
+    buf = all_to_all(buf, mesh, "model")
+    buf = buf.reshape(M, E // M, cap, d).transpose(0, 1).reshape(
+        E // M, M * cap, d)
+    y = _expert_ffn(buf, ffn, cfg)
+    y = y.reshape(E // M, M, cap, d).transpose(0, 1).contiguous()
+    y = all_to_all(y, mesh, "model").reshape(E, cap, d)
+    out = gather_rows(_combine(y, experts, pos, keep, gates), mesh,
+                      ("model",)).reshape(B, S, d)
+    n = coordinate(mesh, token_axes)[1]
+    frac_tokens = sum_over(F.one_hot(experts[:, 0], E).float().mean(0),
+                           mesh, token_axes) / n
+    frac_probs = sum_over(router_probs(flat, router).mean(0), mesh,
+                          token_axes) / n
+    aux = E * (frac_tokens * frac_probs).sum()
+    if cfg.n_shared_experts:
+        out = out + mlp_apply(h, dense["shared"], cfg.mlp)
+    return out, aux
+
+
 def moe_block(x, p, cfg):
     """Pre-norm token-choice top-k MoE plus the shared experts.
 
@@ -331,12 +429,26 @@ def moe_block(x, p, cfg):
     ROADMAP.md Queue 3); None for a single token, where the reference's
     is a zero (a decode step launches nothing for it).  Routing goes
     through the module's ``route``, so a caller may pin it.
+
+    On a mesh (rules installed) a prompt takes :func:`moe_block_ep`
+    where the reference does; otherwise the block gathers the batch's
+    tokens over the batch dims and routes them all, as the reference's
+    global dispatch does, keeping this rank's rows (``aux``'s gradient
+    split over the batch ranks, so their sum is the global one).
     """
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
+    rules = current_rules()
+    token_axes = _ep_axes(rules, B, S, E)
+    if token_axes is not None:
+        return moe_block_ep(x, p, cfg, rules.mesh, token_axes)
+    p = gathered(p)
     h = norm(x, p["norm"], cfg.norm)
     flat = h.reshape(B * S, d)
-    T = B * S
+    batch = sharded_batch_dims(rules) if S > 1 else ()
+    if batch:
+        flat = gather_rows(flat, rules.mesh, batch, partial_grad=True)
+    T = flat.shape[0]
     gates, experts = route(flat, p["router"], k)
     if S == 1:
         out = _moe_dense_decode(flat, p, cfg, gates, experts)
@@ -344,14 +456,14 @@ def moe_block(x, p, cfg):
     else:
         cap = int(max(1, cfg.capacity_factor * k * T / E))
         pos, keep = capacity_slots(experts, E, cap)
-        buf = torch.zeros(E, cap, d, dtype=x.dtype, device=x.device)
-        rows = flat.repeat_interleave(k, dim=0)[keep.reshape(-1)]
-        buf[experts[keep], pos[keep]] = rows
-        y_buf = _expert_ffn(buf, p, cfg)                      # (E, cap, d)
-        gathered = torch.zeros(T, k, d, dtype=x.dtype, device=x.device)
-        gathered[keep] = y_buf[experts[keep], pos[keep]]
-        out = (gathered * gates[..., None].to(x.dtype)).sum(dim=1)
+        buf = logical(_dispatch(flat, experts, pos, keep, E, cap),
+                      "experts", "capacity", "embed")
+        out = _combine(_expert_ffn(buf, p, cfg), experts, pos, keep, gates)
         aux = balance_loss(router_probs(flat, p["router"]), experts)
+    if batch:
+        index, n = coordinate(rules.mesh, batch)
+        out = out[index * B * S : (index + 1) * B * S]
+        aux = aux.detach() + (aux - aux.detach()) / n
     out = out.reshape(B, S, d)
     if cfg.n_shared_experts:
         out = out + mlp_apply(h, p["shared"], cfg.mlp)
@@ -425,6 +537,7 @@ def mamba1_mix(x, p, cfg, state=None):
     r = max(d // 16, 1)
     xz = x @ p["in_proj"]
     xs, z = xz[..., :di], xz[..., di:]
+    xs = logical(xs, "batch", "seq", "d_inner")
     xs, conv = causal_conv1d(xs, p["conv_w"], p["conv_b"],
                              None if state is None else state["conv"])
     xs = silu(xs)

@@ -26,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import devices
 from ..configs.base import ArchConfig
 from . import layers as L
+from .sharding import gathered, local_cache, logical
 
 DTYPE = torch.bfloat16
 KV_DTYPES = {"bfloat16": torch.bfloat16, "float8_e4m3fn": torch.float8_e4m3fn}
@@ -46,26 +47,41 @@ def cfg_layers(cfg: ArchConfig) -> int:
     return cfg.n_layers - cfg.first_dense
 
 
-def _norm_spec(cfg, lead):
-    s = {"scale": (lead + (cfg.d_model,), "zeros")}
+class Spec(NamedTuple):
+    """One parameter: its shape, init kind and logical axes (one name
+    or None per dim), the reference's ``Spec``."""
+
+    shape: tuple
+    init: str
+    axes: tuple
+
+
+def _spec(shape, init, axes) -> Spec:
+    assert len(shape) == len(axes), (shape, axes)
+    return Spec(tuple(shape), init, tuple(axes))
+
+
+def _norm_spec(cfg, lead, lead_axes):
+    s = {"scale": _spec(lead + (cfg.d_model,), "zeros", lead_axes + (None,))}
     if cfg.norm == "layernorm":
-        s["bias"] = (lead + (cfg.d_model,), "zeros")
+        s["bias"] = _spec(lead + (cfg.d_model,), "zeros", lead_axes + (None,))
     return s
 
 
 def _attn_specs(cfg, n):
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    A = ("layers",)
     s = {
-        "norm": _norm_spec(cfg, (n,)),
-        "wq": ((n, d, H * hd), "normal"),
-        "wk": ((n, d, KV * hd), "normal"),
-        "wv": ((n, d, KV * hd), "normal"),
-        "wo": ((n, H * hd, d), "normal"),
+        "norm": _norm_spec(cfg, (n,), A),
+        "wq": _spec((n, d, H * hd), "normal", A + ("embed", "heads")),
+        "wk": _spec((n, d, KV * hd), "normal", A + ("embed", "kv_heads")),
+        "wv": _spec((n, d, KV * hd), "normal", A + ("embed", "kv_heads")),
+        "wo": _spec((n, H * hd, d), "normal", A + ("heads", "embed")),
     }
     if cfg.qkv_bias:
-        s["bq"] = ((n, H * hd), "zeros")
-        s["bk"] = ((n, KV * hd), "zeros")
-        s["bv"] = ((n, KV * hd), "zeros")
+        s["bq"] = _spec((n, H * hd), "zeros", A + ("heads",))
+        s["bk"] = _spec((n, KV * hd), "zeros", A + ("kv_heads",))
+        s["bv"] = _spec((n, KV * hd), "zeros", A + ("kv_heads",))
     return s
 
 
@@ -73,37 +89,42 @@ def _mla_specs(cfg, n):
     """As the reference's: the attention norm has no layernorm bias."""
     d, H, hd = cfg.d_model, cfg.n_heads, cfg.hd
     r, rd, vh = cfg.kv_lora_rank, cfg.qk_rope_dim, cfg.v_head_dim or cfg.hd
+    A = ("layers",)
     return {
-        "norm": {"scale": ((n, d), "zeros")},
-        "wq": ((n, d, H * (hd + rd)), "normal"),
-        "w_dkv": ((n, d, r + rd), "normal"),
-        "kv_norm": {"scale": ((n, r), "zeros")},
-        "w_uk": ((n, r, H * hd), "normal"),
-        "w_uv": ((n, r, H * vh), "normal"),
-        "wo": ((n, H * vh, d), "normal"),
+        "norm": {"scale": _spec((n, d), "zeros", A + (None,))},
+        "wq": _spec((n, d, H * (hd + rd)), "normal", A + ("embed", "heads")),
+        "w_dkv": _spec((n, d, r + rd), "normal", A + ("embed", None)),
+        "kv_norm": {"scale": _spec((n, r), "zeros", A + (None,))},
+        "w_uk": _spec((n, r, H * hd), "normal", A + (None, "heads")),
+        "w_uv": _spec((n, r, H * vh), "normal", A + (None, "heads")),
+        "wo": _spec((n, H * vh, d), "normal", A + ("heads", "embed")),
     }
 
 
-def _ffn_specs(cfg, lead, f):
+def _ffn_specs(cfg, lead, lead_axes, f, hidden="mlp"):
     d = cfg.d_model
-    s = {"w1": (lead + (d, f), "normal"), "w2": (lead + (f, d), "normal")}
+    s = {"w1": _spec(lead + (d, f), "normal", lead_axes + ("embed", hidden)),
+         "w2": _spec(lead + (f, d), "normal", lead_axes + (hidden, "embed"))}
     if cfg.mlp == "swiglu":
-        s["w3"] = (lead + (d, f), "normal")
+        s["w3"] = _spec(lead + (d, f), "normal",
+                        lead_axes + ("embed", hidden))
     return s
 
 
 def _mlp_specs(cfg, n):
-    return {"norm": _norm_spec(cfg, (n,)), **_ffn_specs(cfg, (n,), cfg.d_ff)}
+    return {"norm": _norm_spec(cfg, (n,), ("layers",)),
+            **_ffn_specs(cfg, (n,), ("layers",), cfg.d_ff)}
 
 
 def _moe_specs(cfg, n):
     d, E = cfg.d_model, cfg.n_experts
     fe = cfg.moe_d_ff or cfg.d_ff
-    s = {"norm": _norm_spec(cfg, (n,)),
-         "router": ((n, d, E), "normal"),
-         **_ffn_specs(cfg, (n, E), fe)}
+    A = ("layers",)
+    s = {"norm": _norm_spec(cfg, (n,), A),
+         "router": _spec((n, d, E), "normal", A + ("embed", None)),
+         **_ffn_specs(cfg, (n, E), A + ("experts",), fe, "moe_mlp")}
     if cfg.n_shared_experts:
-        s["shared"] = _ffn_specs(cfg, (n,), fe * cfg.n_shared_experts)
+        s["shared"] = _ffn_specs(cfg, (n,), A, fe * cfg.n_shared_experts)
     return s
 
 
@@ -120,17 +141,18 @@ def _mamba1_specs(cfg):
     n, d, di, N, K = (cfg.n_layers, cfg.d_model, cfg.d_inner,
                       cfg.ssm_state, cfg.d_conv)
     r = max(d // 16, 1)
+    A = ("layers",)
     return {
-        "norm": {"scale": ((n, d), "zeros")},
-        "in_proj": ((n, d, 2 * di), "normal"),
-        "conv_w": ((n, di, K), "normal"),
-        "conv_b": ((n, di), "zeros"),
-        "x_proj": ((n, di, r + 2 * N), "normal"),
-        "dt_proj": ((n, r, di), "normal"),
-        "dt_bias": ((n, di), "dt_bias"),
-        "A_log": ((n, di, N), "a_log"),
-        "D": ((n, di), "ones"),
-        "out_proj": ((n, di, d), "normal"),
+        "norm": {"scale": _spec((n, d), "zeros", A + (None,))},
+        "in_proj": _spec((n, d, 2 * di), "normal", A + ("embed", "d_inner")),
+        "conv_w": _spec((n, di, K), "normal", A + ("d_inner", None)),
+        "conv_b": _spec((n, di), "zeros", A + ("d_inner",)),
+        "x_proj": _spec((n, di, r + 2 * N), "normal", A + ("d_inner", None)),
+        "dt_proj": _spec((n, r, di), "normal", A + (None, "d_inner")),
+        "dt_bias": _spec((n, di), "dt_bias", A + ("d_inner",)),
+        "A_log": _spec((n, di, N), "a_log", A + ("d_inner", None)),
+        "D": _spec((n, di), "ones", A + ("d_inner",)),
+        "out_proj": _spec((n, di, d), "normal", A + ("d_inner", "embed")),
     }
 
 
@@ -143,16 +165,18 @@ def _mamba2_specs(cfg):
     n, d, di, N, K = (cfg.n_layers, cfg.d_model, cfg.d_inner,
                       cfg.ssm_state, cfg.d_conv)
     Hm = ssm_heads(cfg)
+    A = ("layers",)
     return {
-        "norm": {"scale": ((n, d), "zeros")},
-        "in_proj": ((n, d, 2 * di + 2 * N + Hm), "normal"),
-        "conv_w": ((n, di + 2 * N, K), "normal"),
-        "conv_b": ((n, di + 2 * N), "zeros"),
-        "dt_bias": ((n, Hm), "dt_bias"),
-        "A_log": ((n, Hm), "a_log2"),
-        "D": ((n, Hm), "ones"),
-        "norm_gated": {"scale": ((n, di), "zeros")},
-        "out_proj": ((n, di, d), "normal"),
+        "norm": {"scale": _spec((n, d), "zeros", A + (None,))},
+        "in_proj": _spec((n, d, 2 * di + 2 * N + Hm), "normal",
+                         A + ("embed", "d_inner")),
+        "conv_w": _spec((n, di + 2 * N, K), "normal", A + ("d_inner", None)),
+        "conv_b": _spec((n, di + 2 * N), "zeros", A + ("d_inner",)),
+        "dt_bias": _spec((n, Hm), "dt_bias", A + (None,)),
+        "A_log": _spec((n, Hm), "a_log2", A + (None,)),
+        "D": _spec((n, Hm), "ones", A + (None,)),
+        "norm_gated": {"scale": _spec((n, di), "zeros", A + ("d_inner",))},
+        "out_proj": _spec((n, di, d), "normal", A + ("d_inner", "embed")),
     }
 
 
@@ -160,30 +184,31 @@ def _shared_block_specs(cfg):
     """zamba2's one shared attention + MLP block (unstacked; rmsnorm, no
     biases, as the reference's)."""
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    mlp = {"norm": {"scale": ((d,), "zeros")}, **_ffn_specs(cfg, (), cfg.d_ff)}
+    norm = lambda: {"scale": _spec((d,), "zeros", (None,))}  # noqa: E731
     return {
-        "attn": {"norm": {"scale": ((d,), "zeros")},
-                 "wq": ((d, H * hd), "normal"),
-                 "wk": ((d, KV * hd), "normal"),
-                 "wv": ((d, KV * hd), "normal"),
-                 "wo": ((H * hd, d), "normal")},
-        "mlp": mlp,
+        "attn": {"norm": norm(),
+                 "wq": _spec((d, H * hd), "normal", ("embed", "heads")),
+                 "wk": _spec((d, KV * hd), "normal", ("embed", "kv_heads")),
+                 "wv": _spec((d, KV * hd), "normal", ("embed", "kv_heads")),
+                 "wo": _spec((H * hd, d), "normal", ("heads", "embed"))},
+        "mlp": {"norm": norm(), **_ffn_specs(cfg, (), (), cfg.d_ff)},
     }
 
 
 def schema(cfg: ArchConfig) -> Dict[str, object]:
-    """Nested dict of ``(shape, init)`` leaves — the reference's schema.
-    Inits: ``"normal"`` (scaled by 1/sqrt(shape[-2])), ``"zeros"``,
-    ``"ones"``, and the SSMs' f32 ``"a_log"`` / ``"a_log2"`` /
-    ``"dt_bias"`` (:func:`leaf_dtype`).  ``embed`` only for a token
-    model; ``layers`` stacks the Mamba1 or Mamba2 blocks, or every
-    transformer layer but the ``first_dense`` leading ones, which
-    ``dense0`` stacks with a dense MLP; ``shared`` is the hybrid's one
-    attention block."""
+    """Nested dict of :class:`Spec` leaves — the reference's schema:
+    shape, init and logical axes.  Inits: ``"normal"`` (scaled by
+    1/sqrt(shape[-2])), ``"zeros"``, ``"ones"``, and the SSMs' f32
+    ``"a_log"`` / ``"a_log2"`` / ``"dt_bias"`` (:func:`leaf_dtype`).
+    ``embed`` only for a token model; ``layers`` stacks the Mamba1 or
+    Mamba2 blocks, or every transformer layer but the ``first_dense``
+    leading ones, which ``dense0`` stacks with a dense MLP; ``shared`` is
+    the hybrid's one attention block."""
     d, V = cfg.d_model, cfg.vocab
     s: Dict[str, object] = {}
     if cfg.uses_tokens:
-        s["embed"] = ((V, d), "normal")
+        v_ax = "vocab" if cfg.embed_vocab_shard else None
+        s["embed"] = _spec((V, d), "normal", (v_ax, "embed"))
     if cfg.ssm == "mamba1":
         s["layers"] = _mamba1_specs(cfg)
     elif cfg.family == "hybrid":
@@ -193,10 +218,22 @@ def schema(cfg: ArchConfig) -> Dict[str, object]:
         s["layers"] = _block_specs(cfg, cfg_layers(cfg), bool(cfg.n_experts))
         if cfg.first_dense:
             s["dense0"] = _block_specs(cfg, cfg.first_dense, False)
-    s["final_norm"] = _norm_spec(cfg, ())
+    s["final_norm"] = _norm_spec(cfg, (), ())
     if not cfg.tie_embeddings:
-        s["lm_head"] = ((d, V), "normal")
+        s["lm_head"] = _spec((d, V), "normal", ("embed", "vocab"))
     return s
+
+
+def param_axes(cfg: ArchConfig) -> dict:
+    """The logical axes of every parameter, in :func:`schema`'s tree."""
+    return _map(schema(cfg), lambda path, spec: spec.axes)
+
+
+def abstract_params(cfg: ArchConfig) -> dict:
+    """Every parameter as a tensor on the ``meta`` device: shapes and
+    dtypes, nothing allocated (the reference's ``abstract_params``)."""
+    return _map(schema(cfg), lambda path, spec: torch.empty(
+        spec.shape, dtype=leaf_dtype(spec.init), device="meta"))
 
 
 def _map(tree, fn, path=()):
@@ -235,7 +272,8 @@ def init_params(cfg: ArchConfig, seed: int = 0, device: Device = None) -> dict:
     dt in [1e-3, 0.1)) f32, as the reference draws them."""
     dev = devices.resolve(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return _map(schema(cfg), lambda path, spec: _init_leaf(*spec, gen, dev))
+    return _map(schema(cfg), lambda path, spec: _init_leaf(
+        spec.shape, spec.init, gen, dev))
 
 
 def params_from_jax(cfg: ArchConfig, tree: dict, device: Device = None) -> dict:
@@ -252,10 +290,10 @@ def params_from_jax(cfg: ArchConfig, tree: dict, device: Device = None) -> dict:
                 raise KeyError(f"parameter {'.'.join(path)} missing")
             node = node[k]
         arr = np.asarray(node)
-        if tuple(arr.shape) != tuple(spec[0]):
+        if tuple(arr.shape) != spec.shape:
             raise ValueError(f"parameter {'.'.join(path)}: shape "
-                             f"{arr.shape} != {spec[0]}")
-        dtype = leaf_dtype(spec[1])
+                             f"{arr.shape} != {spec.shape}")
+        dtype = leaf_dtype(spec.init)
         if dtype == DTYPE and arr.dtype.name == "bfloat16":
             t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16).copy())
             t = t.view(torch.bfloat16)
@@ -352,14 +390,17 @@ def _layer(tree, i):
 def _block(cfg, p, x, *, positions, cache, cache_pos):
     """One decoder (or encoder) layer: MLA or GQA attention, then the MoE
     or the MLP, each as a residual.  Returns ``(x, aux)``: the MoE's
-    balance loss, or None (an MLP, or a single token)."""
+    balance loss, or None (an MLP, or a single token).  On a mesh the
+    layer gathers its parameters here (the MoE its own, which the
+    expert-parallel path keeps sharded over ``model``)."""
     attn = L.mla_block if cfg.mla else L.gqa_block
-    x = x + attn(x, p["attn"], cfg, positions=positions, cache=cache,
-                 cache_pos=cache_pos)
+    x = x + attn(x, gathered(p["attn"]), cfg, positions=positions,
+                 cache=cache, cache_pos=cache_pos)
     if "moe" in p:
         y, aux = L.moe_block(x, p["moe"], cfg)
-        return x + y, aux
-    return x + L.mlp_block(x, p["mlp"], cfg), None
+    else:
+        y, aux = L.mlp_block(x, gathered(p["mlp"]), cfg), None
+    return logical(x + y, "batch", "seq", "embed"), aux
 
 
 def _remat(cfg: ArchConfig, cache) -> bool:
@@ -393,15 +434,17 @@ def _forward_transformer(cfg, params, x, positions, cache, cache_pos):
         for i in range(n):
             c = None if cache is None else {k: v[i] for k, v in
                                             cache[part].items()}
-            x, a = _call(remat, functools.partial(
-                _block, cfg, _layer(lp, i), positions=positions, cache=c,
-                cache_pos=cache_pos), x)
+            with local_cache(c) as c:
+                x, a = _call(remat, functools.partial(
+                    _block, cfg, _layer(lp, i), positions=positions,
+                    cache=c, cache_pos=cache_pos), x)
             if a is not None:
                 aux = a if aux is None else aux + a
     return x, aux
 
 
 def _mamba1_layer(cfg, p, st, x):
+    p = gathered(p)
     return x + L.mamba1_mix(L.norm(x, p["norm"], cfg.norm), p, cfg, st)
 
 
@@ -410,8 +453,9 @@ def _forward_mamba(cfg, params, x, cache):
     remat = _remat(cfg, cache)
     for i in range(cfg.n_layers):
         st = None if cache is None else _layer(cache["layers"], i)
-        x = _call(remat, functools.partial(
-            _mamba1_layer, cfg, _layer(params["layers"], i), st), x)
+        with local_cache(st) as st:
+            x = _call(remat, functools.partial(
+                _mamba1_layer, cfg, _layer(params["layers"], i), st), x)
     return x
 
 
@@ -429,8 +473,10 @@ def shared_applications(cfg: ArchConfig):
 def _hybrid_layer(cfg, p, st, shared, c, positions, x):
     """One Mamba2 layer, then (``shared`` not None) the shared attention
     + MLP block over its application's cache ``c``."""
+    p = gathered(p)
     x = x + L.mamba2_mix(L.norm(x, p["norm"], cfg.norm), p, cfg, st)
     if shared is not None:
+        shared = gathered(shared)
         x = x + L.gqa_block(x, shared["attn"], cfg, positions=positions,
                             cache=c, window=cfg.window)
         x = x + L.mlp_block(x, shared["mlp"], cfg)
@@ -450,9 +496,10 @@ def _forward_hybrid(cfg, params, x, positions, cache):
             a = apps[i]
             c = {"k": cache["attn_k"][a], "v": cache["attn_v"][a],
                  "kpos": cache["attn_pos"][a]}
-        x = _call(remat, functools.partial(
-            _hybrid_layer, cfg, _layer(params["layers"], i), st,
-            params["shared"] if i in apps else None, c, positions), x)
+        with local_cache(st) as st, local_cache(c) as c:
+            x = _call(remat, functools.partial(
+                _hybrid_layer, cfg, _layer(params["layers"], i), st,
+                params["shared"] if i in apps else None, c, positions), x)
     return x
 
 
@@ -460,8 +507,10 @@ def _embed_in(cfg, params, batch):
     """Token ids through the embedding, or a frontend model's ``embeds``
     (B, S, d) as bf16."""
     if cfg.uses_tokens:
-        return params["embed"][batch["tokens"].long()]
-    return batch["embeds"].to(DTYPE)
+        x = params["embed"][batch["tokens"].long()]
+    else:
+        x = batch["embeds"].to(DTYPE)
+    return logical(x, "batch", "seq", "embed")
 
 
 def forward_with_aux(cfg: ArchConfig, params: dict, batch: dict,
@@ -470,11 +519,15 @@ def forward_with_aux(cfg: ArchConfig, params: dict, batch: dict,
     layers (an f32 zero for every other family, as the reference's):
     ``(logits, cache, aux)``, the reference's ``forward``.  Only
     :func:`lm_loss` reads ``aux``, so :func:`forward`, which every
-    serving caller uses, keeps its pair."""
+    serving caller uses, keeps its pair.  On a mesh (rules installed by a
+    step builder) ``batch`` holds this rank's rows, ``params`` and the
+    cache may be DTensors, and the logits are this rank's rows."""
     if cache is not None and not cfg.causal:
         raise ValueError(f"{cfg.name} is encoder-only: it has no decode "
                          "step, so its forward takes no cache")
-    x = _embed_in(cfg, params, batch)
+    top = gathered({k: params[k] for k in ("embed", "final_norm", "lm_head")
+                    if k in params})
+    x = _embed_in(cfg, top, batch)
     B, S = x.shape[:2]
     cache_pos = 0 if cache is None else int(batch["cache_pos"])
     positions = (cache_pos + torch.arange(S, device=x.device,
@@ -489,9 +542,9 @@ def forward_with_aux(cfg: ArchConfig, params: dict, batch: dict,
                                       cache_pos)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    x = L.norm(x, params["final_norm"], cfg.norm)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x @ head, cache, aux
+    x = L.norm(x, top["final_norm"], cfg.norm)
+    head = top["embed"].T if cfg.tie_embeddings else top["lm_head"]
+    return logical(x @ head, "batch", "seq", "vocab"), cache, aux
 
 
 def forward(cfg: ArchConfig, params: dict, batch: dict,
@@ -506,19 +559,25 @@ def forward(cfg: ArchConfig, params: dict, batch: dict,
     return logits, cache
 
 
-def lm_loss(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
-    """The training loss, as the reference's: the mean cross-entropy of
-    the f32 ``log_softmax`` of the logits against ``batch["labels"]``
-    (B, S) — for a causal model the logit at position t against the
-    label at t + 1, so ``labels`` are aligned with the positions (pass
-    the tokens themselves) — plus ``0.01 * aux``.  f32 scalar."""
+def lm_loss_terms(cfg: ArchConfig, params: dict, batch: dict):
+    """``(ce, aux)``: the mean cross-entropy of the f32 ``log_softmax``
+    of the logits against ``batch["labels"]`` (B, S) — for a causal model
+    the logit at position t against the label at t + 1, so ``labels`` are
+    aligned with the positions (pass the tokens themselves) — over the
+    rows given, and the MoE balance loss (f32 scalars)."""
     logits, _, aux = forward_with_aux(cfg, params, batch)
     labels = batch["labels"].long()
     if cfg.causal:
         logits, labels = logits[:, :-1], labels[:, 1:]
     lp = torch.log_softmax(logits.float(), dim=-1)
-    loss = -lp.gather(-1, labels[..., None])[..., 0].mean()
-    return loss + 0.01 * aux
+    return -lp.gather(-1, labels[..., None])[..., 0].mean(), aux
+
+
+def lm_loss(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
+    """The training loss, as the reference's: :func:`lm_loss_terms`'
+    ``ce + 0.01 * aux``.  f32 scalar."""
+    ce, aux = lm_loss_terms(cfg, params, batch)
+    return ce + 0.01 * aux
 
 
 def prefill(cfg: ArchConfig, params: dict, batch: dict,

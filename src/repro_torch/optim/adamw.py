@@ -4,7 +4,10 @@ parameter dicts.
 
 Functional as the reference's (``init`` / ``update``), so the optimizer
 state is a dict of tensors the checkpoint stores as it is: ``mu`` and
-``nu`` in the parameters' structure and an int32 ``step``.  Not
+``nu`` in the parameters' structure and an int32 ``step``.  On a mesh
+the moments are DTensors with their parameters' placements, the update
+runs on each rank's shards, and the global norm sums every shard once.
+Not
 ``torch.optim.AdamW``: the reference's update is ``p − lr·(m̂/(√v̂ + eps)
 + wd·p)`` with decay on matrices only (``ndim ≥ 2``), in this order of
 f32 ops, which the port keeps.
@@ -17,6 +20,7 @@ import math
 
 import torch
 
+from ..models.sharding import is_dtensor, local
 from ..tree import leaves_with_paths, map_tree
 
 
@@ -46,21 +50,45 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init(cfg: AdamWConfig, params: dict) -> dict:
-    """Zero moments in ``cfg.moment_dtype`` beside each parameter, and
-    ``step`` 0 (int32, on the parameters' device)."""
-    zeros = lambda p: torch.zeros(p.shape, dtype=cfg.moment_dtype,
-                                  device=p.device)
-    dev = leaves_with_paths(params)[0][1].device
+    """Zero moments in ``cfg.moment_dtype`` beside each parameter (with
+    its placements, on a mesh), and ``step`` 0 (int32, on the parameters'
+    device)."""
+    zeros = lambda p: torch.zeros_like(p, dtype=cfg.moment_dtype,  # noqa: E731
+                                       requires_grad=False)
+    dev = local(leaves_with_paths(params)[0][1]).device
     return {"mu": map_tree(zeros, params), "nu": map_tree(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+def _counted_once(x) -> bool:
+    """Whether this rank's shard of a DTensor enters a sum over the whole
+    world: on the first rank of every mesh dim the leaf is replicated
+    over, so each element counts once."""
+    from torch.distributed.tensor import Replicate
+
+    mesh = x.device_mesh
+    return all(mesh.get_local_rank(i) == 0
+               for i, p in enumerate(x.placements) if isinstance(p, Replicate))
+
+
 def global_norm(tree: dict) -> torch.Tensor:
     """sqrt of the sum over the leaves, in the reference's order (sorted
-    keys), of each leaf's f32 sum of squares."""
+    keys), of each leaf's f32 sum of squares — over the whole leaf, for a
+    DTensor (its shards' sums added by one all-reduce)."""
+    leaves = [x for _, x in leaves_with_paths(tree)]
+    sums = [local(x).float().square().sum() for x in leaves]
+    sharded = [is_dtensor(x) for x in leaves]
+    if any(sharded):
+        import torch.distributed as dist
+
+        part = torch.stack([s if not d or _counted_once(x) else
+                            torch.zeros_like(s)
+                            for s, d, x in zip(sums, sharded, leaves)])
+        dist.all_reduce(part)
+        sums = [part[i] if d else s
+                for i, (s, d) in enumerate(zip(sums, sharded))]
     sq = None
-    for _, x in leaves_with_paths(tree):
-        s = x.float().square().sum()
+    for s in sums:
         sq = s if sq is None else sq + s
     return torch.sqrt(sq)
 
@@ -73,8 +101,9 @@ def update(cfg: AdamWConfig, grads: dict, state: dict, params: dict):
     updates the moments in f32, bias-corrects them, decays matrices, and
     writes the new parameters (rounded to their dtype) and moments
     (rounded to ``moment_dtype``) **in place** into ``params`` and
-    ``state``, which it returns: the step holds no second copy of the
-    train state.  The metrics are f32 scalar tensors on the device."""
+    ``state`` (a DTensor's local shard), which it returns: the step holds
+    no second copy of the train state.  The metrics are f32 scalar
+    tensors on the device."""
     step = state["step"] + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
@@ -86,8 +115,8 @@ def update(cfg: AdamWConfig, grads: dict, state: dict, params: dict):
         dict(leaves_with_paths(state["nu"]))
     gs = dict(leaves_with_paths(grads))
     for path, p in leaves_with_paths(params):
-        m, v = mus[path], nus[path]
-        g = gs[path].float() * scale
+        p, m, v = local(p), local(mus[path]), local(nus[path])
+        g = local(gs[path]).float() * scale
         m32 = cfg.b1 * m.float() + (1 - cfg.b1) * g
         v32 = cfg.b2 * v.float() + (1 - cfg.b2) * torch.square(g)
         upd = (m32 / b1c) / (torch.sqrt(v32 / b2c) + cfg.eps)

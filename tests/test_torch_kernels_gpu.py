@@ -1196,3 +1196,53 @@ def test_checkpoint_from_the_card_restores_on_the_cpu(card, tmp_path):
         bits = (lambda x: x.view(torch.int16)) if a.dtype == torch.bfloat16 \
             else (lambda x: x)
         assert torch.equal(bits(a), bits(b)), k
+
+
+def test_moe_block_ep_on_a_unit_mesh_equals_the_plain_block(card, tmp_path):
+    """A world of one on the card (NCCL over a ``FileStore``), a (1, 1)
+    (data, model) mesh: deepseek-v2-lite-16b's MoE at 512 channels (4
+    experts, top-2) under the train cell's rules goes through
+    ``moe_block_ep`` — local capacity = global capacity, the exchanges
+    no-ops — and equals the plain block bit for bit, output and aux."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_mesh, rules_for, shard_tree
+    from repro_torch.launch.mesh import param_shardings
+    from repro_torch.models import layers
+    from repro_torch.models.sharding import use_rules
+
+    cfg = dataclasses.replace(smoke_config(ARCHS["deepseek-v2-lite-16b"]),
+                              d_model=512)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        rules = rules_for(cfg, ShapeConfig("train", 64, 2, "train"), mesh)
+        params = init_params(cfg, seed=0, device=card)
+        moe = {k: (v[0] if not isinstance(v, dict) else
+                   {kk: vv[0] for kk, vv in v.items()})
+               for k, v in params["layers"]["moe"].items()}
+        placed = shard_tree(params, param_shardings(cfg, rules))["layers"]
+        pm = {k: (v[0] if not isinstance(v, dict) else
+                  {kk: vv[0] for kk, vv in v.items()})
+              for k, v in placed["moe"].items()}
+        gen = torch.Generator(device=card).manual_seed(1)
+        x = torch.randn(2, 64, 512, generator=gen, device=card).to(
+            torch.bfloat16)
+        want, want_aux = layers.moe_block(x, moe, cfg)
+        calls, ep = [], layers.moe_block_ep
+        layers.moe_block_ep = lambda *a, **kw: calls.append(1) or ep(*a, **kw)
+        try:
+            with use_rules(rules.act()):
+                got, aux = layers.moe_block(x, pm, cfg)
+        finally:
+            layers.moe_block_ep = ep
+        torch.cuda.synchronize()
+        assert calls == [1]
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+        assert float(aux) == float(want_aux)
+    finally:
+        dist.destroy_process_group()
