@@ -128,10 +128,11 @@ Phases (any failure exits non-zero and prints no result line):
    in phase 2, rows ``*_latent``; [mla] checks it ran those shapes);
 12. the recurrent families at full width (``[ssm]``, random bf16
    weights from seed 0 drawn on the card, freed after each; the depth
-   cut for the time limit, every op still run — since PR 24 (the [mesh]
-   phase) to 12 layers each, from 16 / 18): (a) falcon-mamba-7b (12 of
-   its 64 Mamba1 layers) and (b) zamba2-7b (12 of its 81 Mamba2 layers
-   and one shared windowed attention block applied 2 times of its 13)
+   cut for the time limit, every op still run — to 8 layers each for
+   the [dryrun] phase, from 12 for [mesh] and 16 / 18 before): (a)
+   falcon-mamba-7b (8 of its 64 Mamba1 layers) and (b) zamba2-7b (8 of
+   its 81 Mamba2 layers and one shared windowed attention block applied
+   once of its 13 times)
    each serve one request of 512 + 64 tokens with the
    launch counts set to 0 just before and read just after — no page
    spilled, no kernel launched (the state pages nothing; the hybrid's
@@ -182,10 +183,27 @@ Phases (any failure exits non-zero and prints no result line):
    (stage, data, model) mesh, 4 layers, 4 x 512 tokens (4 rows, so 4
    microbatches split them), 2 and 4 microbatches, against ``forward``
    within 3e-2; then the group destroyed and (d) four gloo CPU ranks,
-   spawned by this script at the phase's start so they start up while
-   (a)–(c) run, at (2, 2): one deepseek smoke train step against the
+   spawned by this script at [train]'s start so they run while [train]
+   and (a)–(c) do, at (2, 2): one deepseek smoke train step against the
    single-rank port (losses within 1e-4 relative);
-16. profile one more classic request (host split from cProfile, device
+16. the dry run (``[dryrun]``): (a) a process spawned at the script's
+   start traces, on the meta device as rank 0 of fake 256- and
+   512-rank process groups (``repro_torch.launch.dryrun``), qwen2-0.5b x
+   train_4k / prefill_32k / decode_32k on 16 x 16 and 2 x 16 x 16,
+   deepseek-v2-lite-16b x train_4k (expert-parallel, its all-to-alls)
+   and falcon-mamba-7b x prefill_32k (the trip-count correction) on
+   16 x 16, a line a cell (peak, arguments, FLOPs a rank beside
+   k·N·D / chips, collective bytes, kernel calls); (b)
+   ``verify_multipod`` on qwen2-0.5b's 2 x 16 x 16 train_4k records,
+   every cross-pod collective with its tag; (c) qwen2-0.5b x decode_32k
+   x 16 x 16 with real tensors as rank 0 on the card: 24 decode
+   attention launches, the peak within 15 % of the trace's, collectives
+   and launches equal to it; (d) the same for train_4k at full depth
+   with 7 of its 16 rows a rank (16 need 120 GB at any depth); the
+   kernel at (c)'s shape, q (8, 14, 64) over (8, 32768, 2, 64), is held
+   to its plain version and timed in the kernel phase (row
+   ``decode_attn_decode32k``);
+17. profile one more classic request (host split from cProfile, device
    busy time from ``torch.profiler``) and one PNM request (cProfile).
 
 Prints the card's name and power limit, a ``kernels`` JSON line, and as
@@ -194,11 +212,14 @@ its last line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
+import tempfile
 import sys
 import time
 import traceback
@@ -2691,10 +2712,10 @@ def examples_path(torch, build, dev="cuda"):
 # (its state pages nothing, so the tier stays empty and no tier kernel
 # runs); the frontend models run from seeded embeds.
 SSM_ARCHS = ("falcon-mamba-7b", "zamba2-7b")
-# a depth cut for the time limit: 12 of falcon-mamba's 64 Mamba1 layers,
-# and 12 of zamba2's 81 Mamba2 layers with 2 of its 13 shared-block
-# applications (after layers 0 and 6): every op still runs
-SSM_LAYERS = {"falcon-mamba-7b": 12, "zamba2-7b": 12}
+# a depth cut for the time limit: 8 of falcon-mamba's 64 Mamba1 layers,
+# and 8 of zamba2's 81 Mamba2 layers with 1 of its 13 shared-block
+# applications (after layer 0): every op still runs
+SSM_LAYERS = {"falcon-mamba-7b": 8, "zamba2-7b": 8}
 SSM_SERVE = dict(smoke=False, device="trace", prompt_len=512, n_tokens=64,
                  batch=1, requests=1, hbm_kv_budget=1 << 22, page_tokens=64,
                  seed=0, verbose=False)
@@ -3836,7 +3857,7 @@ def _mesh_rank(rank, store, out):
 
 def start_gloo_ranks(tmp):
     """(d)'s :data:`MESH_RANKS` gloo CPU ranks, spawned now so that they
-    start while (a)–(c) run on the card."""
+    run while the card does [train] and (a)–(c)."""
     import multiprocessing as mp
 
     ctx = mp.get_context("spawn")
@@ -3888,11 +3909,12 @@ def mesh_gloo_ranks(torch, started):
         raise AssertionError("[mesh] (d) ranks vs one rank past bounds")
 
 
-def mesh_path(torch, build, dev="cuda", smoke=False):
-    """[mesh]: (d)'s gloo CPU ranks spawned first, then a world of one
-    on ``dev`` and its (1, 1) mesh for (a)–(c), then (d) collected; the
-    launch counts set to 0 before each part and read after (no kernel of
-    the port is on this path); the world of one destroyed after (c)."""
+def mesh_path(torch, build, dev="cuda", smoke=False, ranks=None):
+    """[mesh]: (d)'s gloo CPU ranks (``ranks``, as :func:`start_gloo_ranks`
+    spawned them, else spawned first), then a world of one on ``dev`` and
+    its (1, 1) mesh for (a)–(c), then (d) collected; the launch counts set
+    to 0 before each part and read after (no kernel of the port is on
+    this path); the world of one destroyed after (c)."""
     import dataclasses
     import tempfile
 
@@ -3905,7 +3927,7 @@ def mesh_path(torch, build, dev="cuda", smoke=False):
     dev = torch.device(dev)
     small = dict(smoke=True, seq=MESH_SMOKE_SEQ, batch=2) if smoke else {}
     with tempfile.TemporaryDirectory(prefix="mesh_") as tmp:
-        ranks = start_gloo_ranks(tmp)
+        ranks = ranks or start_gloo_ranks(tmp)
         _group_of_one(torch, dev, tmp)
         try:
             mesh = make_mesh((1, 1), ("data", "model"), dev)
@@ -3937,6 +3959,221 @@ def mesh_path(torch, build, dev="cuda", smoke=False):
         mesh_gloo_ranks(torch, ranks)
         print(f"[mesh] (d) done in {time.perf_counter() - t0:.1f} s after "
               f"(c)", flush=True)
+
+
+DRYRUN_ARCH = "qwen2-0.5b"
+# (a): meta traces on the card's host, (arch, shape, multi-pod)
+DRYRUN_CELLS = tuple((DRYRUN_ARCH, s, mp)
+                     for s in ("train_4k", "prefill_32k", "decode_32k")
+                     for mp in (False, True)) + (
+    ("deepseek-v2-lite-16b", "train_4k", False),
+    ("falcon-mamba-7b", "prefill_32k", False))
+# (d): train_4k's 16 rows a rank need 123 GB at 24 layers and 120 GB at
+# one (the replicated logits and their f32 log-softmax), so no depth
+# fits; 7 rows a rank (a global batch of 112) at full depth: 54 GB
+DRYRUN_TRAIN_ROWS = 7
+PEAK_RTOL = 0.15             # (c), (d): measured peak vs the trace's
+DRYRUN_TIMEOUT = 600         # seconds (a)'s process may take, spawn included
+DECODE32K_ROWS, DECODE32K_SEQ = 8, 32768     # decode_32k's cell on 16 x 16
+
+
+def _train_cut():
+    from repro_torch.configs import SHAPES
+
+    return dataclasses.replace(SHAPES["train_4k"],
+                               global_batch=16 * DRYRUN_TRAIN_ROWS)
+
+
+def _dryrun_traces(out):
+    """(a)'s process: every :data:`DRYRUN_CELLS` cell and (d)'s cut traced
+    on meta in fake worlds (the records of qwen2-0.5b's multi-pod
+    train_4k cell kept for (b)), saved to ``out``."""
+    import torch
+
+    from repro_torch.launch import dryrun
+
+    os.nice(10)             # below the card's phases, which share the host
+    torch.set_num_threads(1)
+    recs = [dryrun.run_cell(arch, shape, mp, keep_records=(
+        arch == DRYRUN_ARCH and shape == "train_4k" and mp))
+        for arch, shape, mp in DRYRUN_CELLS]
+    recs.append(dryrun.run_cell(DRYRUN_ARCH, _train_cut(), False))
+    with open(out, "w") as f:
+        json.dump(recs, f)
+
+
+def start_dryrun_traces(tmp):
+    """(a)'s traces, spawned now so that they run while the card does the
+    phases before [dryrun]."""
+    import multiprocessing as mp
+
+    out = os.path.join(tmp, "dryrun.json")
+    proc = mp.get_context("spawn").Process(target=_dryrun_traces,
+                                            args=(out,))
+    proc.start()
+    return proc, out, time.perf_counter()
+
+
+def _params(cfg) -> int:
+    from repro_torch.models.model import abstract_params
+    from repro_torch.tree import leaves_with_paths
+
+    return sum(t.numel() for _, t in leaves_with_paths(abstract_params(cfg)))
+
+
+def dryrun_line(rec) -> str:
+    """One cell's line: peak, arguments, FLOPs a rank beside the ideal
+    ``k·N·D / chips`` (k 6 for a train step, 2 otherwise; N every
+    parameter, experts included), collective bytes, kernel calls."""
+    from repro_torch.configs import ARCHS, SHAPES
+
+    cfg = ARCHS[rec["arch"]]
+    shape = SHAPES[rec["shape"]]
+    tokens = rec["global_batch"] * (1 if shape.is_decode else shape.seq_len)
+    k = 6 if shape.kind == "train" else 2
+    ideal = k * _params(cfg) * tokens / rec["chips"]
+    c = rec["collectives"]
+    coll = ", ".join(f"{kind} {c[kind]} B x {c['n_' + kind]}"
+                     for kind in ("all-gather", "all-reduce",
+                                  "reduce-scatter", "all-to-all",
+                                  "collective-permute") if c["n_" + kind])
+    ext = rec.get("extrapolated")
+    return (f"{rec['arch']} x {rec['shape']} (global batch "
+            f"{rec['global_batch']}) x {rec['mesh']}: peak (temp) "
+            f"{rec['temp_size_in_bytes']} B, arguments "
+            f"{rec['argument_size_in_bytes']} B, FLOPs a rank "
+            f"{rec['flops']:.4e} vs {k}·N·D/chips {ideal:.4e} "
+            f"({rec['flops'] / ideal:.2f}x), bytes accessed "
+            f"{rec['bytes_accessed']:.4e}; collectives {coll}; kernel calls "
+            f"{rec['kernel_calls']}; traced in {rec['trace_s']} s"
+            + (f"; extrapolated {ext}" if ext else ""))
+
+
+def multipod_lines(rec) -> tuple:
+    """(b): ``verify_multipod``'s analysis and report of qwen2-0.5b's
+    multi-pod train_4k records."""
+    from repro_torch.launch.verify_multipod import analyse, report
+
+    res = analyse(rec["collective_records"])
+    return res, [f"[dryrun] (b) {line}" for line in report(rec["arch"], res)]
+
+
+def check_real_rank(tag: str, real, meta):
+    """(c) / (d): the card's run against the trace: the peak within
+    :data:`PEAK_RTOL`, collectives and kernel launches equal."""
+    rr = real["real_rank"]
+    launches = rr["launches"]
+    peak, want = rr["peak_bytes"], meta["temp_size_in_bytes"]
+    print(f"[dryrun] {tag} {real['arch']} x {real['shape']} (global batch "
+          f"{real['global_batch']}) x {real['mesh']} as rank 0 on the card: "
+          f"step {rr['step_s']} s wall, peak {peak} B measured vs {want} B "
+          f"predicted ({(peak - want) / want:+.4%}); collectives "
+          f"{real['collectives']['total']} B in "
+          f"{sum(v for k, v in real['collectives'].items() if k.startswith('n_'))}"
+          f" (trace: {meta['collectives']['total']} B); decode_attn "
+          f"launches {launches['decode_attn']} (trace: kernel calls "
+          f"{meta['kernel_calls']})", flush=True)
+    if abs(peak - want) > PEAK_RTOL * want:
+        raise AssertionError(f"[dryrun] {tag}: peak {peak} vs {want}")
+    if real["collectives"] != meta["collectives"]:
+        raise AssertionError(f"[dryrun] {tag}: collectives "
+                             f"{real['collectives']} vs {meta['collectives']}")
+    if launches["decode_attn"] != meta["kernel_calls"] or any(
+            v for k, v in launches.items() if k != "decode_attn"):
+        raise AssertionError(f"[dryrun] {tag}: launches {launches} vs "
+                             f"{meta['kernel_calls']} kernel calls")
+
+
+def check_decode32k_attention(torch, k_attn, results):
+    """Decode attention at the 16 x 16 decode_32k cell's shape — q (8, 14,
+    64) over a full bf16 (8, 32768, 2, 64) cache, 16 work groups — within
+    the f32 tolerance of its plain version, bit-equal across two calls;
+    timed beside the plain version, the bound and the fastest SDPA
+    backend (row ``decode_attn_decode32k``; [dryrun] (c) fills in its
+    launches)."""
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    q = torch.randn((DECODE32K_ROWS, HEADS, HEAD_DIM), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((DECODE32K_ROWS, DECODE32K_SEQ, KV_HEADS, HEAD_DIM),
+                        generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    valid, scale = DECODE32K_SEQ, HEAD_DIM ** -0.5
+    got = k_attn.decode_attention(q, k, v, valid, scale)
+    want = k_attn.decode_attention_plain(q, k, v, valid, scale)
+    again = k_attn.decode_attention(q, k, v, valid, scale)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    if not bool((err <= ATOL + RTOL * want.abs()).all()):
+        raise AssertionError(f"decode_attn at decode_32k's shape: max error "
+                             f"{float(err.max())}")
+    if not torch.equal(got, again):
+        raise AssertionError("decode_attn at decode_32k's shape differs "
+                             "between two calls")
+    b, by = bound_ms(DECODE32K_ROWS * (2 * valid * KV_HEADS * HEAD_DIM * 2
+                                       + HEADS * HEAD_DIM * 6),
+                     DECODE32K_ROWS * 4 * HEADS * valid * HEAD_DIM)
+    sdpa_ms = sdpa_backends(torch, q, k, v, valid)
+    results["decode_attn_decode32k"] = dict(
+        name="decode_attn_decode32k", route="cuda",
+        source="src/repro_torch/csrc/decode_attn.cu",
+        replaces="src/repro/kernels/decode_attn.py:36",
+        max_abs_err=float(err.max()), launches=0,
+        **timed(torch, lambda: k_attn.decode_attention(q, k, v, valid,
+                                                       scale)),
+        plain_ms=timed(torch, lambda: k_attn.decode_attention_plain(
+            q, k, v, valid, scale), 5)["ms"],
+        bound_ms=b, bound_by=by,
+        library_ms=min(sdpa_ms.values()) if sdpa_ms else None)
+    print("[kernel] SDPA at the decode_32k cell's shape (8 rows, 14 / 2 "
+          "heads, hd 64, 32768 positions), by backend: "
+          + "; ".join(f"{name} {ms * 1e3:.2f} us"
+                      for name, ms in sdpa_ms.items()), flush=True)
+
+
+def dryrun_path(torch, results, started, dev="cuda"):
+    """[dryrun]: (a) the meta traces spawned at the script's start,
+    collected, a line a cell; (b) verify_multipod on qwen2-0.5b's
+    multi-pod train_4k records; (c) qwen2-0.5b x decode_32k x 16 x 16
+    and (d) train_4k cut to :data:`DRYRUN_TRAIN_ROWS` rows a rank, each
+    run with real tensors as rank 0 of a fake 256-rank world on ``dev``
+    (the launch counts set to 0 before each step and read after),
+    against (a)'s traces."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import dryrun
+
+    proc, out, t0 = started
+    proc.join(max(0.0, t0 + DRYRUN_TIMEOUT - time.perf_counter()))
+    if proc.is_alive():
+        proc.kill()
+        proc.join(10)
+    if proc.exitcode or not os.path.exists(out):
+        raise AssertionError(f"[dryrun] (a) traces exited {proc.exitcode}")
+    with open(out) as f:
+        recs = json.load(f)
+    print(f"[dryrun] (a) {len(recs)} cells traced on meta, "
+          f"{time.perf_counter() - t0:.1f} s from their spawn", flush=True)
+    for rec in recs:
+        print(f"[dryrun] (a) {dryrun_line(rec)}", flush=True)
+    multi = next(r for r in recs if "collective_records" in r)
+    res, lines = multipod_lines(multi)
+    for line in lines:
+        print(line, flush=True)
+    if not res["cross_pod"] or not res["in_pod"]:
+        raise AssertionError("[dryrun] (b) no cross-pod or no in-pod "
+                             "collectives")
+    meta = {(r["shape"], r["mesh"], r["global_batch"]): r for r in recs}
+    dev = torch.device(dev)
+    for tag, shape in (("(c)", SHAPES["decode_32k"]), ("(d)", _train_cut())):
+        want = meta[(shape.name, "16x16", shape.global_batch)]
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        real = dryrun.run_cell(DRYRUN_ARCH, shape, False, device=dev)
+        check_real_rank(tag, real, want)
+        if tag == "(c)":
+            n = real["real_rank"]["launches"]["decode_attn"]
+            if not n:
+                raise AssertionError("[dryrun] (c) launched no decode_attn")
+            results["decode_attn_decode32k"]["launches"] = n
 
 
 # the kernels only the kernel API reaches
@@ -4009,6 +4246,8 @@ def main():
         print(f"[time] {name} done at {time.perf_counter() - t0:.1f} s",
               flush=True)
 
+    dryrun_tmp = tempfile.mkdtemp(prefix="dryrun_")
+    dryrun_traces = start_dryrun_traces(dryrun_tmp)
     results = {}
     check_kernels(torch, k_bitplane, k_lz4, k_attn, results)
     check_pnm_score(torch, k_pnm, results)
@@ -4017,6 +4256,7 @@ def main():
     check_elastic_matmul(torch, k_bitplane, k_mm, ops, results)
     check_latent_kernels(torch, build, k_bitplane, k_kv, k_pnm, results)
     check_llava_attention(torch, k_attn, results)
+    check_decode32k_attention(torch, k_attn, results)
     for r in results.values():
         lib = r["library_ms"]
         lib = "-" if lib is None else f"{lib * 1e3:.2f} us"
@@ -4109,10 +4349,16 @@ def main():
     phase("SSM path")
     frontends_path(torch, build, results)
     phase("frontends")
+    mesh_tmp = tempfile.mkdtemp(prefix="mesh_ranks_")
+    gloo_ranks = start_gloo_ranks(mesh_tmp)     # [mesh] (d), beside [train]
     train_path(torch, build)
     phase("train")
-    mesh_path(torch, build)
+    mesh_path(torch, build, ranks=gloo_ranks)
+    shutil.rmtree(mesh_tmp, ignore_errors=True)
     phase("mesh")
+    dryrun_path(torch, results, dryrun_traces)
+    shutil.rmtree(dryrun_tmp, ignore_errors=True)
+    phase("dryrun")
     profile_request(torch, serve, params)
     profile_request(torch, serve, params, device_time=False, pnm_topk=16,
                     importance="attention")
@@ -4123,7 +4369,8 @@ def main():
     print(json.dumps({"kernels": [{k: results[n][k] for k in keys}
                                   for n in build.KERNELS
                                   + ("bitplane_unpack_planes",)
-                                  + LATENT_ROWS + ("decode_attn_llava",)]}),
+                                  + LATENT_ROWS + ("decode_attn_llava",
+                                                   "decode_attn_decode32k")]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -156,7 +156,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      valid_len: int,
                      scale: Optional[float] = None) -> torch.Tensor:
     """Decode attention on the tensors' device: the CUDA kernel on the
-    card, :func:`decode_attention_plain` on the CPU."""
+    card, :func:`decode_attention_plain` on the CPU.  On the ``meta``
+    device (a dry run's trace) only the shapes are checked and an empty
+    output returned: nothing is computed or launched."""
     if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
@@ -172,6 +174,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"{k.dtype}/{v.dtype}")
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, valid_len, scale)
+    if q.device.type == "meta" and k.is_meta and v.is_meta:
+        if not 1 <= valid_len <= S:
+            raise ValueError(f"valid_len {valid_len} outside [1, {S}]")
+        return torch.empty((B, H, hd), dtype=torch.float32, device="meta")
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"decode attention needs q, k, v on one CUDA "
                          f"device, got {q.device}/{k.device}/{v.device}")

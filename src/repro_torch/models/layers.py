@@ -12,6 +12,7 @@ bf16 rounds at other places inside a fused op.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import numpy as np
@@ -328,22 +329,31 @@ def _moe_dense_decode(flat, p, cfg, gates, experts):
     return torch.einsum("etd,te->td", y_all, weight.to(flat.dtype))
 
 
+def _slots(pos, keep, cap: int):
+    """Each (token, choice)'s slot, a dropped pair's the spill slot
+    ``cap``: shapes that do not depend on the routing, so the buffers
+    below trace on the ``meta`` device."""
+    return torch.where(keep, pos, torch.full_like(pos, cap))
+
+
 def _dispatch(flat, experts, pos, keep, n_experts: int, cap: int):
     """Each kept (token, choice)'s row of ``flat`` at its slot of the
-    (E, cap, d) capacity buffer; dropped pairs are left out."""
+    (E, cap, d) capacity buffer; dropped pairs land in a spill slot past
+    ``cap`` that the buffer leaves out (copied out whole, so the expert
+    matmuls see the layout, and sum in the order, they always had)."""
     k = experts.shape[1]
-    buf = flat.new_zeros(n_experts, cap, flat.shape[1])
-    buf[experts[keep], pos[keep]] = flat.repeat_interleave(k, dim=0)[
-        keep.reshape(-1)]
-    return buf
+    buf = flat.new_zeros(n_experts, cap + 1, flat.shape[1])
+    buf.index_put_((experts.reshape(-1), _slots(pos, keep, cap).reshape(-1)),
+                   flat.repeat_interleave(k, dim=0))
+    return buf[:, :cap].contiguous()
 
 
 def _combine(y_buf, experts, pos, keep, gates):
     """Each token's kept expert outputs weighted by its gates and summed
-    (a dropped pair adds nothing)."""
-    T, k = keep.shape
-    got = y_buf.new_zeros(T, k, y_buf.shape[-1])
-    got[keep] = y_buf[experts[keep], pos[keep]]
+    (a dropped pair reads the zero spill slot, so adds nothing)."""
+    E, cap, d = y_buf.shape
+    y_pad = torch.cat([y_buf, y_buf.new_zeros(E, 1, d)], dim=1)
+    got = y_pad[experts, _slots(pos, keep, cap)]
     return (got * gates[..., None].to(y_buf.dtype)).sum(dim=1)
 
 
@@ -499,6 +509,24 @@ def causal_conv1d(x, w, b, state=None):
     return acc.to(x.dtype) + b, xin[:, S:]
 
 
+_SCAN_STEPS: list = []
+
+
+@contextlib.contextmanager
+def scan_steps(n: int):
+    """Every selective scan runs only its first ``n`` steps and repeats
+    the last step's output, detached, for the rest: the dry run's
+    trip-count correction (``launch.dryrun``), the counterpart of the
+    reference's ``scan_unroll``.  Every step past the first costs the
+    same ops, so traces at a few step counts extrapolate to the prompt's
+    length; the values are wrong, the shapes are the run's."""
+    _SCAN_STEPS.append(n)
+    try:
+        yield
+    finally:
+        _SCAN_STEPS.pop()
+
+
 def _scan(dA, dBx, C, h, heads: bool):
     """The selective scan, one step a token as the reference's
     ``lax.scan``: ``h = dA_t * h + dBx_t`` then ``y_t = h . C_t`` over the
@@ -506,12 +534,15 @@ def _scan(dA, dBx, C, h, heads: bool):
     N); Mamba2 (``heads``): h (B, Hm, P, N), dA (B, S, Hm), dBx (B, S,
     Hm, P, N).  C (B, S, N) f32.  Returns ``(ys (B, S, ...), h)``."""
     B, S = dBx.shape[:2]
+    steps = min(S, _SCAN_STEPS[-1]) if _SCAN_STEPS else S
     ys = []
-    for t in range(S):
+    for t in range(steps):
         a = dA[:, t, :, None, None] if heads else dA[:, t]
         h = torch.addcmul(dBx[:, t], a, h)
         y = torch.bmm(h.reshape(B, -1, h.shape[-1]), C[:, t, :, None])
         ys.append(y.reshape(h.shape[:-1]))
+    if steps < S:
+        ys += [ys[-1].detach()] * (S - steps)
     return torch.stack(ys, 1), h
 
 

@@ -313,6 +313,22 @@ def test_decode_attention_long_context(card, kv, B, H, KV, hd, S, valid):
     assert torch.equal(got, decode_attn.decode_attention(q, k, v, valid))
 
 
+@pytest.mark.parametrize("kv", [torch.bfloat16, torch.float8_e4m3fn])
+def test_decode_attention_at_the_decode_32k_cell(card, kv):
+    """The dry run's 16 x 16 decode_32k cell: each rank's 8 rows attend
+    over the whole 32768-slot cache gathered over ``model`` — q (8, 14,
+    64) over (8, 32768, 2, 64), every slot valid, 16 (row, KV head)
+    groups each split across blocks that merge in device memory."""
+    q, k, v = _attention_inputs(card, 8, 14, 2, 64, 32768, kv, 25)
+    before = build.LAUNCHES["decode_attn"]
+    got = decode_attn.decode_attention(q, k, v, 32768, 0.125)
+    assert build.LAUNCHES["decode_attn"] == before + 1
+    want = decode_attn.decode_attention_plain(q, k, v, 32768, 0.125)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+    assert torch.equal(got, decode_attn.decode_attention(q, k, v, 32768,
+                                                         0.125))
+
+
 def test_decode_attention_memory_merge_resets_counters(card):
     """More than 16 blocks a row merge through device memory: the kernel
     sets each row's counter back to 0 once merged, so the wrapper keeps
