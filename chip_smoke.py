@@ -7,7 +7,8 @@ Run from the repository root on a machine with a card:
 Phases (any failure exits non-zero and prints no result line):
 
 1. build every CUDA kernel of the serving path from ``src/repro_torch/csrc``
-   (one ``nvcc`` per source, started together);
+   (one ``nvcc`` per source, started together; the checks of phase 2
+   run while they compile, each waiting for its own library);
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes the main path gives it — pack, prep, page scoring, the KV
    exponent-delta forward and inverse, the bit-plane unpack and the
@@ -39,6 +40,14 @@ Phases (any failure exits non-zero and prints no result line):
    each view beside its byte bound, the fused KV read beside the
    two-launch chain it replaces, and the match launch beside the wrapper
    (prep + match + one copy back) and the plain pipeline it replaces;
+   decode attention's device-length entry (the captured decode step's:
+   the length a 0-d int32 on the card) at [main]'s, llava-next-34b's and
+   the decode_32k cell's shapes, at valid_len 1, a block boundary and
+   the capacity (and 576 at [main]'s), against its plain version,
+   bit-equal across two calls and to a CUDA graph's replay, timed beside
+   the host-length entry (row ``decode_attn_devlen``).  A time the
+   profiler did not see is printed as a CUDA-event time, never as a
+   device time;
 3. drive the kernel API (``repro_torch.kernels.ops``), the only path
    that reaches the elastic matmul and the standalone KV inverse, with
    the launch counts set to 0 just before and read just after;
@@ -55,11 +64,21 @@ Phases (any failure exits non-zero and prints no result line):
    input (qwen2-0.5b, stablelm-12b's layernorm, nemotron-4-340b's
    squared ReLU at smoke width);
 5. serve 3 requests (512 prompt + 64 new tokens) through full-width
-   qwen2-0.5b with random weights, KV spilling to a ``trace`` tier, with
+   qwen2-0.5b with random weights, KV spilling to a ``trace`` tier, each
+   engine's decode step captured once in a CUDA graph and replayed every
+   token (every serving phase below decodes so: decode attention's
+   host-length entry must not launch), with
    the kernel launch counts set to 0 just before and read just after
    (the KV read goes through the fused kernel alone: the standalone
    inverse must not launch; every flush launches the prep, without run
    flags, and the match kernel once each);
+   then (``[graph]``) one more such request: (a) every replay's logits
+   bit-equal to ``decode_step`` run eagerly at the same tensor position on
+   a copy of the cache (readback written between replays included), (b)
+   the same tokens teacher-forced through the eager step at host int
+   positions within the margin-aware bound, (c) wall tok/s, and the
+   device's busy share and kernels under ``torch.profiler``, beside PR
+   25's eager step, with the capture's seconds;
    then ``kv_through_tier`` of every layer's K and V and ``layer_traffic``
    of one more such request equal a CPU pool's fed its page stream;
 6. the weight stream at full width (``[weights]``): the 14 decoder
@@ -122,8 +141,8 @@ Phases (any failure exits non-zero and prints no result line):
    b and c, decode attention never (MLA attends in eager PyTorch); one
    flush of c_kv pages on the card's tier == the CPU's; decode ==
    forward at the prompt's last position with every routing decision
-   pinned to the forward's (flips only at bf16 near-ties); one request
-   under cProfile; the params freed (the KV forward, the fused read
+   pinned to the forward's (flips only at bf16 near-ties); one request's
+   host spans; the params freed (the KV forward, the fused read
    and page scoring at these 512-channel shapes are checked and timed
    in phase 2, rows ``*_latent``; [mla] checks it ran those shapes);
 12. the recurrent families at full width (``[ssm]``, random bf16
@@ -203,11 +222,12 @@ Phases (any failure exits non-zero and prints no result line):
    kernel at (c)'s shape, q (8, 14, 64) over (8, 32768, 2, 64), is held
    to its plain version and timed in the kernel phase (row
    ``decode_attn_decode32k``);
-17. profile one more classic request (host split from cProfile, device
-   busy time from ``torch.profiler``) and one PNM request (cProfile).
+17. profile one more classic request and one PNM request (the host
+   split, timed span by span; [graph] (c) reads the device's busy time).
 
-Prints the card's name and power limit, a ``kernels`` JSON line, and as
-its last line ``{"ok": true, "device": {...}}``.
+Prints the card's name and power limit, each phase's seconds, a
+``kernels`` JSON line, and as its last line ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -288,19 +308,35 @@ def time_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
 
 
 def device_ms(torch, fn, iters: int = 20):
-    """Device time per call of ``fn``: the summed time of every CUDA kernel
-    it launched, from ``torch.profiler`` (CUPTI), or None when the
-    profiler records no device activity."""
+    """``(ms, trace)``: device time per call of ``fn``, the summed time of
+    every CUDA kernel it launched, from ``torch.profiler`` (CUPTI), and
+    which trace saw it; ``(None, None)`` when no trace records device
+    activity.  A trace that saw none is taken once more with the CPU side
+    traced too (a short CUDA-only trace has come back empty on the card
+    for one kernel whose calls others' traces saw)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(_self_device_us(e) for e in prof.key_averages())
-    return total_us / 1e3 / iters if total_us > 0 else None
+    for trace, acts in (("profiler", [ProfilerActivity.CUDA]),
+                        ("profiler, second trace",
+                         [ProfilerActivity.CPU, ProfilerActivity.CUDA])):
+        with profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(_self_device_us(e) for e in prof.key_averages()
+                       if _on_device(e))
+        if total_us > 0:
+            return total_us / 1e3 / iters, trace
+    return None, None
+
+
+def _on_device(evt) -> bool:
+    """A kernel or copy on the card (a CPU-side op's ``self`` device time
+    is 0 anyway; this keeps the sum to device events)."""
+    kind = getattr(evt, "device_type", None)
+    return kind is None or "CUDA" in str(kind)
 
 
 def _self_device_us(evt) -> float:
@@ -312,13 +348,28 @@ def _self_device_us(evt) -> float:
 
 
 def timed(torch, fn, iters: int = 50) -> dict:
-    """``ms``: device time per call (profiler; CUDA events when the
-    profiler sees no device work); ``call_ms``: CUDA-event time per call
-    of back-to-back calls, which includes the host's launch cadence."""
+    """``ms``: device time per call by the profiler, or — when the
+    profiler sees no device work — the CUDA-event time of back-to-back
+    calls, which includes the host's launch cadence and is no device
+    time: ``ms_from`` says which ("profiler", "profiler, second trace"
+    or "events"), and every
+    line that prints ``ms`` names it; ``call_ms``: the event time."""
     call = time_ms(torch, fn, iters, min(5, iters))
-    dev = device_ms(torch, fn, min(20, iters))
+    dev, trace = device_ms(torch, fn, min(20, iters))
     return {"ms": call if dev is None else dev, "call_ms": call,
-            "ms_from": "events" if dev is None else "profiler"}
+            "ms_from": "events" if dev is None else trace}
+
+
+def ms_label(r: dict) -> str:
+    """How a :func:`timed` ``ms`` was taken, for its printed line."""
+    return (f"device ({r['ms_from']})" if r["ms_from"] != "events"
+            else "by CUDA events, back to back (the profiler saw no device "
+            "work: not a device time)")
+
+
+def us(r: dict) -> str:
+    """A :func:`timed` ``ms`` in µs with how it was taken."""
+    return f"{r['ms'] * 1e3:.2f} us {ms_label(r)}"
 
 
 def cold_ms(torch, fn, kernel: str, iters: int = 10):
@@ -352,8 +403,8 @@ def warm_cold_line(torch, what: str, kernel: str, fn, plain,
     plain_ms = timed(torch, plain, 5)["ms"]
     cold_s = "not measured" if cold is None else \
         f"{cold * 1e3:.2f} us ({100 * b / cold:.1f}% of the bound)"
-    print(f"[kernel] {what}: {warm['ms'] * 1e3:.2f} us device back to back "
-          f"({warm['ms_from']}; {100 * b / warm['ms']:.1f}% of the bound), "
+    print(f"[kernel] {what}: {us(warm)} back to back "
+          f"({100 * b / warm['ms']:.1f}% of the bound), "
           f"cold L2 {cold_s}; bound {b * 1e3:.3f} us by {by}; plain "
           f"{plain_ms * 1e3:.2f} us", flush=True)
     return dict(**warm, cold_ms=cold, plain_ms=plain_ms, bound_ms=b,
@@ -641,14 +692,13 @@ def check_kv_and_unpack(torch, build, k_bitplane, k_kv, results):
     r = results["bitplane_unpack"]
     print(f"[kernel] kv read fused (unpack -> inverse -> round, {nwin} x "
           f"{WINDOW} x {CHANNELS}, MAN4, {len(ids)} planes): "
-          f"{r['ms'] * 1e3:.2f} us device, bound {r['bound_ms'] * 1e3:.3f} "
+          f"{us(r)}, bound {r['bound_ms'] * 1e3:.3f} "
           f"us by {r['bound_by']}; the two-launch chain (standalone unpack, "
-          f"then inverse + round) {chain['ms'] * 1e3:.2f} us "
-          f"({chain['ms_from']}), {chain['call_ms'] * 1e3:.2f} us per call "
-          "back to back; "
-          f"standalone unpack {alone['ms'] * 1e3:.2f} us (bound "
+          f"then inverse + round) {us(chain)}, "
+          f"{chain['call_ms'] * 1e3:.2f} us per call back to back; "
+          f"standalone unpack {us(alone)} (bound "
           f"{b1 * 1e3:.3f} us), standalone inverse "
-          f"{results['kv_delta_inv']['ms'] * 1e3:.2f} us", flush=True)
+          f"{us(results['kv_delta_inv'])}", flush=True)
 
 
 def partial_slab(torch, k_bitplane, k_kv):
@@ -737,7 +787,7 @@ def check_elastic_matmul(torch, k_bitplane, k_mm, ops, results):
         print(f"[kernel] elastic_matmul M={M}: torch.matmul on the dense "
               f"bf16 weight {lib['ms'] * 1e3:.2f} us; kernels.ops."
               f"elastic_matmul (r_m 7, planes read in place) "
-              f"{api['ms'] * 1e3:.2f} us device, {api['call_ms'] * 1e3:.2f} "
+              f"{us(api)}, {api['call_ms'] * 1e3:.2f} "
               "us per call back to back", flush=True)
     row["max_abs_err"] = max(errs)
     results["elastic_matmul"] = row
@@ -813,9 +863,9 @@ def check_pack_and_prep(torch, k_bitplane, k_lz4, gen, results):
     rows are the flush slab's: the pack, and the prep as the match path
     calls it (no run flags)."""
     floor = launch_floor(torch)
-    print(f"[kernel] launch floor: a 16-byte zero_() {floor['ms'] * 1e3:.2f} "
-          f"us device ({floor['ms_from']}), {floor['call_ms'] * 1e3:.2f} us "
-          "per call back to back", flush=True)
+    print(f"[kernel] launch floor: a 16-byte zero_() {us(floor)}, "
+          f"{floor['call_ms'] * 1e3:.2f} us per call back to back",
+          flush=True)
     for n, label in ((SLAB_ELEMS, "flush slab"),
                      (PACK_LONG, f"{D_MODEL} x {D_FF} weight")):
         x = kv_like(torch, n, gen)
@@ -913,7 +963,7 @@ def check_kernels(torch, k_bitplane, k_lz4, k_attn, results):
     for valid in (split, 2 * split, VALID_LEN):
         blocks = -(-valid // k_attn.split_size(valid, KV_HEADS, sms))
         t = timed(torch, lambda: k_attn.decode_attention(q, k, v, valid))
-        parts.append(f"valid_len {valid}: {t['ms'] * 1e3:.2f} us, {blocks} "
+        parts.append(f"valid_len {valid}: {us(t)}, {blocks} "
                      f"block{'s' * (blocks > 1)} per KV head")
     print("[kernel] decode_attn by split: " + "; ".join(parts), flush=True)
 
@@ -935,7 +985,7 @@ def check_kernels(torch, k_bitplane, k_lz4, k_attn, results):
         b, by = attn_bound(S, HEADS, KV_HEADS, HEAD_DIM)
         lib = sdpa_backends(torch, ql, kl, vl, S)
         blocks = -(-S // k_attn.split_size(S, KV_HEADS, sms))
-        lines.append(f"valid_len {S}: {t['ms'] * 1e3:.2f} us (bound "
+        lines.append(f"valid_len {S}: {us(t)} (bound "
                      f"{b * 1e3:.3f} us by {by}; {blocks} blocks per KV "
                      "head; SDPA fastest "
                      + (f"{min(lib.values()) * 1e3:.2f} us)" if lib else "-)"))
@@ -1055,14 +1105,13 @@ def check_lz4_match(torch, k_bitplane, k_kv, k_lz4, results):
     print(f"[kernel] lz4_match == plain pipeline == numpy twin on: "
           + "; ".join(lines), flush=True)
     print(f"[kernel] lz4_match at the flush slab ({S} streams, {covered} "
-          f"B, {pos.size} events): the match launch {r['ms'] * 1e3:.2f} us "
-          f"device ({r['ms_from']}), bound {r['bound_ms'] * 1e3:.3f} us "
+          f"B, {pos.size} events): the match launch {us(r)}, bound "
+          f"{r['bound_ms'] * 1e3:.3f} us "
           f"(the words and hashes it reads + meta + events); the wrapper "
-          f"(prep + match + one copy back) {wrapper['ms'] * 1e3:.2f} us "
-          f"device, "
+          f"(prep + match + one copy back) {us(wrapper)}, "
           f"{wrapper_wall * 1e3:.3f} ms wall per call; plain pipeline on "
           f"the card (what serving ran before this kernel) "
-          f"{plain['ms']:.3f} ms device, {plain_wall * 1e3:.1f} ms wall per "
+          f"{us(plain)}, {plain_wall * 1e3:.1f} ms wall per "
           "call", flush=True)
 
 
@@ -1386,76 +1435,143 @@ def check_readback_helpers(torch, cfg, params, dev="cuda",
 
 
 # Host functions whose cumulative time splits one served request.
+# the host spans of a served request: (label, module under repro_torch,
+# the attribute its callers look up at each call)
 _SPANS = (
-    ("prefill", "runtime/serving.py", "prefill"),
-    ("decode steps", "runtime/serving.py", "decode"),
-    ("model forward", "models/model.py", "decode_step"),
-    ("  GQA attention", "models/layers.py", "gqa_block"),
-    ("  MLA attention", "models/layers.py", "mla_block"),
-    ("  MoE", "models/layers.py", "moe_block"),
-    ("cache windows to host", "runtime/serving.py", "_commit_pages"),
-    ("tier encode", "core/tier.py", "_encode_commit"),
-    ("  KV forward on card", "core/tier.py", "_transform_kv_windows"),
-    ("  LZ4 match on card", "kernels/lz4.py", "lz4_match"),
-    ("  LZ4 emit (host)", "core/codec.py", "lz4_emit_events"),
-    ("tier decode", "core/tier.py", "_do_reads"),
-    ("  unpack + inverse on card", "core/tier.py", "_decode_planes"),
-    ("  PNM gather", "core/tier.py", "_do_gather"),
-    ("  page scoring", "kernels/pnm_score.py", "page_scores_u16"),
-    ("attention importance", "runtime/serving.py",
-     "_apply_attention_importance"),
-    ("  LZ4 decompress (host)", "core/codec.py", "lz4_decompress"),
-    ("readback into cache", "runtime/serving.py", "_apply_readback"),
+    ("prefill", "runtime.serving", "ServeEngine.prefill"),
+    ("decode steps", "runtime.serving", "ServeEngine.decode"),
+    ("model forward (eager: prefill, warm-up, capture)", "runtime.serving",
+     "decode_step"),
+    ("  GQA attention", "models.layers", "gqa_block"),
+    ("  MLA attention", "models.layers", "mla_block"),
+    ("  MoE", "models.layers", "moe_block"),
+    ("cache windows to host", "runtime.serving", "ServeEngine._commit_pages"),
+    ("tier encode", "core.tier", "TierStore._encode_commit"),
+    ("  KV forward on card", "core.tier", "TierStore._transform_kv_windows"),
+    ("  LZ4 match on card", "kernels.lz4", "lz4_match"),
+    ("  LZ4 emit (host)", "core.codec", "lz4_emit_events"),
+    ("tier decode", "core.tier", "TierStore._do_reads"),
+    ("  unpack + inverse on card", "core.tier",
+     "BitplaneLayout._decode_planes"),
+    ("  PNM gather", "core.tier", "TierStore._do_gather"),
+    ("  page scoring", "kernels.pnm_score", "page_scores_u16"),
+    ("attention importance", "runtime.serving",
+     "ServeEngine._apply_attention_importance"),
+    ("  LZ4 decompress (host)", "core.codec", "decompress_batch"),
+    ("readback into cache", "runtime.serving", "ServeEngine._apply_readback"),
 )
 
 
-def profile_request(torch, serve, params, device_time=True, **overrides):
-    """Where one full-width request's time goes: host split from cProfile
-    (cumulative seconds of the spans above), then (``device_time``)
-    device busy time from ``torch.profiler`` over a second, identical
-    request."""
-    import cProfile
-    import pstats
+class SpanTimer:
+    """While active, the inclusive host seconds of each of ``spans``: the
+    function wrapped where its callers look it up (a nested call counts
+    once).  cProfile cannot take this split of a served request: on the
+    card's Python (3.12.3) it drops calls made from frames that ran when
+    it was enabled (PR 26; functions called directly from the profiled
+    frame went unrecorded in a probe with no graph in sight)."""
 
-    from torch.profiler import ProfilerActivity, profile
+    def __init__(self, spans=_SPANS):
+        import importlib
+        import inspect
 
+        self.seconds = {label: 0.0 for label, _, _ in spans}
+        self.undo = []
+        for label, module, attr in spans:
+            owner = importlib.import_module(f"repro_torch.{module}")
+            *path, name = attr.split(".")
+            for part in path:
+                owner = getattr(owner, part)
+            raw = inspect.getattr_static(owner, name)
+            fn = getattr(owner, name)
+            timed_fn = self._wrap(label, raw.__func__ if isinstance(
+                raw, staticmethod) else fn)
+            setattr(owner, name, staticmethod(timed_fn) if isinstance(
+                raw, staticmethod) else timed_fn)
+            self.undo.append((owner, name, raw))
+
+    def _wrap(self, label, fn):
+        import functools
+
+        depth, seconds = [0], self.seconds
+
+        @functools.wraps(fn)
+        def timed_fn(*args, **kw):
+            if depth[0]:
+                return fn(*args, **kw)
+            depth[0] += 1
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                depth[0] -= 1
+                seconds[label] += time.perf_counter() - t
+        return timed_fn
+
+    def restore(self):
+        for owner, name, raw in reversed(self.undo):
+            setattr(owner, name, raw)
+
+
+def _request_kw(params, **overrides) -> dict:
     kw = dict(arch="qwen2-0.5b", device="trace", prompt_len=512, n_tokens=64,
               batch=1, requests=1, hbm_kv_budget=1 << 22, page_tokens=64,
               seed=1, torch_device="cuda", params=params, verbose=False)
     kw.update(overrides)
-    prof = cProfile.Profile()
-    prof.enable()
-    rep = serve(**kw)
-    prof.disable()
-    stats = pstats.Stats(prof).stats
-    parts = []
-    for label, path, fn in _SPANS:
-        ct = sum(v[3] for k, v in stats.items()
-                 if k[2] == fn and k[0].endswith(path))
-        parts.append(f"{label} {ct:.3f}")
-    label = "PNM request" if kw.get("pnm_topk") is not None else "request"
-    label = f"{kw['arch']} {label}"
-    print(f"[profile] one {label} under cProfile: wall {rep.wall_s:.3f} s; "
-          + "; ".join(parts) + " (s, cumulative)", flush=True)
-    if not device_time:
-        return
+    return kw
 
-    # device activity only: CPU-op tracing of a whole request costs
-    # minutes of post-processing
+
+def profile_request(torch, serve, params, **overrides):
+    """Where one full-width request's time goes on the host: the
+    inclusive seconds of the spans above (:class:`SpanTimer`; nested
+    spans overlap)."""
+    kw = _request_kw(params, **overrides)
+    spans = SpanTimer()
+    try:
+        rep = serve(**kw)
+    finally:
+        spans.restore()
+    label = "PNM request" if kw.get("pnm_topk") is not None else "request"
+    print(f"[profile] one {kw['arch']} {label}, host spans: wall "
+          f"{rep.wall_s:.3f} s; " + "; ".join(
+              f"{k} {v:.3f}" for k, v in spans.seconds.items())
+          + " (s, inclusive)", flush=True)
+
+
+def device_events(prof) -> tuple:
+    """``({name: (ns, count)} of the kernels and copies on the card, all
+    events)`` of a ``torch.profiler`` trace, from its raw Kineto events:
+    ``key_averages`` took 11.2 s for a request's ~147,000 events on the
+    card's host, the raw events 0.6 s, with the same busy sum (PR 26)."""
+    events = prof.profiler.kineto_results.events()
+    by_name = {}
+    for e in events:
+        if "CUDA" in str(e.device_type()):
+            ns, n = by_name.get(e.name(), (0, 0))
+            by_name[e.name()] = (ns + e.duration_ns(), n + 1)
+    return by_name, len(events)
+
+
+def device_profile(torch, serve, params, **overrides) -> dict:
+    """One full-width request under ``torch.profiler`` (device activity
+    only: CPU-op tracing of a whole request costs minutes of
+    post-processing): its wall, the device's busy seconds (the summed
+    time of every kernel and copy on the card), those events, all events
+    (the runtime calls too, as ``key_averages`` counts them), and the top
+    five kernels by time (:func:`device_events`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    kw = _request_kw(params, **overrides)
     with profile(activities=[ProfilerActivity.CUDA]) as tprof:
         rep = serve(**kw)
-    evts = [(e.key, _self_device_us(e), e.count)
-            for e in tprof.key_averages()]
-    busy_s = sum(us for _, us, _ in evts) / 1e6
-    top = sorted(evts, key=lambda t: -t[1])[:5]
-    attn_s = sum(us for k, us, _ in evts if "decode_attn" in k) / 1e6
-    print(f"[profile] one {kw['arch']} request under torch.profiler: wall "
-          f"{rep.wall_s:.3f} s, device busy {busy_s:.3f} s "
-          f"({100 * busy_s / rep.wall_s:.1f}%), {sum(n for *_, n in evts)} "
-          f"kernels; decode attention {attn_s * 1e3:.1f} ms "
-          f"({100 * attn_s / busy_s:.1f}% of busy); top: "
-          + "; ".join(f"{k[:60]} {us / 1e3:.1f} ms x{n}" for k, us, n in top),
-          flush=True)
+    by_name, n_events = device_events(tprof)
+    busy_s = sum(ns for ns, _ in by_name.values()) / 1e9
+    return dict(wall_s=rep.wall_s, busy_s=busy_s,
+                device_events=sum(n for _, n in by_name.values()),
+                events=n_events,
+                attn_s=sum(ns for k, (ns, _) in by_name.items()
+                           if "decode_attn" in k) / 1e9,
+                top=sorted(((k, ns / 1e3, n) for k, (ns, n) in
+                            by_name.items()), key=lambda t: -t[1])[:5])
 
 
 def pnm_path(torch, serve, build, params):
@@ -1537,17 +1653,23 @@ def pnm_path(torch, serve, build, params):
 
 # the kernels every serving path launches: a spill flush's KV forward,
 # pack, prep and match; the KV read of every readback or gather (one
-# fused bitplane_unpack launch per window group); decode attention
-SERVING_KERNELS = ("bitplane_pack", "lz4_prep", "lz4_match", "decode_attn",
-                   "kv_delta_fwd", "bitplane_unpack")
+# fused bitplane_unpack launch per window group); decode attention at the
+# position on the device (the captured step's, each replay counted)
+SERVING_KERNELS = ("bitplane_pack", "lz4_prep", "lz4_match",
+                   "decode_attn_devlen", "kv_delta_fwd", "bitplane_unpack")
 
 
 def check_serving_launches(tag: str, launches: dict):
     """A serving path's launch counts (set to 0 just before it ran, read
-    just after): each serving kernel above 0, the match once a flush."""
+    just after): each serving kernel above 0, the match once a flush, and
+    decode attention never at a host length (every decode step goes
+    through the captured step, whose position is on the device)."""
     for name in SERVING_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"{tag}: kernel {name} never launched")
+    if launches["decode_attn"]:
+        raise AssertionError(f"{tag}: decode attention ran at a host "
+                             f"length: an eager decode step ({launches})")
     if launches["lz4_match"] != launches["lz4_prep"]:
         raise AssertionError(f"{tag}: the match kernel did not launch once "
                              f"per flush: {launches}")
@@ -1595,6 +1717,37 @@ def _tier_empty(tag: str, tier):
     if tier.resident_bytes() != 0 or blocks != 0:
         raise AssertionError(f"{tag}: the tier holds {tier.resident_bytes()} "
                              f"B in {blocks} blocks after the run")
+
+
+class CaptureProbe:
+    """While active, record each engine's decode-step capture
+    (``runtime.serving.DecodeGraph``): its warm-up and capture host
+    seconds."""
+
+    def __init__(self):
+        from repro_torch.runtime import serving
+
+        self.module, self.cls = serving, serving.DecodeGraph
+        self.times = []
+        times = self.times
+
+        class Recorded(self.cls):
+            def __init__(self, *args, **kw):
+                super().__init__(*args, **kw)
+                times.append((self.warmup_s, self.capture_s))
+
+        serving.DecodeGraph = Recorded
+
+    def restore(self):
+        self.module.DecodeGraph = self.cls
+
+    def line(self) -> str:
+        if not self.times:
+            return "no decode step captured"
+        w, c = zip(*self.times)
+        return (f"{len(c)} decode steps captured, capture "
+                f"{sum(c) / len(c):.3f} s mean ({max(c):.3f} max), warm-up "
+                f"{sum(w) / len(w):.3f} s mean (host seconds)")
 
 
 class SharedWindowProbe:
@@ -1728,13 +1881,19 @@ def sched_path(torch, build, cfg, params, dev, trace_kw=SCHED_TRACE,
             capacity_model="physical", device=dev, **engine_kw, **extra)
         probe = SharedWindowProbe(torch, ServeEngine) \
             if case.startswith("a") else None
+        captures = CaptureProbe()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
         build.reset_launches()
         try:
             rep, wall = drive_scheduler(torch, sched, trace)
         finally:
+            captures.restore()
             if probe is not None:
                 probe.restore()
         launches = dict(build.LAUNCHES)
+        print(f"[sched] {case}: {captures.line()}; peak allocated "
+              f"{_peak(torch, dev)} B", flush=True)
         check_serving_launches(f"[sched] {case}", launches)
         for name in total_launches:
             total_launches[name] += launches[name]
@@ -1827,13 +1986,21 @@ def streams_path(torch, build, cfg, params, dev, trace_kw=SCHED_TRACE,
 
     for i, eng in enumerate(multi.streams):
         eng.decode = stamped(i, eng.decode)
+    captures = CaptureProbe()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     build.reset_launches()
     _sync(torch, dev)
     t0 = time.perf_counter()
-    toks = multi.generate(prompts, n_new)
+    try:
+        toks = multi.generate(prompts, n_new)
+    finally:
+        captures.restore()
     _sync(torch, dev)
     wall = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
+    print(f"[streams] {captures.line()}; peak allocated "
+          f"{_peak(torch, dev)} B", flush=True)
     check_serving_launches("[streams]", launches)
     d = multi.device_stats()
     multi.retire()
@@ -2020,7 +2187,8 @@ def weights_path(torch, build, k_bitplane, k_lz4, serve, params, dev,
     if prep_calls.counts != {"runb=False": load["lz4_prep"]}:
         raise AssertionError(f"load: prep calls {prep_calls.counts}")
     for name in ("kv_delta_fwd", "kv_delta_inv", "bitplane_unpack",
-                 "decode_attn", "pnm_score", "elastic_matmul"):
+                 "decode_attn", "decode_attn_devlen", "pnm_score",
+                 "elastic_matmul"):
         if load[name]:
             raise AssertionError(f"load launched {name}: {load}")
 
@@ -2531,8 +2699,8 @@ def mla_path(torch, build, k_bitplane, k_kv, k_pnm, serve, results,
             if launches["lz4_match"] != launches["lz4_prep"]:
                 raise AssertionError(f"{case}: the match did not launch once "
                                      f"a flush: {launches}")
-            if launches["decode_attn"] or launches["kv_delta_inv"] or \
-                    launches["elastic_matmul"]:
+            if launches["decode_attn"] or launches["decode_attn_devlen"] \
+                    or launches["kv_delta_inv"] or launches["elastic_matmul"]:
                 raise AssertionError(f"{case}: launched a kernel MLA serving "
                                      f"does not run: {launches}")
             pnm = "pnm_topk" in extra
@@ -2576,8 +2744,8 @@ def mla_path(torch, build, k_bitplane, k_kv, k_pnm, serve, results,
         raise AssertionError(f"the [kernel] checks' latent shapes are not "
                              f"ones [mla] ran: {fwd_shapes.counts}, "
                              f"{score_shapes.counts}")
-    if dev.type == "cuda":      # the host split (cProfile) of a request
-        profile_request(torch, serve, params, device_time=False,
+    if dev.type == "cuda":      # the host split of a request
+        profile_request(torch, serve, params,
                         arch=MLA_ARCH, n_layers=MLA_LAYERS,
                         hbm_kv_budget=MLA_SERVE["hbm_kv_budget"])
     del params
@@ -2683,7 +2851,7 @@ def examples_path(torch, build, dev="cuda"):
                 print(f"[examples] {name} | {line}", flush=True)
         need = ("bitplane_pack", "lz4_prep", "lz4_match", "bitplane_unpack")
         if name != "quickstart":
-            need += ("kv_delta_fwd", "decode_attn")
+            need += ("kv_delta_fwd", "decode_attn_devlen")
         if any(not launches[k] for k in need) or \
                 launches["lz4_prep"] != launches["lz4_match"] or \
                 launches["kv_delta_inv"] or launches["elastic_matmul"]:
@@ -2933,9 +3101,9 @@ def ssm_model_path(torch, build, serve, arch, dev="cuda", cfg=None,
           f"{_peak(torch, dev)} B", flush=True)
     served, step, step_s = [], ServeEngine._step, []
 
-    def recorded(self, tokens):
+    def recorded(self, tokens, run):
         t = time.perf_counter()
-        out = step(self, tokens)          # ends in a copy to the host
+        out = step(self, tokens, run)     # ends in a copy to the host
         step_s.append(time.perf_counter() - t)
         served.append(out)
         return out
@@ -3357,8 +3525,8 @@ def profile_train_step(torch, cfg, out, dev, tokens):
         wall = time.perf_counter() - t0
     spans = {name: ev[i].elapsed_time(ev[i + 1]) / 1e3 for i, name in
              enumerate(("forward", "backward", "compress", "optimizer"))}
-    kernels = [(e.key, _self_device_us(e), e.count)
-               for e in prof.key_averages()]
+    kernels = [(k, ns / 1e3, n) for k, (ns, n) in
+               device_events(prof)[0].items()]
     busy = sum(us for _, us, _ in kernels) / 1e6
     top = sorted(kernels, key=lambda t: -t[1])[:5]
     print(f"[train] one {cfg.name} step of {tokens.numel()} tokens under "
@@ -3366,7 +3534,7 @@ def profile_train_step(torch, cfg, out, dev, tokens):
           f"({100 * busy / wall:.1f}%), host-bound (wall not busy) "
           f"{wall - busy:.3f} s; on the device's timeline: "
           + ", ".join(f"{k} {v:.3f} s" for k, v in spans.items())
-          + f"; {sum(n for *_, n in kernels)} kernels; top: "
+          + f"; {sum(n for *_, n in kernels)} kernels and copies; top: "
           + "; ".join(f"{k[:50]} {us / 1e3:.1f} ms x{n}" for k, us, n in top),
           flush=True)
 
@@ -4174,6 +4342,247 @@ def dryrun_path(torch, results, started, dev="cuda"):
             if not n:
                 raise AssertionError("[dryrun] (c) launched no decode_attn")
             results["decode_attn_decode32k"]["launches"] = n
+            # the host-length entry's path: serving runs the device-length
+            # one, so the decode_attn row counts this step's launches
+            results["decode_attn"]["launches"] = n
+
+
+# decode attention with the length on the device (the captured step's
+# entry): [main]'s shape, llava-next-34b's and the decode_32k cell's
+DEVLEN_SHAPES = (("main", 1, HEADS, KV_HEADS, HEAD_DIM, MAX_SEQ),
+                 ("llava", 1, LLAVA_HEADS, LLAVA_KV, LLAVA_HD, LLAVA_SEQ),
+                 ("decode_32k", DECODE32K_ROWS, HEADS, KV_HEADS, HEAD_DIM,
+                  DECODE32K_SEQ))
+
+
+def check_devlen_attention(torch, k_attn, results):
+    """Decode attention's device-length entry at :data:`DEVLEN_SHAPES`,
+    each at valid_len 1, the first position of its grid's second block
+    (a tile boundary) and the capacity (and [main]'s 576): within the f32
+    tolerance of its plain version on the same tensor length, bit-equal
+    across two calls and to a CUDA graph's replay of the call, timed
+    beside the host-length entry at the same length.  Row
+    ``decode_attn_devlen`` (launches: [main]'s) is [main]'s shape at 576,
+    its bound the valid K / V rows read once."""
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    errs, lines = [], []
+    for tag, B, H, KV, hd, S in DEVLEN_SHAPES:
+        q = torch.randn((B, H, hd), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        k, v = (torch.randn((B, S, KV, hd), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        chunk = k_attn.split_size(S, B * KV, sms)
+        lengths = (1, chunk + 1, S) + ((VALID_LEN,) if tag == "main" else ())
+        length = torch.zeros((), dtype=torch.int32, device="cuda")
+        # the call captured once, replayed at every length (the counters
+        # of a merge through memory made on the capture stream first)
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            k_attn.decode_attention(q, k, v, length.fill_(S))
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            replayed = k_attn.decode_attention(q, k, v, length)
+        parts = []
+        for valid in lengths:
+            length.fill_(valid)
+            got = k_attn.decode_attention(q, k, v, length)
+            want = k_attn.decode_attention_plain(q, k, v, length)
+            again = k_attn.decode_attention(q, k, v, length)
+            graph.replay()
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            if not bool((err <= ATOL + RTOL * want.abs()).all()):
+                raise AssertionError(
+                    f"decode_attn_devlen at {tag}'s shape, valid_len {valid}"
+                    f": max error {float(err.max())} beyond atol {ATOL} "
+                    f"rtol {RTOL}")
+            if not (torch.equal(got, again) and torch.equal(got, replayed)):
+                raise AssertionError(
+                    f"decode_attn_devlen at {tag}'s shape, valid_len {valid}"
+                    f": two calls or a graph replay differ")
+            errs.append(float(err.max()))
+            dev_t = timed(torch, lambda: k_attn.decode_attention(
+                q, k, v, length), 20)
+            host_t = timed(torch, lambda: k_attn.decode_attention(
+                q, k, v, valid), 20)
+            b, _ = bound_ms(B * (2 * valid * KV * hd * 2 + H * hd * 6) + 4,
+                            B * 4 * H * valid * hd)
+            parts.append(f"valid_len {valid}: device length {us(dev_t)}, "
+                         f"host length {us(host_t)}, bound {b * 1e3:.3f} us")
+            if tag == "main" and valid == VALID_LEN:
+                row_t, row_b = dev_t, b
+        del graph
+        lines.append(f"[kernel] decode_attn_devlen at {tag}'s shape, q "
+                     f"{(B, H, hd)} over {(B, S, KV, hd)} ({-(-S // chunk)} "
+                     f"blocks a (row, KV head), every position): "
+                     + "; ".join(parts))
+    for line in lines:
+        print(line, flush=True)
+    q = torch.randn((1, HEADS, HEAD_DIM), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    k, v = (torch.randn((1, MAX_SEQ, KV_HEADS, HEAD_DIM), generator=gen,
+                        device="cuda").to(torch.bfloat16) for _ in range(2))
+    length = torch.tensor(VALID_LEN, dtype=torch.int32, device="cuda")
+    results["decode_attn_devlen"] = dict(
+        name="decode_attn_devlen", route="cuda",
+        source="src/repro_torch/csrc/decode_attn.cu",
+        replaces="src/repro/kernels/decode_attn.py:36",
+        max_abs_err=max(errs), **row_t,
+        plain_ms=timed(torch, lambda: k_attn.decode_attention_plain(
+            q, k, v, length))["ms"],
+        bound_ms=row_b, bound_by="bytes",
+        library_ms=results["decode_attn"]["library_ms"])
+
+
+# [graph]: one full-width qwen2-0.5b request of 512 + 64 tokens through a
+# ServeEngine whose decode step is one CUDA graph, as [main] serves
+GRAPH_SEED = 26
+# PR 25's eager decode step, one such request under torch.profiler
+# ([profile], chiprun_out/final2.log of that PR; NVIDIA H100 80GB HBM3 at
+# 700.00 W): printed beside [graph] (c), not measured here
+PR25_EAGER = dict(wall_s=3.996, busy=0.061, events=248254)
+
+
+def host_int_engine(ServeEngine, decode_step):
+    """A ServeEngine whose decode step runs eagerly at a host int position
+    — the port's serving path through PR 25, reachable through
+    ``decode_step`` with an int — for [graph] (b)'s comparison."""
+    class HostIntEngine(ServeEngine):
+        def _decode_logits(self, tokens):
+            return decode_step(self.cfg, self.params, {
+                "tokens": tokens, "cache_pos": self.pos}, self.cache)[0]
+    return HostIntEngine
+
+
+def graph_path(torch, build, serve, cfg, params, dev="cuda",
+               prompt_len=512, n_tokens=64, engine_kw=SCHED_ENGINE):
+    """[graph]: (a) one request's decode steps through the captured step,
+    each replay's logits bit-equal to ``decode_step`` run eagerly at the
+    same tensor position on a copy of the cache at the same state (the
+    readback written into the cache between replays included: each
+    replay attends to it); (b) the same tokens teacher-forced through the
+    eager step at host int positions (PR 25's path): logits within the
+    margin-aware bound; (c) a request through ``serve``: wall tok/s, and
+    under torch.profiler the device's busy share and kernels, beside PR
+    25's eager figures, with the capture's host seconds.  Launches of the
+    comparisons are not counted.  Returns (a)'s launches."""
+    import numpy as np
+
+    from repro_torch.models.model import decode_step
+    from repro_torch.runtime import PAPER_POLICY, ServeEngine
+
+    dev = torch.device(dev)
+    max_seq = prompt_len + n_tokens + engine_kw["page_tokens"]
+    prompt = np.random.default_rng(GRAPH_SEED).integers(
+        0, cfg.vocab, (1, prompt_len)).astype(np.int32)
+
+    def engine(cls):
+        return cls(cfg, params, max_seq=max_seq, batch=1,
+                   device_kind="trace", policy=PAPER_POLICY, device=dev,
+                   **engine_kw)
+
+    # (a) replay == eager at the same tensor position and cache
+    eng = engine(ServeEngine)
+    written = dict(pages=0, words=0)
+    apply = eng._apply_readback
+
+    def recording(pages, data):
+        layers, page = eng.cache["layers"], eng.page_tokens
+        win = [layers[p.kind][p.layer, :, p.start:p.start + page]
+               for p in pages]
+        before = [w.clone() for w in win]
+        apply(pages, data)
+        written["pages"] += len(pages)
+        written["words"] += sum(int((a.view(torch.int16) != b.view(
+            torch.int16)).sum()) for a, b in zip(win, before))
+
+    eng._apply_readback = recording
+    t0 = time.perf_counter()
+    build.reset_launches()
+    logits = eng.prefill(prompt)
+    tokens, rows = [], []
+    for step in range(n_tokens):
+        nxt = np.array([[int(np.argmax(logits[0]))]], dtype=np.int32)
+        tokens.append(int(nxt[0, 0]))
+        counted = dict(build.LAUNCHES)
+        copy = _map_leaves(eng.cache, lambda t: t.clone())
+        want, _ = decode_step(cfg, params, {
+            "tokens": torch.from_numpy(nxt.astype(np.int64)).to(dev),
+            "cache_pos": torch.tensor(eng.pos, dtype=torch.int32,
+                                      device=dev)}, copy)
+        want = want[:, -1].float().cpu().numpy()
+        del copy
+        build.LAUNCHES.update(counted)
+        logits = eng.decode(nxt)
+        if not np.array_equal(want, logits):
+            raise AssertionError(
+                f"[graph] (a) step {step}: the replay differs from the eager "
+                f"step by {float(np.abs(want - logits).max())}")
+        rows.append(logits[0])
+    _sync(torch, dev)
+    launches = dict(build.LAUNCHES)
+    check_serving_launches("[graph] (a)", launches)
+    g = eng.graph
+    if written["words"] == 0:
+        raise AssertionError("[graph] (a) no readback changed the cache "
+                             "between replays")
+    if dev.type == "cuda" and g is None:
+        raise AssertionError("[graph] (a) the engine captured no graph")
+    captured = ("no capture on the CPU" if g is None else
+                f"capture {g.capture_s:.3f} s, warm-up {g.warmup_s:.3f} s "
+                f"(host); a replay launches {g.launches}")
+    print(f"[graph] (a) {n_tokens} decode steps replayed, every one "
+          f"bit-equal to decode_step run eagerly at the same tensor position"
+          f" on a copy of the cache; between replays {written['pages']} "
+          f"pages read back into the cache changed {written['words']} "
+          f"words, which the next replays attended to; {captured}; "
+          f"launches {launches}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    eng.retire()
+
+    # (b) the same tokens through the eager step at host int positions
+    t0 = time.perf_counter()
+    counted = dict(build.LAUNCHES)
+    ref = engine(host_int_engine(ServeEngine, decode_step))
+    ref.prefill(prompt)
+    ref_rows = [ref.decode(np.array([[t]], dtype=np.int32))[0]
+                for t in tokens]
+    ref.retire()
+    build.LAUNCHES.update(counted)
+    ref_rows, rows = np.stack(ref_rows), np.stack(rows)
+    bound = margin_bound(np, ref_rows, rows, "[graph] (b)")
+    print(f"[graph] (b) the graph's logits against the eager step at host "
+          f"int positions (PR 25's path), teacher-forced on (a)'s tokens: "
+          f"{bound}; last logits max |diff| "
+          f"{float(np.abs(ref_rows[-1] - rows[-1]).max()):.4g}, greedy "
+          f"token equal {ref_rows[-1].argmax() == rows[-1].argmax()}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (c) wall and device busy share of a request through the graph
+    if dev.type != "cuda":
+        return launches
+    t0 = time.perf_counter()
+    rep = serve(**_request_kw(params, seed=GRAPH_SEED))
+    prof = device_profile(torch, serve, params, seed=GRAPH_SEED)
+    busy = prof["busy_s"] / prof["wall_s"]
+    print(f"[graph] (c) one request of {prompt_len} + {n_tokens} tokens: "
+          f"wall {rep.wall_s:.3f} s, {rep.tok_s:.3f} tok/s; under "
+          f"torch.profiler wall {prof['wall_s']:.3f} s, device busy "
+          f"{prof['busy_s']:.3f} s ({100 * busy:.1f}%), "
+          f"{prof['device_events']} kernels and copies on the card "
+          f"({prof['events']} events with the runtime calls, as PR 25 "
+          f"counted), decode attention {prof['attn_s'] * 1e3:.1f} ms; PR "
+          f"25's eager step (its [profile] on its card, not measured here): "
+          f"wall {PR25_EAGER['wall_s']:.3f} s, busy "
+          f"{100 * PR25_EAGER['busy']:.1f}%, {PR25_EAGER['events']} events;"
+          f" top: " + "; ".join(f"{k[:60]} {t / 1e3:.1f} ms x{n}"
+                                for k, t, n in prof["top"])
+          + f"; {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
 
 
 # the kernels only the kernel API reaches
@@ -4238,30 +4647,40 @@ def main():
 
     print(card_line(), flush=True)
     t0 = time.perf_counter()
-    libs = build.build_all()
-    print(f"[build] {len(libs)} kernels in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    # one nvcc per source, all started now; the kernel checks run while
+    # they compile, each waiting for its own library, in the order the
+    # builds finish (elastic_matmul.cu, with 32 instantiations, last)
+    build.start_all()
+
+    last = [time.perf_counter()]
 
     def phase(name):
-        print(f"[time] {name} done at {time.perf_counter() - t0:.1f} s",
-              flush=True)
+        now = time.perf_counter()
+        print(f"[time] {name} done at {now - t0:.1f} s (the phase "
+              f"{now - last[0]:.1f} s)", flush=True)
+        last[0] = now
 
     dryrun_tmp = tempfile.mkdtemp(prefix="dryrun_")
     dryrun_traces = start_dryrun_traces(dryrun_tmp)
     results = {}
-    check_kernels(torch, k_bitplane, k_lz4, k_attn, results)
     check_pnm_score(torch, k_pnm, results)
     check_kv_and_unpack(torch, build, k_bitplane, k_kv, results)
     check_lz4_match(torch, k_bitplane, k_kv, k_lz4, results)
-    check_elastic_matmul(torch, k_bitplane, k_mm, ops, results)
     check_latent_kernels(torch, build, k_bitplane, k_kv, k_pnm, results)
+    check_kernels(torch, k_bitplane, k_lz4, k_attn, results)
     check_llava_attention(torch, k_attn, results)
     check_decode32k_attention(torch, k_attn, results)
+    check_devlen_attention(torch, k_attn, results)
+    check_elastic_matmul(torch, k_bitplane, k_mm, ops, results)
+    libs = build.build_all()
+    print(f"[build] {len(libs)} kernels built, the last by "
+          f"{time.perf_counter() - t0:.1f} s, beside the checks above",
+          flush=True)
     for r in results.values():
         lib = r["library_ms"]
         lib = "-" if lib is None else f"{lib * 1e3:.2f} us"
-        print(f"[kernel] {r['name']}: {r['ms'] * 1e3:.2f} us device "
-              f"({r['ms_from']}; {r['call_ms'] * 1e3:.2f} us per call "
+        print(f"[kernel] {r['name']}: {r['ms'] * 1e3:.2f} us {ms_label(r)} "
+              f"({r['call_ms'] * 1e3:.2f} us per call "
               f"back to back), plain {r['plain_ms'] * 1e3:.2f} us, bound "
               f"{r['bound_ms'] * 1e3:.3f} us by {r['bound_by']}, library "
               f"{lib}; max abs err {r['max_abs_err']:.3g}", flush=True)
@@ -4314,6 +4733,8 @@ def main():
           f"forward batches {fwd_shapes.counts}; prep calls "
           f"{prep_calls.counts}", flush=True)
     phase("main path")
+    graph_path(torch, build, serve, ARCHS["qwen2-0.5b"], params)
+    phase("graph")
     check_readback_helpers(torch, ARCHS["qwen2-0.5b"], params)
     phase("readback helpers")
     wl = weights_path(torch, build, k_bitplane, k_lz4, serve, params,
@@ -4360,7 +4781,7 @@ def main():
     shutil.rmtree(dryrun_tmp, ignore_errors=True)
     phase("dryrun")
     profile_request(torch, serve, params)
-    profile_request(torch, serve, params, device_time=False, pnm_topk=16,
+    profile_request(torch, serve, params, pnm_topk=16,
                     importance="attention")
     phase("profile")
 

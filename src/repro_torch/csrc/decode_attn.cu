@@ -20,10 +20,20 @@
 // Design: a grid of (B * KV, n_split) blocks.  Block (bg, s) takes the
 // positions [s * chunk, min((s + 1) * chunk, valid_len)) of its (batch
 // row, KV head); the wrapper picks `chunk` (a multiple of 32 positions,
-// kernels/decode_attn.py::split_size) so that no block lies past
-// valid_len.  The block carries the online-softmax state (m, l, acc) of
-// the G query heads that share its KV head, so each K/V row is read once
-// for all G heads.
+// kernels/decode_attn.py::split_size).  Two entries share the body:
+// - decode_attn takes valid_len by value, and the grid covers exactly
+//   ceil(valid_len / chunk) blocks, none past valid_len;
+// - decode_attn_devlen reads valid_len from device memory (the decode
+//   step's position, as the reference's jitted step traces it), so one
+//   launch serves every position and a CUDA graph can replay it.  Its
+//   grid covers the cache's capacity S; a block whose range starts at or
+//   past valid_len runs no step and gives an empty partial (m = -1e30,
+//   l = 0, acc = 0), which the merge weighs by exp(-1e30 - max) = 0.
+//   Such a block still takes part in the merge — it reaches the cluster
+//   barrier, or counts in its row's counter — so no row waits on it.
+// The block carries the online-softmax state (m, l, acc) of the G query
+// heads that share its KV head, so each K/V row is read once for all G
+// heads.
 // - Steps of 64 positions: cp.async copies a step's K and V rows into
 //   shared memory as stored (bf16 or fp8; 16 bytes a copy, neighbouring
 //   threads on neighbouring bytes, rows past the range zero-filled), the
@@ -162,7 +172,8 @@ decode_attn_split(const __nv_bfloat16* __restrict__ q,
                   float* __restrict__ out, float* __restrict__ part_m,
                   float* __restrict__ part_l, float* __restrict__ part_acc,
                   int* __restrict__ counters, int H, int KV, int S,
-                  int valid_len, int chunk, float scale, bool on_chip) {
+                  int valid_arg, const int* __restrict__ valid_dev,
+                  int chunk, float scale, bool on_chip) {
   using L = Geo<HD, T, HPW>;
   constexpr int kAcc = L::kAcc;
   extern __shared__ __align__(16) uint8_t smem[];
@@ -174,6 +185,10 @@ decode_attn_split(const __nv_bfloat16* __restrict__ q,
   __shared__ float mbox[kClusterSplits * kMaxG], lbox[kClusterSplits * kMaxG];
   __shared__ int last;
 
+  // the device length, clamped to the cache (the engine raises before a
+  // position past it; a kernel cannot)
+  const int valid_len =
+      valid_dev == nullptr ? valid_arg : min(max(__ldg(valid_dev), 1), S);
   const int G = H / KV;
   const int b = blockIdx.x / KV;
   const int g = blockIdx.x % KV;
@@ -486,9 +501,9 @@ decode_attn_split(const __nv_bfloat16* __restrict__ q,
 
 template <int HD, typename T, int HPW>
 cudaError_t launch_t(const void* q, const void* k, const void* v, void* out,
-                     void* partials, int* counters, int B, int H, int KV,
-                     int S, int valid_len, int chunk, float scale,
-                     cudaStream_t stream) {
+                     void* partials, int* counters, const int* valid_dev,
+                     int B, int H, int KV, int S, int valid_len, int chunk,
+                     float scale, cudaStream_t stream) {
   using L = Geo<HD, T, HPW>;
   static_assert(L::kStage >= 4 * kMaxG * kMaxSplits,
                 "merge weights must fit in a stage");
@@ -525,6 +540,7 @@ cudaError_t launch_t(const void* q, const void* k, const void* v, void* out,
     }
   }
   if (ready != cudaSuccess) return ready;
+  // the grid: valid_len's blocks (the capacity's for a device length)
   const int n_split = (valid_len + chunk - 1) / chunk;
   const bool on_chip = n_split > 1 && n_split <= kClusterSplits;
   const long long heads = (long long)B * H;
@@ -537,34 +553,76 @@ cudaError_t launch_t(const void* q, const void* k, const void* v, void* out,
       &cfg, kern, static_cast<const __nv_bfloat16*>(q),
       static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<float*>(out), pm, pl, pa, counters, H, KV, S, valid_len,
-      chunk, scale, on_chip);
+      valid_dev, chunk, scale, on_chip);
 }
 
 // heads per warp: the fewest that cover the group
 template <int HD, typename T>
 cudaError_t launch_g(const void* q, const void* k, const void* v, void* out,
-                     void* partials, int* counters, int B, int H, int KV,
-                     int S, int valid_len, int chunk, float scale,
-                     cudaStream_t stream) {
+                     void* partials, int* counters, const int* valid_dev,
+                     int B, int H, int KV, int S, int valid_len, int chunk,
+                     float scale, cudaStream_t stream) {
   static_assert(2 * kWarps >= kMaxG, "two heads a warp cover a group");
   if (H / KV <= kWarps)
-    return launch_t<HD, T, 1>(q, k, v, out, partials, counters, B, H, KV, S,
-                              valid_len, chunk, scale, stream);
-  return launch_t<HD, T, 2>(q, k, v, out, partials, counters, B, H, KV, S,
-                            valid_len, chunk, scale, stream);
+    return launch_t<HD, T, 1>(q, k, v, out, partials, counters, valid_dev, B,
+                              H, KV, S, valid_len, chunk, scale, stream);
+  return launch_t<HD, T, 2>(q, k, v, out, partials, counters, valid_dev, B,
+                            H, KV, S, valid_len, chunk, scale, stream);
 }
 
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   void* partials, int* counters, int B, int H, int KV,
-                   int S, int valid_len, int chunk, float scale, int kv_fp8,
-                   cudaStream_t stream) {
+                   void* partials, int* counters, const int* valid_dev, int B,
+                   int H, int KV, int S, int valid_len, int chunk,
+                   float scale, int kv_fp8, cudaStream_t stream) {
   if (kv_fp8)
-    return launch_g<HD, __nv_fp8_e4m3>(q, k, v, out, partials, counters, B,
-                                       H, KV, S, valid_len, chunk, scale,
-                                       stream);
-  return launch_g<HD, __nv_bfloat16>(q, k, v, out, partials, counters, B, H,
-                                     KV, S, valid_len, chunk, scale, stream);
+    return launch_g<HD, __nv_fp8_e4m3>(q, k, v, out, partials, counters,
+                                       valid_dev, B, H, KV, S, valid_len,
+                                       chunk, scale, stream);
+  return launch_g<HD, __nv_bfloat16>(q, k, v, out, partials, counters,
+                                     valid_dev, B, H, KV, S, valid_len, chunk,
+                                     scale, stream);
+}
+
+// Both C entries: check the arguments, select the device, dispatch on hd.
+// valid_dev null: valid_len is the length; else the length is read on the
+// device and valid_len is the capacity S, which sets the grid.
+int run(const void* q, const void* k, const void* v, void* out,
+        void* partials, void* counters, const int* valid_dev, int B, int H,
+        int KV, int S, int hd, int valid_len, int chunk, float scale,
+        int kv_fp8, int device, void* stream) {
+  if (B < 1 || KV < 1 || H % KV != 0 || H / KV > kMaxG || valid_len < 1 ||
+      valid_len > S || chunk < 1 ||
+      (valid_len + chunk - 1) / chunk > kMaxSplits ||
+      (reinterpret_cast<uintptr_t>(q) & 15u) ||
+      (reinterpret_cast<uintptr_t>(valid_dev) & 3u) ||
+      (valid_len > kClusterSplits * chunk &&
+       (partials == nullptr || counters == nullptr)) ||
+      ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v))
+       & 15u))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int cur = -1;
+  cudaError_t err = cudaGetDevice(&cur);
+  if (err == cudaSuccess && cur != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* c = static_cast<int*>(counters);
+  switch (hd) {
+    case 32:
+      return static_cast<int>(launch<32>(q, k, v, out, partials, c, valid_dev,
+                                         B, H, KV, S, valid_len, chunk, scale,
+                                         kv_fp8, s));
+    case 64:
+      return static_cast<int>(launch<64>(q, k, v, out, partials, c, valid_dev,
+                                         B, H, KV, S, valid_len, chunk, scale,
+                                         kv_fp8, s));
+    case 128:
+      return static_cast<int>(launch<128>(q, k, v, out, partials, c,
+                                          valid_dev, B, H, KV, S, valid_len,
+                                          chunk, scale, kv_fp8, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -581,35 +639,22 @@ extern "C" int decode_attn(const void* q, const void* k, const void* v,
                            int H, int KV, int S, int hd, int valid_len,
                            int chunk, float scale, int kv_fp8, int device,
                            void* stream) {
-  if (B < 1 || KV < 1 || H % KV != 0 || H / KV > kMaxG || valid_len < 1 ||
-      valid_len > S || chunk < 1 ||
-      (valid_len + chunk - 1) / chunk > kMaxSplits ||
-      (reinterpret_cast<uintptr_t>(q) & 15u) ||
-      (valid_len > kClusterSplits * chunk &&
-       (partials == nullptr || counters == nullptr)) ||
-      ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v))
-       & 15u))
-    return static_cast<int>(cudaErrorInvalidValue);
-  int cur = -1;
-  cudaError_t err = cudaGetDevice(&cur);
-  if (err == cudaSuccess && cur != device) err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int* c = static_cast<int*>(counters);
-  switch (hd) {
-    case 32:
-      return static_cast<int>(launch<32>(q, k, v, out, partials, c, B, H, KV,
-                                         S, valid_len, chunk, scale, kv_fp8,
-                                         s));
-    case 64:
-      return static_cast<int>(launch<64>(q, k, v, out, partials, c, B, H, KV,
-                                         S, valid_len, chunk, scale, kv_fp8,
-                                         s));
-    case 128:
-      return static_cast<int>(launch<128>(q, k, v, out, partials, c, B, H,
-                                          KV, S, valid_len, chunk, scale,
-                                          kv_fp8, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return run(q, k, v, out, partials, counters, nullptr, B, H, KV, S, hd,
+             valid_len, chunk, scale, kv_fp8, device, stream);
+}
+
+// The same with the length in device memory: `valid_len` points to one
+// int32, read by every block when it runs and clamped to [1, S].  The grid
+// is the capacity's: n_split = ceil(S / chunk), and `partials` / `counters`
+// are needed as above when that exceeds 16.  Nothing here reads the
+// length on the host, so a CUDA graph replays the launch at any position.
+extern "C" int decode_attn_devlen(const void* q, const void* k, const void* v,
+                                  void* out, void* partials, void* counters,
+                                  const void* valid_len, int B, int H, int KV,
+                                  int S, int hd, int chunk, float scale,
+                                  int kv_fp8, int device, void* stream) {
+  if (valid_len == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return run(q, k, v, out, partials, counters,
+             static_cast<const int*>(valid_len), B, H, KV, S, hd, S, chunk,
+             scale, kv_fp8, device, stream);
 }

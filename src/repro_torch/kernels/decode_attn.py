@@ -6,8 +6,16 @@ Replaces ``src/repro/kernels/decode_attn.py::_kernel``.  Shapes:
 
     q: (B, H, hd) bf16            — current token's queries
     k, v: (B, S, KV, hd) bf16 or float8_e4m3fn cache
-    valid_len: int                — cache slots < valid_len attend
+    valid_len: int, or a 0-d integer tensor on q's device
+                                  — cache slots < valid_len attend
     out: (B, H, hd) f32
+
+A tensor ``valid_len`` is the decode step's position + 1 as the
+reference's jitted step traces it: nothing reads it on the host.  The
+kernel's entry for it (``decode_attn_devlen``) reads it on the card and
+fixes its split from the capacity S, so one launch serves every position
+and a CUDA graph replays it; the length is clamped to [1, S] (the plain
+version clamps it the same way).
 
 Query head ``h`` reads KV head ``h // (H // KV)``; slots at or past
 ``valid_len`` get a finite -1e30 score.  ``scale`` defaults to
@@ -23,7 +31,7 @@ for its slice, and merges them as :func:`combine_partials` does.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -89,6 +97,14 @@ _COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
 def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
     buf = _COUNTERS.get((device.index, stream))
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            # allocated now, the buffer would be memory of the graph's
+            # private pool, and later eager calls on this stream would
+            # share it
+            raise RuntimeError(
+                "decode attention's merge counters for this stream do not "
+                "exist yet: run the step once on the capture stream before "
+                "a CUDA graph captures it")
         buf = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
         _COUNTERS[(device.index, stream)] = buf
     return buf
@@ -98,13 +114,19 @@ def _default_scale(hd: int) -> float:
     return 1.0 / (hd ** 0.5)
 
 
+Length = Union[int, torch.Tensor]
+
+
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           valid_len: int,
+                           valid_len: Length,
                            scale: Optional[float] = None) -> torch.Tensor:
-    """Plain PyTorch decode attention in f32 (any device)."""
+    """Plain PyTorch decode attention in f32 (any device).  A tensor
+    ``valid_len`` is clamped to [1, S], as the kernel clamps it."""
     B, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
     scale = _default_scale(hd) if scale is None else scale
+    if isinstance(valid_len, torch.Tensor):
+        valid_len = valid_len.clamp(1, S)
     qf = q.float().reshape(B, KV, H // KV, hd)
     s = torch.einsum("bgrd,bsgd->bgrs", qf, k.float()) * scale
     pos = torch.arange(S, device=q.device)
@@ -152,13 +174,27 @@ def combine_partials(parts: Sequence[AttnPartial]) -> torch.Tensor:
     return acc / l[..., None]
 
 
+def _check_length(valid_len: torch.Tensor, q: torch.Tensor) -> None:
+    if valid_len.dim() != 0 or valid_len.is_floating_point() \
+            or valid_len.is_complex() or valid_len.dtype == torch.bool:
+        raise TypeError(f"a tensor valid_len must be a 0-d integer tensor, "
+                        f"got {valid_len.dtype} of shape "
+                        f"{tuple(valid_len.shape)}")
+    if valid_len.device != q.device:
+        raise ValueError(f"valid_len on {valid_len.device}, q on {q.device}")
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     valid_len: int,
+                     valid_len: Length,
                      scale: Optional[float] = None) -> torch.Tensor:
     """Decode attention on the tensors' device: the CUDA kernel on the
     card, :func:`decode_attention_plain` on the CPU.  On the ``meta``
     device (a dry run's trace) only the shapes are checked and an empty
-    output returned: nothing is computed or launched."""
+    output returned: nothing is computed or launched.  An int
+    ``valid_len`` takes the kernel's host-length entry (counted as
+    ``decode_attn``), a 0-d tensor on q's device its device-length entry
+    (``decode_attn_devlen``), in eager mode as under a CUDA graph's
+    capture."""
     if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
@@ -172,11 +208,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.dtype not in (torch.bfloat16, torch.float8_e4m3fn) or v.dtype != k.dtype:
         raise TypeError(f"cache must be bfloat16 or float8_e4m3fn, got "
                         f"{k.dtype}/{v.dtype}")
+    on_device = isinstance(valid_len, torch.Tensor)
+    if on_device:
+        _check_length(valid_len, q)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, valid_len, scale)
+    if not on_device and not 1 <= valid_len <= S:
+        raise ValueError(f"valid_len {valid_len} outside [1, {S}]")
     if q.device.type == "meta" and k.is_meta and v.is_meta:
-        if not 1 <= valid_len <= S:
-            raise ValueError(f"valid_len {valid_len} outside [1, {S}]")
         return torch.empty((B, H, hd), dtype=torch.float32, device="meta")
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"decode attention needs q, k, v on one CUDA "
@@ -190,11 +229,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"kernel supports hd in {HEAD_DIMS} and at most "
                          f"{MAX_GROUP} heads per KV head, got hd={hd}, "
                          f"group={H // KV}")
-    if not 1 <= valid_len <= S:
-        raise ValueError(f"valid_len {valid_len} outside [1, {S}]")
     scale = _default_scale(hd) if scale is None else scale
-    chunk = split_size(valid_len, B * KV, _sms(q.device.index))
-    n_split = -(-valid_len // chunk)
+    # a device length: the split of the whole capacity, the same at
+    # every position
+    grid_len = S if on_device else int(valid_len)
+    chunk = split_size(grid_len, B * KV, _sms(q.device.index))
+    n_split = -(-grid_len // chunk)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     out = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
     partials = counters = None
@@ -202,12 +242,20 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         partials = torch.empty(B * H * n_split * (hd + 2),
                                dtype=torch.float32, device=q.device)
         counters = _counters(q.device, stream, B * KV)
-    rc = build.load("decode_attn").decode_attn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if partials is None else partials.data_ptr(),
-        None if counters is None else counters.data_ptr(),
-        B, H, KV, S, hd, int(valid_len), chunk, float(scale),
-        int(k.dtype == torch.float8_e4m3fn), q.device.index, stream)
-    build.check(rc, "decode_attn")
-    build.LAUNCHES["decode_attn"] += 1
+    lib = build.load("decode_attn")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if partials is None else partials.data_ptr(),
+            None if counters is None else counters.data_ptr())
+    tail = (float(scale), int(k.dtype == torch.float8_e4m3fn),
+            q.device.index, stream)
+    if on_device:
+        length = valid_len.to(torch.int32)     # no copy when already int32
+        rc = lib.decode_attn_devlen(*ptrs, length.data_ptr(), B, H, KV, S,
+                                    hd, chunk, *tail)
+        name = "decode_attn_devlen"
+    else:
+        rc = lib.decode_attn(*ptrs, B, H, KV, S, hd, grid_len, chunk, *tail)
+        name = "decode_attn"
+    build.check(rc, name)
+    build.LAUNCHES[name] += 1
     return out

@@ -13,7 +13,6 @@ bf16 rounds at other places inside a fused op.
 from __future__ import annotations
 
 import contextlib
-from typing import Optional
 
 import numpy as np
 import torch
@@ -82,15 +81,15 @@ def _scale(q) -> float:
 
 
 def attention(q, k, v, *, q_positions, causal: bool = True, window: int = 0,
-              k_positions=None, kv_valid_len: Optional[int] = None,
-              q_chunk: int = 0):
+              k_positions=None, kv_valid_len=None, q_chunk: int = 0):
     """GQA attention (plain PyTorch; the prefill path and every
     rolling-window or bidirectional one).
 
     q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) with H % KV == 0.  Key ``t``
     sits at ``k_positions[:, t]`` (default: position ``t``).  ``causal``
     masks keys after the query, ``window`` > 0 keys at or more than
-    ``window`` positions before it, ``kv_valid_len`` slots at or past it;
+    ``window`` positions before it, ``kv_valid_len`` (an int or a 0-d
+    tensor on the device) slots at or past it;
     ``q_chunk`` > 0 processes query chunks to bound score memory.
     """
     B, Sq, H, hd = q.shape
@@ -125,7 +124,35 @@ def attention(q, k, v, *, q_positions, causal: bool = True, window: int = 0,
     return out.reshape(B, Sq, H, v.shape[-1])
 
 
-def gqa_block(x, p, cfg, *, positions, cache=None, cache_pos: int = 0,
+def _bits(t):
+    """``t`` viewed as the integer type of its width, so an indexed copy
+    moves its bytes as they are, whatever the float type (fp8 included)."""
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32}[
+        t.element_size()])
+
+
+def _write_slots(buf, slots, new):
+    """``buf[:, slots] = new`` in place, ``new`` cast to ``buf``'s dtype:
+    ``buf`` (B, W, ...), ``slots`` (S,) int64 on its device, distinct.
+    An ``index_copy_`` of the bytes: no host read of ``slots``."""
+    _bits(buf).index_copy_(1, slots, _bits(new.to(buf.dtype)))
+
+
+def _write_at(buf, cache_pos, new):
+    """Write ``new`` (B, S, ...) into the cache ``buf`` (B, Smax, ...) at
+    ``cache_pos`` … ``cache_pos + S - 1``, in place: a slice for a host
+    position, :func:`_write_slots` at ``cache_pos + arange(S)`` for a
+    device one (the reference's ``dynamic_update_slice`` at a traced
+    position)."""
+    S = new.shape[1]
+    if isinstance(cache_pos, int):
+        buf[:, cache_pos : cache_pos + S] = new.to(buf.dtype)
+        return
+    _write_slots(buf, cache_pos.long() + torch.arange(S, device=buf.device),
+                new)
+
+
+def gqa_block(x, p, cfg, *, positions, cache=None, cache_pos=0,
               window: int = 0):
     """norm → qkv (+bias; +rope for a causal model) → attention → out proj.
 
@@ -134,7 +161,8 @@ def gqa_block(x, p, cfg, *, positions, cache=None, cache_pos: int = 0,
     ``k``/``v`` (B, Smax, KV, hd), updated in place at ``cache_pos``; one
     token (S == 1) attends through the decode-attention kernel, a prompt
     through plain PyTorch.  A rolling cache also holds ``kpos`` (B, W):
-    see :func:`_rolling_attention`.
+    see :func:`_rolling_attention`.  ``cache_pos``: an int, or a 0-d int32
+    tensor on the device that nothing here reads on the host.
     """
     B, S, _ = x.shape
     H, KVh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -157,8 +185,8 @@ def gqa_block(x, p, cfg, *, positions, cache=None, cache_pos: int = 0,
         out = _rolling_attention(q, k, v, cache, positions, window, chunk)
     else:
         kc, vc = cache["k"], cache["v"]
-        kc[:, cache_pos : cache_pos + S] = k.to(kc.dtype)
-        vc[:, cache_pos : cache_pos + S] = v.to(vc.dtype)
+        _write_at(kc, cache_pos, k)
+        _write_at(vc, cache_pos, v)
         kc = logical(kc, "batch", "kv_seq", "kv_heads", None)
         vc = logical(vc, "batch", "kv_seq", "kv_heads", None)
         if S == 1:
@@ -194,13 +222,13 @@ def _rolling_attention(q, k, v, cache, positions, window: int, chunk: int):
                     k_positions=kp, q_chunk=chunk)
     keep = min(S, W)
     slots = positions[0, S - keep:].long() % W
-    kc[:, slots] = k[:, S - keep:].to(kc.dtype)
-    vc[:, slots] = v[:, S - keep:].to(vc.dtype)
-    kpos[:, slots] = positions[:, S - keep:].to(kpos.dtype)
+    _write_slots(kc, slots, k[:, S - keep:])
+    _write_slots(vc, slots, v[:, S - keep:])
+    _write_slots(kpos, slots, positions[:, S - keep:])
     return out
 
 
-def mla_block(x, p, cfg, *, positions, cache=None, cache_pos: int = 0):
+def mla_block(x, p, cfg, *, positions, cache=None, cache_pos=0):
     """DeepSeek-V2 multi-head latent attention over a latent cache.
 
     The cache holds this layer's ``c_kv`` (B, Smax, kv_lora_rank) latent
@@ -223,8 +251,8 @@ def mla_block(x, p, cfg, *, positions, cache=None, cache_pos: int = 0):
         c_all, k_rope_all, k_positions, valid = c_kv, k_rope, positions, None
     else:
         cc, kc = cache["c_kv"], cache["k_rope"]
-        cc[:, cache_pos : cache_pos + S] = c_kv.to(cc.dtype)
-        kc[:, cache_pos : cache_pos + S] = k_rope.to(kc.dtype)
+        _write_at(cc, cache_pos, c_kv)
+        _write_at(kc, cache_pos, k_rope)
         c_all, k_rope_all = cc.to(h.dtype), kc.to(h.dtype)
         k_positions, valid = None, cache_pos + S
     Sk = c_all.shape[1]

@@ -513,6 +513,42 @@ def _embed_in(cfg, params, batch):
     return logical(x, "batch", "seq", "embed")
 
 
+def cache_capacity(cache: dict) -> Optional[int]:
+    """Slots of a decode cache's linear KV caches (GQA ``k`` or MLA
+    ``c_kv``), or None for a cache without one: the Mamba states and the
+    hybrid's rolling window take any position."""
+    for part in ("layers", "dense0"):
+        for kind in ("k", "c_kv"):
+            if kind in cache.get(part, {}):
+                return cache[part][kind].shape[2]
+    return None
+
+
+def _cache_position(pos, cache: dict, x: torch.Tensor, S: int):
+    """The decode position in one of two forms.  A 0-d integer tensor on
+    the model's device is the reference's traced ``jnp.int32`` scalar:
+    returned as an int32 tensor and never read on the host (no sync, so
+    a CUDA graph can capture the step); the cache writes index with it.
+    Anything else (an int, or a concrete CPU scalar beside a model on
+    another device, as the dry run passes) is read on the host, and a
+    position whose tokens pass the cache's capacity raises here, before
+    any write.  (The reference's ``dynamic_update_slice`` clamps such a
+    write silently; on the device form the serving engine checks its
+    position on the host before the step.)"""
+    if isinstance(pos, torch.Tensor) and pos.device == x.device:
+        if pos.dim() != 0 or pos.is_floating_point() \
+                or pos.dtype == torch.bool:
+            raise TypeError(f"cache_pos must be a 0-d integer tensor, got "
+                            f"{pos.dtype} of shape {tuple(pos.shape)}")
+        return pos.to(torch.int32)
+    pos = int(pos)
+    cap = cache_capacity(cache)
+    if pos < 0 or (cap is not None and pos + S > cap):
+        raise ValueError(f"cache_pos {pos} with {S} tokens does not fit "
+                         f"the cache's {cap} slots")
+    return pos
+
+
 def forward_with_aux(cfg: ArchConfig, params: dict, batch: dict,
                      cache: Optional[dict] = None):
     """:func:`forward`, and the MoE balance loss summed over the stacked
@@ -529,7 +565,8 @@ def forward_with_aux(cfg: ArchConfig, params: dict, batch: dict,
                     if k in params})
     x = _embed_in(cfg, top, batch)
     B, S = x.shape[:2]
-    cache_pos = 0 if cache is None else int(batch["cache_pos"])
+    cache_pos = 0 if cache is None else _cache_position(batch["cache_pos"],
+                                                        cache, x, S)
     positions = (cache_pos + torch.arange(S, device=x.device,
                                           dtype=torch.int32))[None].expand(B, S)
     aux = None
@@ -550,11 +587,13 @@ def forward_with_aux(cfg: ArchConfig, params: dict, batch: dict,
 def forward(cfg: ArchConfig, params: dict, batch: dict,
             cache: Optional[dict] = None) -> Tuple[torch.Tensor, Optional[dict]]:
     """``batch``: ``tokens`` (B, S) int, or ``embeds`` (B, S, d) for a
-    frontend model; with a cache also ``cache_pos`` (int, the position of
-    the first token).  Without a cache the tokens attend to each other
-    from position 0 (causally, or both ways for an encoder) and nothing
-    is kept; with one their KV (or recurrent state) is written into it in
-    place.  Returns ``(logits (B, S, vocab) bf16, cache)``."""
+    frontend model; with a cache also ``cache_pos``, the position of the
+    first token: an int, or a 0-d integer tensor on the model's device
+    that nothing reads on the host (see :func:`_cache_position`).
+    Without a cache the tokens attend to each other from position 0
+    (causally, or both ways for an encoder) and nothing is kept; with one
+    their KV (or recurrent state) is written into it in place.  Returns
+    ``(logits (B, S, vocab) bf16, cache)``."""
     logits, cache, _ = forward_with_aux(cfg, params, batch, cache)
     return logits, cache
 

@@ -12,7 +12,14 @@ End-to-end path (paper Fig. 1/6 on a GPU host):
              reference.
   decode   — one-token steps attend through the decode-attention kernel
              over the cache, whose spilled pages were overwritten in place
-             with the tier's readback at their policy precision.
+             with the tier's readback at their policy precision.  The
+             step's position is a 0-d int32 tensor on the device, as the
+             reference's ``jax.jit(decode_step)`` traces it, so on a card
+             each engine captures its decode step once in a CUDA graph
+             (at its first decode) and replays it every token; on the CPU
+             the same step runs eagerly.  Prefill stays eager, with a host
+             position: a graph replays only the shape it captured, and
+             each prompt length would need a capture for one use.
   accounting — tier traffic from the pool's receipts;
              ``throughput_ceiling()`` converts it to a tok/s ceiling with
              the paper's first-order model.
@@ -54,6 +61,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import time
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -63,7 +71,8 @@ from .. import devices
 from ..configs.base import ArchConfig
 from ..core.system_model import SystemSpec
 from ..core.tier import Ticket, TierStore, make_device
-from ..models.model import cache_spec, decode_step, init_cache
+from ..kernels import build
+from ..models.model import cache_capacity, cache_spec, decode_step, init_cache
 from .paging import (
     KVPagePool, PagePolicy, PAPER_POLICY, PrefixShareIndex, _Page,
     prefix_chain_hashes,
@@ -107,6 +116,63 @@ class ServeStats:
         return self.kv_logical_bytes / max(
             self.tier_dram_stored + self.hbm_page_bytes, 1
         )
+
+
+def _clone_tree(tree):
+    return {k: _clone_tree(v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
+
+
+class DecodeGraph:
+    """One engine's decode step captured in a CUDA graph and replayed at
+    every token: static ``tokens`` (B, 1) int64 and ``pos`` (0-d int32)
+    in, static ``logits`` (B, 1, vocab) out, the engine's cache written in
+    place.  Capture: a warm-up step on a copy of the cache, on the side
+    stream the capture then uses (it builds and loads the kernels,
+    allocates decode attention's merge counters, which are kept per
+    stream, and initialises the libraries, none of which a capture may
+    do), then ``decode_step`` captured with ``torch.cuda.graph``.  The
+    kernel
+    launches its wrappers counted while it was captured did not run:
+    they are taken back, and :meth:`replay` adds them to
+    ``build.LAUNCHES`` each time it launches them.  A failed capture or
+    replay raises; nothing falls back to the eager step."""
+
+    def __init__(self, cfg: ArchConfig, params, cache: dict,
+                 tokens: torch.Tensor, pos: int):
+        dev = tokens.device
+        self.tokens = tokens.to(torch.int64).clone()
+        self.pos = torch.full((), pos, dtype=torch.int32, device=dev)
+        batch = {"tokens": self.tokens, "cache_pos": self.pos}
+        stream = torch.cuda.Stream(dev)
+        t0 = time.perf_counter()
+        scratch = _clone_tree(cache)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            decode_step(cfg, params, batch, scratch)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        del scratch
+        t1 = time.perf_counter()
+        before = dict(build.LAUNCHES)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=stream):
+            self.logits, _ = decode_step(cfg, params, batch, cache)
+        self.launches = {k: n - before[k] for k, n in build.LAUNCHES.items()
+                         if n != before[k]}
+        build.LAUNCHES.update(before)
+        # host seconds of the warm-up step and of the capture
+        self.warmup_s = t1 - t0
+        self.capture_s = time.perf_counter() - t1
+
+    def replay(self, tokens: torch.Tensor, pos: int) -> torch.Tensor:
+        """The step's logits at ``pos`` for ``tokens``: the static inputs
+        filled, the graph replayed on the current stream."""
+        self.tokens.copy_(tokens)
+        self.pos.fill_(pos)
+        self.graph.replay()
+        for name, n in self.launches.items():
+            build.LAUNCHES[name] += n
+        return self.logits
 
 
 def check_servable(cfg: ArchConfig):
@@ -174,6 +240,8 @@ class ServeEngine:
         )
         self.cache = init_cache(cfg, batch, max_seq, device=self.device)
         self.pos = 0
+        # the captured decode step (a card), made at the first decode
+        self.graph: Optional[DecodeGraph] = None
         # prompt-prefix chain hashes, set by the first prefill when the
         # pool is wired to a PrefixShareIndex
         self._share_hashes: List[str] = []
@@ -348,14 +416,35 @@ class ServeEngine:
             target.copy_(words.view(buf.dtype).reshape(target.shape))
 
     # -- API ---------------------------------------------------------------------
-    def _step(self, tokens: np.ndarray) -> np.ndarray:
-        batch = {"tokens": torch.from_numpy(np.ascontiguousarray(
-                     tokens, dtype=np.int64)).to(self.device),
-                 "cache_pos": self.pos}
-        logits, self.cache = decode_step(self.cfg, self.params, batch,
-                                         self.cache)
+    def _prefill_logits(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The prompt's logits, eagerly, at the host position."""
+        return decode_step(self.cfg, self.params, {
+            "tokens": tokens, "cache_pos": self.pos}, self.cache)[0]
+
+    def _decode_logits(self, tokens: torch.Tensor) -> torch.Tensor:
+        """One token's logits with the position on the device: on a card
+        a replay of the captured step (captured at the first decode), on
+        the CPU the same step run eagerly."""
+        if self.device.type != "cuda":
+            return decode_step(self.cfg, self.params, {
+                "tokens": tokens, "cache_pos": torch.tensor(
+                    self.pos, dtype=torch.int32, device=self.device)},
+                self.cache)[0]
+        if self.graph is None:
+            self.graph = DecodeGraph(self.cfg, self.params, self.cache,
+                                     tokens, self.pos)
+        return self.graph.replay(tokens, self.pos)
+
+    def _step(self, tokens: np.ndarray, run) -> np.ndarray:
+        n = tokens.shape[1]
+        cap = cache_capacity(self.cache)
+        if cap is not None and self.pos + n > cap:
+            raise ValueError(f"{n} tokens at position {self.pos} pass the "
+                             f"cache's {cap} slots (max_seq)")
+        logits = run(torch.from_numpy(np.ascontiguousarray(
+            tokens, dtype=np.int64)).to(self.device))
         old = self.pos
-        self.pos += tokens.shape[1]
+        self.pos += n
         self._commit_pages(old, self.pos)
         return logits[:, -1].float().cpu().numpy()
 
@@ -365,11 +454,11 @@ class ServeEngine:
         if self.pos == 0 and self.pool.prefix_index is not None:
             self._share_hashes = prefix_chain_hashes(tokens, self.page_tokens)
             self._prompt_len = tokens.shape[1]
-        return self._step(tokens)
+        return self._step(tokens, self._prefill_logits)
 
     def decode(self, tokens: np.ndarray) -> np.ndarray:
         """tokens: (batch, 1) current token → next-token logits (f32)."""
-        return self._step(tokens.reshape(self.batch, 1))
+        return self._step(tokens.reshape(self.batch, 1), self._decode_logits)
 
     def generate(self, prompt: np.ndarray, n_tokens: int,
                  greedy: bool = True, seed: int = 0) -> np.ndarray:
@@ -422,8 +511,10 @@ class ServeEngine:
 
     def retire(self) -> int:
         """Finish this sequence: drain in-flight readback, then free every
-        page and the tier namespace.  Returns the tier keys freed."""
+        page and the tier namespace (and the captured step's graph).
+        Returns the tier keys freed."""
         self.flush_io()
+        self.graph = None
         return self.pool.release()
 
 

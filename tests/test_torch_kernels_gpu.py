@@ -329,6 +329,165 @@ def test_decode_attention_at_the_decode_32k_cell(card, kv):
                                                          0.125))
 
 
+# the device-length entry (the captured decode step's): [main]'s shape,
+# llava-next-34b's and the decode_32k cell's
+DEVLEN_SHAPES = {"main": (1, 14, 2, 64, 640), "llava": (1, 56, 8, 128, 640),
+                 "decode_32k": (8, 14, 2, 64, 32768)}
+
+
+def _devlen_lengths(card, shape):
+    """1, the first position of the grid's second block, and S."""
+    B, H, KV, hd, S = shape
+    chunk = decode_attn.split_size(S, B * KV, decode_attn._sms(card.index))
+    return (1, chunk + 1, S)
+
+
+@pytest.mark.parametrize("kv", [torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("which", list(DEVLEN_SHAPES))
+def test_decode_attention_device_length_matches_plain(card, kv, which):
+    """A 0-d int32 length on the card takes the device-length entry
+    (counted as ``decode_attn_devlen``): within the f32 tolerance of the
+    plain version on the same tensor, bit-equal across two calls, at 1,
+    a block boundary and S — blocks past the length give empty partials
+    that every merge path (one block, the cluster, device memory) takes
+    as nothing."""
+    B, H, KV, hd, S = DEVLEN_SHAPES[which]
+    q, k, v = _attention_inputs(card, B, H, KV, hd, S, kv, 31)
+    for valid in _devlen_lengths(card, DEVLEN_SHAPES[which]):
+        length = torch.tensor(valid, dtype=torch.int32, device=card)
+        before = dict(build.LAUNCHES)
+        got = decode_attn.decode_attention(q, k, v, length)
+        assert build.LAUNCHES["decode_attn_devlen"] == \
+            before["decode_attn_devlen"] + 1
+        assert build.LAUNCHES["decode_attn"] == before["decode_attn"]
+        want = decode_attn.decode_attention_plain(q, k, v, length)
+        torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+        assert torch.equal(got, decode_attn.decode_attention(q, k, v,
+                                                             length))
+        torch.testing.assert_close(
+            got, decode_attn.decode_attention(q, k, v, valid),
+            atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("which", list(DEVLEN_SHAPES))
+def test_decode_attention_device_length_replays_in_a_graph(card, which):
+    """One capture of the call replays at every length, bit-equal to the
+    eager device-length call; a merge through device memory leaves its
+    counters at 0 after every replay."""
+    B, H, KV, hd, S = DEVLEN_SHAPES[which]
+    q, k, v = _attention_inputs(card, B, H, KV, hd, S, torch.bfloat16, 33)
+    length = torch.full((), S, dtype=torch.int32, device=card)
+    stream = torch.cuda.Stream(card)
+    stream.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(stream):
+        decode_attn.decode_attention(q, k, v, length)
+    torch.cuda.current_stream(card).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = decode_attn.decode_attention(q, k, v, length)
+    for valid in _devlen_lengths(card, DEVLEN_SHAPES[which]) + (S // 2,):
+        length.fill_(valid)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, decode_attn.decode_attention(q, k, v,
+                                                             length))
+        counters = decode_attn._COUNTERS.get((card.index,
+                                              stream.cuda_stream))
+        assert counters is None or not bool(counters.any())
+
+
+def test_counters_are_never_allocated_under_capture(card):
+    q, k, v = _attention_inputs(card, 8, 14, 2, 64, 32768, torch.bfloat16, 1)
+    length = torch.full((), 40, dtype=torch.int32, device=card)
+    stream = torch.cuda.Stream(card)      # never used eagerly: no counters
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="merge counters"):
+        with torch.cuda.graph(graph, stream=stream):
+            decode_attn.decode_attention(q, k, v, length)
+
+
+SERVED = ["deepseek-v2-lite-16b", "falcon-mamba-7b", "grok-1-314b",
+          "nemotron-4-340b", "qwen1.5-32b", "qwen2-0.5b", "stablelm-12b",
+          "zamba2-7b"]
+
+
+def _clone_tree(tree):
+    return {k: _clone_tree(v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
+
+
+def _eager_logits(eng, tok, cache):
+    from repro_torch.models.model import decode_step
+
+    pos = torch.tensor(eng.pos, dtype=torch.int32, device=eng.device)
+    logits, _ = decode_step(eng.cfg, eng.params, {
+        "tokens": torch.from_numpy(tok.astype(np.int64)).to(eng.device),
+        "cache_pos": pos}, cache)
+    return logits[:, -1].float().cpu().numpy()
+
+
+@pytest.mark.parametrize("name", SERVED)
+def test_engine_graph_replay_equals_eager_step(card, name):
+    """Every causal arch the engine serves, at smoke width: the engine
+    captures its decode step once, and every replay's logits equal
+    ``decode_step`` run eagerly at the same tensor position on a copy of
+    the cache, bit for bit; the replay's launches are counted."""
+    cfg = smoke_config(ARCHS[name])
+    params = init_params(cfg, seed=0, device=card)
+    eng = ServeEngine(cfg, params, max_seq=96, page_tokens=16,
+                      hbm_kv_budget=1 << 12, device=card)
+    prompt = (np.arange(40, dtype=np.int32).reshape(1, 40) * 5) % cfg.vocab
+    logits = eng.prefill(prompt)
+    build.reset_launches()
+    for step in range(10):
+        tok = np.array([[int(np.argmax(logits[0]))]], dtype=np.int32)
+        saved = dict(build.LAUNCHES)
+        want = _eager_logits(eng, tok, _clone_tree(eng.cache))
+        build.LAUNCHES.update(saved)
+        logits = eng.decode(tok)
+        np.testing.assert_array_equal(logits, want)
+    assert eng.graph is not None
+    # the GQA decoders attend through the kernel once a layer; MLA, the
+    # Mamba states and the hybrid's rolling cache in plain PyTorch
+    plain = cfg.mla or cfg.ssm or cfg.family == "hybrid"
+    attn = 0 if plain else cfg.n_layers
+    assert build.LAUNCHES["decode_attn"] == 0
+    # 10 replays and the warm-up step before the capture
+    assert build.LAUNCHES["decode_attn_devlen"] == 11 * attn
+    eng.retire()
+    assert eng.graph is None
+
+
+def test_readback_between_replays_is_what_the_next_replay_attends(card):
+    """A window the host writes into the cache between two replays (as
+    ``_apply_readback`` writes the tier's readback) is what the next
+    replay attends to: its logits equal the eager step over the written
+    cache, and differ from the eager step over the cache without it."""
+    cfg = smoke_config(ARCHS["qwen2-0.5b"])
+    params = init_params(cfg, seed=0, device=card)
+    eng = ServeEngine(cfg, params, max_seq=96, page_tokens=16,
+                      hbm_kv_budget=1 << 22, device=card)
+    prompt = (np.arange(40, dtype=np.int32).reshape(1, 40) * 3) % cfg.vocab
+    eng.prefill(prompt)
+    tok = np.array([[7]], dtype=np.int32)
+    eng.decode(tok)                      # captured and replayed once
+    assert eng.graph is not None and eng.stats().spilled_pages == 0
+    before = _clone_tree(eng.cache)
+    page = eng.pool.page_tokens
+    win = eng.cache["layers"]["k"][0, :, 16:16 + page]
+    words = (win.cpu().contiguous().view(torch.int16).numpy()
+             .view(np.uint16) ^ 0x8000)            # a readback's new words
+
+    class Page:
+        kind, layer, start = "k", 0, 16
+    eng._apply_readback([Page()], [words.reshape(page, -1)])
+    want = _eager_logits(eng, tok, _clone_tree(eng.cache))
+    stale = _eager_logits(eng, tok, before)
+    got = eng.decode(tok)
+    np.testing.assert_array_equal(got, want)
+    assert not np.array_equal(got, stale)
+
+
 def test_decode_attention_memory_merge_resets_counters(card):
     """More than 16 blocks a row merge through device memory: the kernel
     sets each row's counter back to 0 once merged, so the wrapper keeps
@@ -506,7 +665,9 @@ def test_engine_on_card_runs_every_kernel(card):
     """Classic readback and the PNM path (attention importance, 2 shards)
     on the card: together they launch every serving kernel (all but the
     elastic matmul and the standalone KV inverse, which only the kernel
-    API reaches)."""
+    API reaches, and decode attention's host-length entry, which the dry
+    run's step takes: the engine's captured step takes the device
+    length)."""
     cfg = smoke_config(ARCHS["qwen2-0.5b"])
     params = init_params(cfg, seed=0, device=card)
     build.reset_launches()
@@ -525,8 +686,12 @@ def test_engine_on_card_runs_every_kernel(card):
     # the standalone inverse, like the elastic matmul, is the kernel API's
     assert build.LAUNCHES["bitplane_unpack"] > 0, build.LAUNCHES
     assert build.LAUNCHES["kv_delta_inv"] == 0, build.LAUNCHES
+    # decode attention launches at the position on the device only (the
+    # captured step): the host-length entry is the dry run's
+    assert build.LAUNCHES["decode_attn"] == 0, build.LAUNCHES
     assert all(build.LAUNCHES[name] > 0 for name in build.KERNELS
-               if name not in ("elastic_matmul", "kv_delta_inv")), \
+               if name not in ("elastic_matmul", "kv_delta_inv",
+                               "decode_attn")), \
         build.LAUNCHES
 
 

@@ -251,7 +251,17 @@ def test_attention_importance_ranks_latent_pages_as_reference(models):
     assert teng.pool.pages_gathered > 0
 
 
-def test_kv_projection_equals_reference(models):
+@pytest.fixture
+def ref_slope_cache():
+    """Leave the reference's process-wide ``_kv_bytes_per_token_b1``
+    cache (``lru_cache(maxsize=32)``) as empty as this test found it in a
+    fresh process: ``tests/test_prefix_share.py`` bounds its size, and
+    xdist may run that file after this one in the same worker."""
+    yield
+    rserving._kv_bytes_per_token_b1.cache_clear()
+
+
+def test_kv_projection_equals_reference(models, ref_slope_cache):
     rcfg, _, tcfg, _ = models
     for t, r in ((tcfg, rcfg), (ARCHS[ARCH], RARCHS[ARCH])):
         assert tserving._kv_bytes_per_token_b1(t) == \

@@ -391,9 +391,20 @@ def test_index_tier_mismatch_rejected():
 # the admission slope: from the config, equal to the reference's
 # ---------------------------------------------------------------------------
 
+@pytest.fixture
+def ref_slope_cache():
+    """Leave the reference's process-wide ``_kv_bytes_per_token_b1``
+    cache (``lru_cache(maxsize=32)``) as empty as this test found it in a
+    fresh process: ``tests/test_prefix_share.py`` bounds its size, and
+    xdist may run that file after this one in the same worker."""
+    yield
+    rserving._kv_bytes_per_token_b1.cache_clear()
+
+
 @pytest.mark.parametrize("smoke", [False, True])
 @pytest.mark.parametrize("kv_dtype", ["bfloat16", "float8_e4m3fn"])
-def test_kv_per_token_slope_equals_reference(smoke, kv_dtype):
+def test_kv_per_token_slope_equals_reference(smoke, kv_dtype,
+                                             ref_slope_cache):
     from repro.configs import ARCHS as RARCHS, smoke_config as rsmoke
 
     tcfg, rcfg = ARCHS["qwen2-0.5b"], RARCHS["qwen2-0.5b"]

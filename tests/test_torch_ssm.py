@@ -414,9 +414,20 @@ def test_scheduler_and_streams_equal_solo_runs(pairs, name):
     _tier_empty(multi.tier)
 
 
+@pytest.fixture
+def ref_slope_cache():
+    """Leave the reference's process-wide ``_kv_bytes_per_token_b1``
+    cache (``lru_cache(maxsize=32)``) as empty as this test found it in a
+    fresh process: ``tests/test_prefix_share.py`` bounds its size, and
+    xdist may run that file after this one in the same worker."""
+    yield
+    rserving._kv_bytes_per_token_b1.cache_clear()
+
+
 @pytest.mark.parametrize("kv_dtype", ["bfloat16", "float8_e4m3fn"])
 @pytest.mark.parametrize("name", sorted(ARCHS))
-def test_admission_projection_matches_reference(name, kv_dtype):
+def test_admission_projection_matches_reference(name, kv_dtype,
+                                               ref_slope_cache):
     """The paged-KV bytes a token adds, from the cache's shapes at full
     width (nothing allocated), equal the reference's for every arch: 0
     for the recurrent models, whose state pages nothing."""
