@@ -93,13 +93,14 @@ Phases (any failure exits non-zero and prints no result line):
    ``view_round_plain`` of its source's fetched planes, FULL units the
    params bit for bit; the same units on a ``plain`` device for the DRAM
    read ratio; layer 0 through a CPU tier, bytes, flags and receipts
-   equal; the standalone unpack held to its plain version and timed at
-   a weight's decode slab at each view (its own row in the ``kernels``
-   line, apart from the fused KV read's ``bitplane_unpack``); the
-   first layer on a 4-shard ``replicate-weights`` fleet (words and
-   per-shard bytes the single device's, async reads spread over the
-   replicas) and one request of 512 + 64 tokens served on that fleet
-   (tokens equal one device's);
+   equal, and its load and fetch on the card split by host span
+   (``SpanTimer``); the standalone unpack held to its plain version and
+   timed at a weight's decode slab at each view (its own row in the
+   ``kernels`` line, apart from the fused KV read's
+   ``bitplane_unpack``); the first layer on a 4-shard
+   ``replicate-weights`` fleet (words and per-shard bytes the single
+   device's, async reads spread over the replicas) and one request of
+   512 + 64 tokens served on that fleet (tokens equal one device's);
 7. the PNM path at full width, one request per case, launch counts read
    per case: (a) classic readback, (b) a gather covering every candidate
    (tokens identical to a), (c) top-16 gathers with attention importance
@@ -172,39 +173,48 @@ Phases (any failure exits non-zero and prints no result line):
    embed steps, decode == forward, decode attention launched once a
    layer a step at its shape (row ``decode_attn_llava``);
 14. training on the card (``[train]``; no kernel of the port may
-   launch, counts set to 0 before each part and read after): (a)
+   launch, counts set to 0 before each part and read after), each
+   ``train`` run's step captured once as a CUDA graph at its second
+   step, after its eager first step (``TrainGraph``), and replayed at it
+   and every later step: (a)
    qwen2-0.5b at full width and depth (24 layers, 494 M random bf16
    parameters from seed 0, remat on) takes 4 steps of ``train`` at
    TRAIN_4K's 4096 tokens x a global batch of 2 (cut from 256), grad
-   compression on, f32 moments — per step wall, tokens/s, loss,
-   grad_norm and lr, the peak memory, every loss and norm finite, every
-   leaf changed — and one more step under ``torch.profiler`` (device
-   time by phase, busy share); (b) one step card vs CPU from the same
-   weights and batch (2 layers at full width, 2 x 256 tokens): loss,
-   each leaf's gradient and the updated params within stated bounds;
-   (c) 4 steps straight == 2 + checkpoint + restore + 2 (2 layers, 2 x
-   512 tokens) under deterministic algorithms: the restored state
-   byte-identical, the data step resumed, the losses equal; (d)
-   deepseek-v2-lite-16b at full width, its depth cut to the dense layer
-   and 3 MoE layers, 2 steps of 4096 tokens: aux loss, capacity drops,
-   loss, peak memory; (e) the ``train_100m`` twin, 100 of its default
-   300 steps (the time limit), its loss falling by more than 0.5;
+   compression on, f32 moments — per step wall (the first marked as the
+   warm-up), tokens/s, loss, grad_norm and lr, the warm-up and capture
+   seconds, peak allocated and reserved memory, every loss and norm
+   finite, every leaf changed — then one more step eager under
+   ``torch.profiler`` (device time by phase, busy share) and one
+   replayed (busy share, top kernels); (b) from the same weights and
+   batches card vs CPU (2 layers at full width, 2 x 256 tokens): the
+   first batch's gradients, then two steps, the card's second replayed
+   — losses, grad norms and the params after them within stated bounds;
+   (c) under deterministic algorithms (2 layers, 2 x 512 tokens) 4
+   steps through the graph == 4 all eager, bit for bit (losses, grad
+   norms, lrs, params, moments, step, residuals), and 4 steps straight
+   == 2 + checkpoint + restore + 2, the resumed run capturing again: the
+   restored state byte-identical, the data step resumed, the losses and
+   final state equal; (d) deepseek-v2-lite-16b at full width, its depth
+   cut to the dense layer and 3 MoE layers, 2 steps of 4096 tokens: aux
+   loss, capacity drops, loss, capture seconds, peak memory; (e) the
+   ``train_100m`` twin, 100 of its default 300 steps (the time limit),
+   its loss falling by more than 0.5, capture seconds, peak memory;
 15. the mesh layer (``[mesh]``; no kernel of the port may launch, counts
-   set to 0 before each part and read after): a world of one on the
-   card (NCCL over a ``FileStore``) and its (1, 1) (data, model) mesh —
-   (a) qwen2-0.5b at full width, its depth cut to 4 of 24 layers, 2
-   steps of 2 x 512 tokens with ``mesh=`` against the same 2 without
-   under deterministic algorithms: losses and params bit-equal (else
-   [train] (b)'s bounds); (b) [train] (d)'s deepseek-v2-lite-16b cut,
-   one step of 1 x 4096 tokens whose MoE layers go through
-   ``moe_block_ep`` (counted), its loss against the no-mesh step's,
-   step time and peak memory; (c) the pipelined prefill on a (1, 1, 1)
-   (stage, data, model) mesh, 4 layers, 4 x 512 tokens (4 rows, so 4
-   microbatches split them), 2 and 4 microbatches, against ``forward``
-   within 3e-2; then the group destroyed and (d) four gloo CPU ranks,
-   spawned by this script at [train]'s start so they run while [train]
-   and (a)–(c) do, at (2, 2): one deepseek smoke train step against the
-   single-rank port (losses within 1e-4 relative);
+   set to 0 before each part and read after): a world of one on the card
+   (NCCL over a ``FileStore``) and its (1, 1) (data, model) mesh — (a)
+   qwen2-0.5b at full width, its depth cut to 4 of 24 layers, 2 steps of
+   2 x 512 tokens with ``mesh=`` (eager) against the same 2 without (the
+   second replayed) under deterministic algorithms: losses and params
+   bit-equal (else [train] (b)'s bounds); (b) [train] (d)'s
+   deepseek-v2-lite-16b cut, one step of 1 x 4096 tokens whose MoE
+   layers go through ``moe_block_ep`` (counted), its loss against the
+   no-mesh step's, step time and peak memory; (c) the pipelined prefill
+   on a (1, 1, 1) (stage, data, model) mesh, 4 layers, 4 x 512 tokens (4
+   rows, so 4 microbatches split them), 2 and 4 microbatches, against
+   ``forward`` within 3e-2; then the group destroyed and (d) four gloo
+   CPU ranks, spawned by this script at [train]'s start so they run
+   while [train] and (a)–(c) do, at (2, 2): one deepseek smoke train
+   step against the single-rank port (losses within 1e-4 relative);
 16. the dry run (``[dryrun]``): (a) a process spawned at the script's
    start traces, on the meta device as rank 0 of fake 256- and
    512-rank process groups (``repro_torch.launch.dryrun``), qwen2-0.5b x
@@ -233,6 +243,7 @@ Prints the card's name and power limit, each phase's seconds, a
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -1465,10 +1476,11 @@ _SPANS = (
 class SpanTimer:
     """While active, the inclusive host seconds of each of ``spans``: the
     function wrapped where its callers look it up (a nested call counts
-    once).  cProfile cannot take this split of a served request: on the
-    card's Python (3.12.3) it drops calls made from frames that ran when
-    it was enabled (PR 26; functions called directly from the profiled
-    frame went unrecorded in a probe with no graph in sight)."""
+    once).  The standard library's profiler cannot take this split of a
+    served request: on the card's Python (3.12.3) it drops calls made
+    from frames that ran when it was enabled (PR 26; functions called
+    directly from the profiled frame went unrecorded in a probe with no
+    graph in sight)."""
 
     def __init__(self, spans=_SPANS):
         import importlib
@@ -2033,35 +2045,32 @@ FLEET_SHARDS = 4
 BLOCK_ELEMS = 2048           # core.bitplane.BLOCK_ELEMS: a 4 KB block
 
 
-# Host functions whose cumulative time splits the weight path (cProfile).
+# the host spans of the weight path, timed by SpanTimer: (label, module
+# under repro_torch, the attribute its callers look up at each call)
 _WEIGHT_LOAD_SPANS = (
-    ("put_many", "runtime/weights.py", "put_many"),
-    ("  units to host", "runtime/weights.py", "_bf16_words"),
-    ("  blocks staged", "core/tier.py", "_stage_write"),
-    ("  pack on card", "kernels/bitplane.py", "pack_planes_slab"),
-    ("  codec", "core/codec.py", "compress_slab"),
-    ("    pre-screen (host)", "core/codec.py", "_prescreen_slab"),
-    ("    LZ4 prep + match on card", "kernels/lz4.py", "lz4_match"),
-    ("    LZ4 emit (host)", "core/codec.py", "lz4_emit_events"),
-    ("  blocks committed", "core/tier.py", "_commit"),
+    ("put_many", "runtime.weights", "WeightStore.put_many"),
+    ("  units to host", "runtime.weights", "_bf16_words"),
+    ("  blocks staged", "core.tier", "TierStore._stage_write"),
+    ("  pack on card", "kernels.bitplane", "pack_planes_slab"),
+    ("  codec", "core.codec", "compress_slab"),
+    ("    pre-screen (host)", "core.codec", "_prescreen_slab"),
+    ("    LZ4 prep + match on card", "kernels.lz4", "lz4_match"),
+    ("    LZ4 emit (host)", "core.codec", "lz4_emit_events"),
+    ("  blocks committed", "core.tier", "TierStore._commit"),
 )
 _WEIGHT_FETCH_SPANS = (
-    ("fetch_all", "runtime/weights.py", "fetch_all"),
-    ("  LZ4 decompress (host)", "core/codec.py", "decompress_batch"),
-    ("  unpack + round on card", "core/tier.py", "_decode_planes"),
-    ("  units assembled", "core/tier.py", "_assemble"),
-    ("  words to card", "runtime/weights.py", "_tensor"),
+    ("fetch_all", "runtime.weights", "WeightStore.fetch_all"),
+    ("  LZ4 decompress (host)", "core.codec", "decompress_batch"),
+    ("  unpack + round on card", "core.tier",
+     "BitplaneLayout._decode_planes"),
+    ("  units assembled", "core.tier", "TierStore._assemble"),
+    ("  words to card", "runtime.weights", "WeightStore._tensor"),
 )
 
 
-def _spans(stats, spans) -> str:
-    """``label seconds`` of each span's cumulative time in ``stats``."""
-    parts = []
-    for label, path, fn in spans:
-        ct = sum(v[3] for k, v in stats.items()
-                 if k[2] == fn and k[0].endswith(path))
-        parts.append(f"{label} {ct:.3f}")
-    return "; ".join(parts)
+def _spans(timer) -> str:
+    """``label seconds`` of each span a :class:`SpanTimer` took."""
+    return "; ".join(f"{label} {t:.3f}" for label, t in timer.seconds.items())
 
 
 def _allocated(torch, dev) -> int:
@@ -2252,31 +2261,28 @@ def weights_path(torch, build, k_bitplane, k_lz4, serve, params, dev,
     del pout, plain
 
     # -- layer 0 through a CPU tier: bytes, flags and receipts; where the
-    # card store's load and fetch time goes (cProfile) ----------------------
-    import cProfile
-    import pstats
-
+    # card store's load and fetch time goes (SpanTimer) ---------------------
     layer0 = {k: v for k, v in units.items() if k.startswith("L0.")}
     tiers = {}
     for where in (dev, torch.device("cpu")):
         store = WeightStore("trace", device=where)
         rec = Recorder(store.tier)
-        prof = cProfile.Profile()
-        prof.enable()
-        store.put_many({k: (w.to(where), imp)
-                        for k, (w, imp) in layer0.items()})
-        _sync(torch, where)
-        prof.disable()
+        l0_timer = SpanTimer(_WEIGHT_LOAD_SPANS)
+        try:
+            store.put_many({k: (w.to(where), imp)
+                            for k, (w, imp) in layer0.items()})
+            _sync(torch, where)
+        finally:
+            l0_timer.restore()
         tiers[where.type] = (store.tier,
                              [_receipt_fields(r) for r in rec.recs])
         if where == dev:
-            l0_load = pstats.Stats(prof).stats
-            prof = cProfile.Profile()
-            prof.enable()
-            store.fetch_all()
-            _sync(torch, where)
-            prof.disable()
-            l0_fetch = pstats.Stats(prof).stats
+            l0_load, l0_fetch = l0_timer, SpanTimer(_WEIGHT_FETCH_SPANS)
+            try:
+                store.fetch_all()
+                _sync(torch, where)
+            finally:
+                l0_fetch.restore()
     (card, crecs), (cpu, precs) = tiers[dev.type], tiers["cpu"]
     if crecs != precs:
         raise AssertionError("layer 0: card receipts differ from the CPU's")
@@ -2310,10 +2316,9 @@ def weights_path(torch, build, k_bitplane, k_lz4, serve, params, dev,
           f"{l0_stored} B stored): card receipts, bytes and flags == CPU; "
           f"fetch_all held {peak} B on the card above its start "
           f"({2 * n_elems} B of words returned there)", flush=True)
-    print("[profile] layer 0's load on the card under cProfile: "
-          + _spans(l0_load, _WEIGHT_LOAD_SPANS) + "; its fetch_all: "
-          + _spans(l0_fetch, _WEIGHT_FETCH_SPANS) + " (s, cumulative)",
-          flush=True)
+    print("[profile] layer 0's load on the card: " + _spans(l0_load)
+          + "; its fetch_all: " + _spans(l0_fetch)
+          + " (s, inclusive, wrappers)", flush=True)
 
     # -- the standalone unpack at a weight's decode slab ---------------------
     w1 = units["L0.w1"][0].contiguous().view(torch.int16).reshape(-1)
@@ -3441,10 +3446,12 @@ def frontends_path(torch, build, results, dev="cuda", cfgs=None):
               flush=True)
 
 
-# [train]: training on the card.  qwen2-0.5b at full width and depth
-# takes train steps at TRAIN_4K's sequence length; one step card vs CPU;
-# a checkpoint and resume; deepseek-v2-lite-16b's MoE at full width; the
-# train_100m twin.  Training launches no kernel of the port: the
+# [train]: training on the card, each run's step captured once as a CUDA
+# graph and replayed (``TrainGraph``).  qwen2-0.5b at full width and depth
+# takes train steps at TRAIN_4K's sequence length; two steps card vs CPU;
+# the graph against an all-eager run, a checkpoint and resume;
+# deepseek-v2-lite-16b's MoE at full width; the train_100m twin.
+# Training launches no kernel of the port: the
 # reference's train step reaches no Pallas kernel (its attention over the
 # prompt, MoE and scans are jnp), and the port's attends in plain PyTorch.
 TRAIN_ARCH = "qwen2-0.5b"
@@ -3477,14 +3484,66 @@ def cut_arch(arch: str, n_layers: int) -> str:
 
 
 def _history_lines(tag: str, out, tokens: int):
-    for h in out["history"]:
-        print(f"[train] {tag} step {h['step']}: {h['seconds']:.3f} s wall, "
-              f"{tokens / h['seconds']:.1f} tokens/s, loss {h['loss']:.5f}, "
-              f"grad_norm {h['grad_norm']:.5f}, lr {h['lr']:.4g}",
-              flush=True)
+    graphed = out["capture_s"] is not None
+    for i, h in enumerate(out["history"]):
+        how = ("eager" if not graphed else "the eager warm-up" if i == 0
+               else "the capture + its first replay" if i == 1
+               else "replayed")
+        print(f"[train] {tag} step {h['step']} ({how}): {h['seconds']:.3f} "
+              f"s wall, {tokens / h['seconds']:.1f} tokens/s, loss "
+              f"{h['loss']:.5f}, grad_norm {h['grad_norm']:.5f}, lr "
+              f"{h['lr']:.4g}", flush=True)
         if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
                 and h["grad_norm"] > 0):
             raise AssertionError(f"[train] {tag}: step {h['step']} {h}")
+
+
+def _graph_line(torch, out, dev) -> str:
+    """A ``train`` run's warm-up and capture host seconds, and the card's
+    peak allocated and reserved memory since the last reset."""
+    if out["capture_s"] is None:
+        raise AssertionError(f"[train] no capture on {dev}")
+    reserved = torch.cuda.max_memory_reserved(dev)
+    return (f"warm-up step {out['warmup_s']:.3f} s, capture "
+            f"{out['capture_s']:.3f} s (host); peak allocated "
+            f"{_peak(torch, dev)} B, peak reserved {reserved} B, reserved "
+            f"now {torch.cuda.memory_reserved(dev)} B")
+
+
+def profile_replayed_step(torch, cfg, out, dev, batch):
+    """Two more steps of (a)'s state through a fresh ``TrainGraph`` (its
+    warm-up, its capture and first replay), then one replay under
+    ``torch.profiler`` (device activity only), read from the raw events
+    as [graph] (c) reads them: the step's wall, the device's busy share
+    and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import TrainGraph
+
+    step, _ = make_train_step(cfg, grad_compression=True)
+    run = TrainGraph(step, out["params"], out["opt_state"], out["err"])
+    for _ in range(2):
+        float(run(batch)["loss"])
+    _sync(torch, dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(run(batch)["loss"])
+        _sync(torch, dev)
+        wall = time.perf_counter() - t0
+    by_name, n_events = device_events(prof)
+    busy = sum(ns for ns, _ in by_name.values()) / 1e9
+    top = sorted(((k, ns / 1e3, n) for k, (ns, n) in by_name.items()),
+                 key=lambda t: -t[1])[:5]
+    print(f"[train] (a) one replayed {cfg.name} step of "
+          f"{batch['tokens'].numel()} tokens under torch.profiler: wall "
+          f"{wall:.3f} s, device busy {busy:.3f} s ({100 * busy / wall:.1f}"
+          f"%), host-bound (wall not busy) {wall - busy:.3f} s; "
+          f"{sum(n for _, n in by_name.values())} kernels and copies on the "
+          f"card ({n_events} events); capture {run.capture_s:.3f} s, warm-up"
+          f" {run.warmup_s:.3f} s (host); top: "
+          + "; ".join(f"{k[:50]} {us / 1e3:.1f} ms x{n}" for k, us, n in top),
+          flush=True)
 
 
 def profile_train_step(torch, cfg, out, dev, tokens):
@@ -3544,10 +3603,12 @@ def train_full_width(torch, train, dev, arch=TRAIN_ARCH,
                      smoke=False):
     """(a): ``arch`` at full width and depth, random bf16 weights from
     seed 0, remat as its config says, grad compression on, f32 moments:
-    ``steps`` steps of ``train`` at ``seq`` x ``batch``; per step wall,
-    tokens/s, loss, grad_norm, lr; peak allocated; every loss and norm
-    finite, grad_norm > 0, every leaf changed from its initial draw;
-    then one step profiled."""
+    ``steps`` steps of ``train`` at ``seq`` x ``batch`` (the first the
+    warm-up before the capture, the rest replayed); per step wall,
+    tokens/s, loss, grad_norm, lr; the warm-up and capture seconds, peak
+    allocated and reserved; every loss and norm finite, grad_norm > 0,
+    every leaf changed from its initial draw; then one eager step
+    profiled by phase and one replayed step profiled."""
     import numpy as np
 
     from repro_torch.configs import ARCHS, smoke_config
@@ -3563,10 +3624,12 @@ def train_full_width(torch, train, dev, arch=TRAIN_ARCH,
                 device=dev, log_every=steps)
     _sync(torch, dev)
     n_params = sum(t.numel() for _, t in leaves_with_paths(out["params"]))
+    graph = _graph_line(torch, out, dev) if dev.type == "cuda" else \
+        "no capture on the CPU"
     print(f"[train] (a) {arch}: {cfg.n_layers} layers, d {cfg.d_model}, "
           f"{n_params} parameters, remat {cfg.remat}, {steps} steps of "
           f"{batch} x {seq} tokens in {time.perf_counter() - t0:.2f} s; "
-          f"peak allocated {_peak(torch, dev)} B", flush=True)
+          f"{graph}", flush=True)
     _history_lines("(a)", out, batch * seq)
     init = dict(leaves_with_paths(model.init_params(cfg, seed=0,
                                                     device=dev)))
@@ -3585,6 +3648,8 @@ def train_full_width(torch, train, dev, arch=TRAIN_ARCH,
         _stream(cfg, seq, batch).batch_at(steps)["tokens"])).to(dev)
     if dev.type == "cuda":
         profile_train_step(torch, cfg, out, dev, tokens)
+        profile_replayed_step(torch, cfg, out, dev,
+                              {"tokens": tokens, "labels": tokens})
     del out
 
 
@@ -3602,55 +3667,74 @@ def _ulps_apart(torch, a, b):
 
 
 def train_card_vs_cpu(torch, dev, cfg=None):
-    """(b): one train step from the same weights and batch on the card and
-    on the CPU — qwen2-0.5b at full width, its depth cut to
-    :data:`CMP_LAYERS`, :data:`CMP_BATCH` x :data:`CMP_SEQ` tokens: the
-    loss, each leaf's gradient (relative L2) and the params after
-    compression and AdamW (the share bit-equal, the largest difference
-    in bf16 ulps) within :data:`CMP_LOSS_ATOL`, :data:`CMP_GRAD_RTOL`,
-    :data:`CMP_PARAM_SHARE` and, for the params that differ, 1 ulp or
-    2 lr (a near-zero gradient's sign may flip between the devices, and
-    the first step moves an element by at most lr (1 + wd |p|))."""
+    """(b): the same weights and batches on the card and on the CPU —
+    qwen2-0.5b at full width, its depth cut to :data:`CMP_LAYERS`,
+    :data:`CMP_BATCH` x :data:`CMP_SEQ` tokens: two steps through a
+    ``TrainGraph`` (on the card the first its warm-up, the second a
+    replay): the first step's gradient of each leaf (relative L2; taken
+    where the step hands it to the compression), each step's loss and
+    grad norm, and the params after them
+    (the share bit-equal, the largest difference in bf16 ulps) within
+    :data:`CMP_LOSS_ATOL`, :data:`CMP_GRAD_RTOL`, :data:`CMP_PARAM_SHARE`
+    and, for the params that differ, 1 ulp or 2 x the steps' lr (a
+    near-zero gradient's sign may flip between the devices, and a step
+    moves an element by at most lr (1 + wd |p|))."""
     import numpy as np
 
     import dataclasses
 
     from repro_torch.configs import ARCHS
-    from repro_torch.launch.steps import default_adamw, loss_and_grads
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import TrainGraph
     from repro_torch.models import model
     from repro_torch.optim import init as opt_init
-    from repro_torch.optim import update
-    from repro_torch.optim.grad_compress import (
-        compress_grads, init_error_feedback,
-    )
+    from repro_torch.optim.grad_compress import init_error_feedback
     from repro_torch.tree import leaves_with_paths
 
     cfg = cfg or dataclasses.replace(ARCHS[TRAIN_ARCH], n_layers=CMP_LAYERS)
-    ocfg = default_adamw(cfg)
-    toks = np.ascontiguousarray(
-        _stream(cfg, CMP_SEQ, CMP_BATCH).batch_at(0)["tokens"])
+    data = _stream(cfg, CMP_SEQ, CMP_BATCH)
+    toks = [np.ascontiguousarray(data.batch_at(i)["tokens"])
+            for i in range(2)]
     params = model.init_params(cfg, seed=0, device=dev)
-    res = {}
-    t0 = time.perf_counter()
+    res, secs = {}, {}
+    compress = steps.compress_grads
+
+    def first_grads(grads, err):
+        if not grads_seen:
+            grads_seen.append(_map_leaves(grads, lambda g: g.detach().clone()))
+        return compress(grads, err)
+
     for where in ("card", "cpu"):
+        t0 = time.perf_counter()
         d = dev if where == "card" else torch.device("cpu")
         p = _map_leaves(params, lambda t: t.detach().to(d, copy=True))
-        t = torch.from_numpy(toks).to(d)
-        loss, grads = loss_and_grads(cfg, p, {"tokens": t, "labels": t})
-        grads = _map_leaves(grads, lambda g: g.detach())
-        deq, err = compress_grads(grads, init_error_feedback(p))
-        p, _, m = update(ocfg, deq, opt_init(ocfg, p), p)
-        res[where] = (float(loss), grads, p, float(m["lr"]))
+        batches = [{"tokens": t, "labels": t} for t in
+                   (torch.from_numpy(a).to(d) for a in toks)]
+        step, ocfg = steps.make_train_step(cfg, grad_compression=True)
+        run = TrainGraph(step, p, opt_init(ocfg, p), init_error_feedback(p))
+        grads_seen = []
+        steps.compress_grads = first_grads
+        try:
+            metrics = [{k: float(v) for k, v in run(b).items()}
+                       for b in batches]
+        finally:
+            steps.compress_grads = compress
+        if (run.graph is not None) != (d.type == "cuda"):
+            raise AssertionError(f"[train] (b) {where}: graph {run.graph}")
+        res[where] = (metrics, grads_seen[0], run.params)
         _sync(torch, dev)
-    (lc, gc, pc, lr), (lh, gh, ph, _) = res["card"], res["cpu"]
+        secs[where] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (mc, gc, pc), (mh, gh, ph) = res["card"], res["cpu"]
+    lr = sum(m["lr"] for m in mh)
     worst_g, share, worst_u, n_far = 0.0, [], 0.0, 0
     gh, ph = dict(leaves_with_paths(gh)), dict(leaves_with_paths(ph))
-    for path, a in leaves_with_paths(gc):
-        a, b = a.float().cpu(), gh[path].float()
+    for path, a in leaves_with_paths(gc):    # compared on the card
+        a, b = a.float(), gh[path].to(dev).float()
         worst_g = max(worst_g, float((a - b).norm() / b.norm().clamp_min(
             1e-30)))
     for path, a in leaves_with_paths(pc):
-        a, b = a.detach().cpu(), ph[path].detach()
+        a, b = a.detach(), ph[path].detach().to(dev)
         eq = a.view(torch.int16) == b.view(torch.int16) \
             if a.dtype == torch.bfloat16 else a == b
         share.append((float(eq.float().sum()), eq.numel()))
@@ -3659,40 +3743,95 @@ def train_card_vs_cpu(torch, dev, cfg=None):
         far = (u > 1) & ((a.float() - b.float()).abs() > 2 * lr)
         n_far += int(far.sum())
     bit_share = sum(s for s, _ in share) / sum(n for _, n in share)
-    print(f"[train] (b) one step card vs CPU ({cfg.n_layers} layers at full "
-          f"width, {CMP_BATCH} x {CMP_SEQ} tokens, {time.perf_counter() - t0:.1f}"
-          f" s): loss {lc:.6f} vs {lh:.6f}, |diff| {abs(lc - lh):.3g} (bound "
-          f"{CMP_LOSS_ATOL}); worst leaf gradient relative L2 {worst_g:.4g} "
-          f"(bound {CMP_GRAD_RTOL}); updated params bit-equal {bit_share:.6f}"
-          f" (bound {CMP_PARAM_SHARE}), largest difference {worst_u:.3g} "
-          f"bf16 ulps, {n_far} elements more than 1 ulp and 2 lr apart "
-          f"(bound 0)", flush=True)
-    if abs(lc - lh) > CMP_LOSS_ATOL or worst_g > CMP_GRAD_RTOL or \
-            bit_share < CMP_PARAM_SHARE or n_far:
+    dl = max(abs(a["loss"] - b["loss"]) for a, b in zip(mc, mh))
+    dn = max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+             for a, b in zip(mc, mh))
+    print(f"[train] (b) card vs CPU ({cfg.n_layers} layers at full width, "
+          f"{CMP_BATCH} x {CMP_SEQ} tokens; card {secs['card']:.1f} s, CPU "
+          f"{secs['cpu']:.1f} s, comparison {time.perf_counter() - t0:.1f} "
+          f"s): the first step's worst leaf gradient relative L2 "
+          f"{worst_g:.4g} (bound {CMP_GRAD_RTOL}); two steps, the card's "
+          f"second replayed: losses {[m['loss'] for m in mc]} vs "
+          f"{[m['loss'] for m in mh]}, largest |diff| {dl:.3g} (bound "
+          f"{CMP_LOSS_ATOL}); grad norms' largest relative diff {dn:.3g} "
+          f"(bound {CMP_GRAD_RTOL}); params after both bit-equal "
+          f"{bit_share:.6f} (bound {CMP_PARAM_SHARE}), largest difference "
+          f"{worst_u:.3g} bf16 ulps, {n_far} elements more than 1 ulp and "
+          f"2 x the steps' lr apart (bound 0)", flush=True)
+    if dl > CMP_LOSS_ATOL or worst_g > CMP_GRAD_RTOL or dn > CMP_GRAD_RTOL \
+            or bit_share < CMP_PARAM_SHARE or n_far \
+            or [m["lr"] for m in mc] != [m["lr"] for m in mh]:
         raise AssertionError("[train] (b) card vs CPU past its bounds")
 
 
-def _raw(torch, t) -> tuple:
-    """A tensor's dtype, shape and bytes."""
-    t = t.detach().cpu().contiguous()
-    bits = t.view(torch.int16) if t.dtype == torch.bfloat16 else t
-    return str(t.dtype), tuple(t.shape), bits.numpy().tobytes()
+def _same_bytes(torch, a, b) -> bool:
+    """Whether two tensors on one device have the same dtype, shape and
+    bytes (compared where they lie)."""
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.detach().reshape(-1).view(torch.uint8),
+        b.detach().reshape(-1).view(torch.uint8))
+
+
+def eager_train(torch, cfg, steps, seq, batch, dev, seed=0):
+    """``train``'s loop with no graph: the plain ``make_train_step`` step
+    called eagerly at every step, from ``train``'s initial state, on its
+    token stream.  Returns the per-step ``(loss, grad_norm, lr)`` and the
+    final state as a checkpoint stores it."""
+    import numpy as np
+
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model
+    from repro_torch.optim import init as opt_init
+    from repro_torch.optim.grad_compress import init_error_feedback
+
+    step, ocfg = make_train_step(cfg, grad_compression=True)
+    params = model.init_params(cfg, seed=seed, device=dev)
+    state, err = opt_init(ocfg, params), init_error_feedback(params)
+    data, history = _stream(cfg, seq, batch, seed), []
+    for i in range(steps):
+        toks = torch.from_numpy(np.ascontiguousarray(
+            data.batch_at(i)["tokens"])).to(dev)
+        params, state, err, m = step(params, state, err,
+                                     {"tokens": toks, "labels": toks})
+        history.append((float(m["loss"]), float(m["grad_norm"]),
+                        float(m["lr"])))
+    return history, {"params": params, "opt": state, "err": err}
+
+
+def _state_of(out) -> dict:
+    return {"params": out["params"], "opt": out["opt_state"],
+            "err": out["err"]}
+
+
+def _differing(torch, got: dict, want: dict) -> list:
+    """The leaves of ``got`` whose dtype, shape or bytes differ from
+    ``want``'s."""
+    from repro_torch.tree import leaves_with_paths
+
+    want = dict(leaves_with_paths(want))
+    return [path for path, t in leaves_with_paths(got)
+            if not _same_bytes(torch, t, want[path])]
 
 
 def train_resume(torch, train, dev, arch=None, smoke=False):
-    """(c): 4 steps straight against 2 steps, a checkpoint,
-    a restore into fresh state and 2 more steps, under
-    ``torch.use_deterministic_algorithms(True)`` (``CUBLAS_WORKSPACE_
-    CONFIG`` is set at the top of :func:`main`, before the first cuBLAS
-    call): the restored state byte-identical to the saved one, the data
-    step resumed where it stopped, the resumed losses equal to the
-    straight run's."""
+    """(c): under ``torch.use_deterministic_algorithms(True)``
+    (``CUBLAS_WORKSPACE_CONFIG`` is set at the top of :func:`main`, before
+    the first cuBLAS call): 4 steps of ``train`` (a warm-up, then a
+    capture and three replays) against the same 4 steps all eager
+    (:func:`eager_train`) — losses, grad norms, lrs and the final
+    params, moments, step and residuals bit for bit; then 2 steps, a
+    checkpoint, a restore into fresh state and 2 more steps, the resumed
+    run capturing again: the restored state byte-identical to the saved
+    one, the data step resumed where it stopped, the resumed losses and
+    final state equal to the straight run's."""
     import tempfile
 
     from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import ARCHS, smoke_config
     from repro_torch.tree import leaves_with_paths
 
     arch = arch or cut_arch(TRAIN_ARCH, RESUME_LAYERS)
+    cfg = smoke_config(ARCHS[arch]) if smoke else ARCHS[arch]
     kw = dict(arch=arch, smoke=smoke, seq_len=RESUME_SEQ,
               global_batch=RESUME_BATCH, ckpt_every=100, seed=0, device=dev,
               log_every=100)
@@ -3700,35 +3839,49 @@ def train_resume(torch, train, dev, arch=None, smoke=False):
     torch.use_deterministic_algorithms(True)
     try:
         straight = train(steps=4, **kw)
+        eager, eager_state = eager_train(torch, cfg, 4, RESUME_SEQ,
+                                         RESUME_BATCH, dev)
         with tempfile.TemporaryDirectory(prefix="train_resume_") as ckpt:
             first = train(steps=2, ckpt_dir=ckpt, **kw)
-            saved = {"params": first["params"], "opt": first["opt_state"],
-                     "err": first["err"]}
+            saved = _state_of(first)
             restored, manifest = CheckpointManager(ckpt).restore(
                 saved, device=dev)
             resumed = train(steps=4, ckpt_dir=ckpt, **kw)
     finally:
         torch.use_deterministic_algorithms(False)
     _sync(torch, dev)
-    want = dict(leaves_with_paths(saved))
-    got = leaves_with_paths(restored)
-    bad = [path for path, t in got
-           if _raw(torch, t) != _raw(torch, want[path])]
+    graphed = [(h["loss"], h["grad_norm"], h["lr"])
+               for h in straight["history"]]
+    off = _differing(torch, _state_of(straight), eager_state)
+    if graphed != eager or off:
+        raise AssertionError(f"[train] (c) graph vs eager: history {graphed}"
+                             f" vs {eager}, leaves differ {off}")
+    captures = [r["capture_s"] for r in (straight, first, resumed)]
+    if dev.type == "cuda" and None in captures:
+        raise AssertionError(f"[train] (c) a run captured nothing: "
+                             f"{captures}")
+    bad = _differing(torch, restored, saved)
     if bad or manifest["step"] != 2 or resumed["start_step"] != 2:
         raise AssertionError(f"[train] (c) restore: leaves differ {bad}, "
                              f"manifest {manifest}, resumed from "
                              f"{resumed['start_step']}")
-    if resumed["losses"] != straight["losses"][2:]:
+    off = _differing(torch, _state_of(resumed), _state_of(straight))
+    if resumed["losses"] != straight["losses"][2:] or off:
         raise AssertionError(f"[train] (c) resumed losses "
                              f"{resumed['losses']} != straight "
-                             f"{straight['losses'][2:]}")
+                             f"{straight['losses'][2:]}, or leaves differ "
+                             f"{off}")
+    n = len(leaves_with_paths(saved))
     print(f"[train] (c) {arch}, {RESUME_BATCH} x {RESUME_SEQ} tokens, "
-          f"deterministic algorithms: 4 steps straight, losses "
-          f"{straight['losses']}; 2 + save + restore + 2, the {len(got)} "
-          f"restored "
-          f"leaves byte-identical to the saved state, data resumed at step "
-          f"{resumed['start_step']}, losses {resumed['losses']} == the "
-          f"straight run's ({time.perf_counter() - t0:.1f} s)", flush=True)
+          f"deterministic algorithms: 4 steps through the graph (captures "
+          f"{['%.3f s' % c if c else None for c in captures]} for the "
+          f"straight, first and resumed runs) == 4 all eager: losses "
+          f"{straight['losses']}, grad norms, lrs and the {n} leaves of "
+          f"the final state bit for bit; 2 + save + restore + 2: the {n} "
+          f"restored leaves byte-identical to the saved state, data resumed "
+          f"at step {resumed['start_step']}, losses {resumed['losses']} and "
+          f"the final state == the straight run's "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
 def train_moe(torch, train, dev, arch=None, smoke=False):
@@ -3736,8 +3889,11 @@ def train_moe(torch, train, dev, arch=None, smoke=False):
     layer and 3 MoE layers, :data:`MOE_TRAIN_STEPS` steps of
     ``MOE_TRAIN_BATCH`` x ``MOE_TRAIN_SEQ`` tokens: per step the aux
     loss (the forward's, summed over the MoE layers), the share of
-    (token, choice) pairs the capacity dropped, the loss and the peak
-    memory."""
+    (token, choice) pairs the capacity dropped, the loss, the capture's
+    seconds and the peak memory.  The forward runs in Python twice on a
+    card, for the warm-up (step 0) and for the capture: what the capture
+    records are the graph's own tensors, which each replay rewrites, so
+    with 2 steps they hold step 1's."""
     from repro_torch.models import layers, model
     from repro_torch.tree import leaves_with_paths
 
@@ -3775,10 +3931,14 @@ def train_moe(torch, train, dev, arch=None, smoke=False):
         model.forward_with_aux, layers.capacity_slots = fwd, slots
     _sync(torch, dev)
     n_params = sum(t.numel() for _, t in leaves_with_paths(out["params"]))
+    if len(rec["aux"]) != MOE_TRAIN_STEPS:
+        raise AssertionError(f"[train] (d) {len(rec['aux'])} forwards "
+                             f"recorded for {MOE_TRAIN_STEPS} steps")
+    graph = _graph_line(torch, out, dev) if dev.type == "cuda" else \
+        "no capture on the CPU"
     print(f"[train] (d) {arch}: {n_params} parameters, {MOE_TRAIN_STEPS} "
           f"steps of {MOE_TRAIN_BATCH} x {MOE_TRAIN_SEQ} tokens in "
-          f"{time.perf_counter() - t0:.2f} s; peak allocated "
-          f"{_peak(torch, dev)} B", flush=True)
+          f"{time.perf_counter() - t0:.2f} s; {graph}", flush=True)
     _history_lines("(d)", out, MOE_TRAIN_BATCH * MOE_TRAIN_SEQ)
     for h, aux, drops in zip(out["history"], rec["aux"], rec["drop"]):
         dropped = sum(int(d) for d, _ in drops)
@@ -3796,8 +3956,9 @@ def train_moe(torch, train, dev, arch=None, smoke=False):
 
 def train_100m_path(torch, dev):
     """(e): the ``train_100m`` twin on the card, :data:`TRAIN_100M_STEPS`
-    steps; its own assertion (at 100 steps or more the loss ends more
-    than 0.5 below its start)."""
+    steps, every one after the first replayed; its own assertion (at 100
+    steps or more the loss ends more than 0.5 below its start); the
+    capture's seconds and the peak memory."""
     import contextlib
     import io
 
@@ -3807,6 +3968,8 @@ def train_100m_path(torch, dev):
     if dev.type == "cpu":
         argv.append("--cpu")
     buf = io.StringIO()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         out = train_100m.main(argv)
@@ -3815,10 +3978,13 @@ def train_100m_path(torch, dev):
         if line.strip():
             print(f"[train] (e) train_100m | {line}", flush=True)
     secs = [h["seconds"] for h in out["history"]]
+    graph = _graph_line(torch, out, dev) if dev.type == "cuda" else \
+        "no capture on the CPU"
     print(f"[train] (e) train_100m: {len(secs)} steps in "
           f"{time.perf_counter() - t0:.1f} s, median step "
-          f"{statistics.median(secs) * 1e3:.1f} ms; loss "
-          f"{out['losses'][0]:.4f} -> {out['losses'][-1]:.4f}", flush=True)
+          f"{statistics.median(secs) * 1e3:.1f} ms (first {secs[0]:.3f} s); "
+          f"loss {out['losses'][0]:.4f} -> {out['losses'][-1]:.4f}; {graph}",
+          flush=True)
 
 
 def train_path(torch, build, dev="cuda"):
@@ -3839,6 +4005,7 @@ def train_path(torch, build, dev="cuda"):
         if any(build.LAUNCHES.values()):
             raise AssertionError(f"[train] {part} launched a kernel of the "
                                  f"port: {dict(build.LAUNCHES)}")
+        gc.collect()    # remat's reference cycles hold a step's tensors
         if dev.type == "cuda":
             torch.cuda.empty_cache()
         print(f"[train] {part} done in {time.perf_counter() - t0:.1f} s; "
@@ -3892,10 +4059,10 @@ def _state_diff(torch, a, b, lr_sum: float) -> dict:
 
 def mesh_train_vs_plain(torch, train, dev, mesh, arch=None, smoke=False,
                         seq=MESH_SEQ, batch=MESH_BATCH):
-    """(a): two train steps with ``mesh=`` (a world of one) against the
-    same two without, under deterministic algorithms: losses and params
-    bit-equal (a world of one reorders no sum), else within [train]
-    (b)'s bounds."""
+    """(a): two train steps with ``mesh=`` (a world of one; eager)
+    against the same two without (on a card the second replayed), under
+    deterministic algorithms: losses and params bit-equal (a world of one
+    reorders no sum), else within [train] (b)'s bounds."""
     arch = arch or cut_arch(MESH_ARCH, MESH_LAYERS)
     kw = dict(arch=arch, steps=2, smoke=smoke, seq_len=seq,
               global_batch=batch, grad_compression=True, seed=0,
@@ -3911,13 +4078,21 @@ def mesh_train_vs_plain(torch, train, dev, mesh, arch=None, smoke=False,
         wall = time.perf_counter() - t0
     finally:
         torch.use_deterministic_algorithms(False)
+    if meshed["capture_s"] is not None or (
+            dev.type == "cuda") != (plain["capture_s"] is not None):
+        raise AssertionError(f"[mesh] (a) captures: mesh "
+                             f"{meshed['capture_s']}, without "
+                             f"{plain['capture_s']}")
     got = _whole(torch, meshed["params"])
     d = _state_diff(torch, got, want, sum(h["lr"] for h in meshed["history"]))
     dl = max(abs(a - b) for a, b in zip(meshed["losses"], plain["losses"]))
+    how = "eager" if plain["capture_s"] is None else \
+        "its second step replayed"
     print(f"[mesh] (a) {arch}: 2 steps of {batch} x {seq} tokens with "
           f"mesh (1, 1) in {wall:.2f} s (steps "
           + ", ".join(f"{h['seconds']:.3f}" for h in meshed["history"])
-          + f" s): losses {meshed['losses']} vs {plain['losses']} without, "
+          + f" s): losses {meshed['losses']} vs {plain['losses']} without "
+          f"({how}), "
           f"largest |diff| {dl:.3g}; params bit-equal {d['share']:.6f}, "
           f"largest difference {d['ulps']:.3g} bf16 ulps, {d['far']} "
           f"elements more than 1 ulp and 2 lr apart", flush=True)

@@ -1,5 +1,5 @@
-"""Train loop of the port: eager train steps on the synthetic token
-stream, with checkpoints and restart, on one device or on a mesh.
+"""Train loop of the port: train steps on the synthetic token stream,
+with checkpoints and restart, on one device or on a mesh.
 
 The reference's loop (``repro.launch.train``) with its fault-tolerance
 contract:
@@ -17,6 +17,12 @@ contract:
     its rows of the batch, and a restart re-shards the checkpoint onto
     the current mesh (elastic: save on one mesh, resume on another or on
     one device).  Only rank 0 prints and writes checkpoints.
+
+The step runs as the reference's ``jax.jit(train_step, donate_argnums=
+(0, 1, 2))`` does (:class:`TrainGraph`): the train state is written in
+place, and on a card, with no mesh, the step is captured once a run as a
+CUDA graph (after the first step, eager, has warmed it up) and replayed
+at every later step.  On the CPU and on a mesh each step runs eagerly.
 
 Labels are aligned with the positions: the stream's ``tokens`` go to
 :func:`..models.model.lm_loss` as both inputs and labels, and its causal
@@ -44,6 +50,7 @@ On a mesh, one process per rank (``torchrun`` sets the rendezvous)::
 from __future__ import annotations
 
 import argparse
+import gc
 import statistics
 import time
 from typing import Optional, Union
@@ -58,9 +65,10 @@ from ..configs.base import ShapeConfig
 from ..data import DataConfig, ShardedTokenStream
 from ..data.pipeline import batch_rows
 from ..models.model import DTYPE, init_params, schema
-from ..models.sharding import mesh_dims
+from ..models.sharding import is_dtensor, local, mesh_dims
 from ..optim import init as opt_init
 from ..optim.grad_compress import init_error_feedback
+from ..tree import leaves_with_paths
 from . import mesh as mesh_lib
 from .steps import make_train_step
 
@@ -81,6 +89,116 @@ def frontend_embeds(cfg, tokens: torch.Tensor, seed: int, step: int,
     return noise + tokens.to(DTYPE)[..., None] * 1e-3
 
 
+class TrainGraph:
+    """The train step as the reference's ``jax.jit(train_step,
+    donate_argnums=(0, 1, 2))`` runs it: this object owns the train state
+    — ``params``, ``opt_state`` (``mu``, ``nu``, the int32 ``step``) and
+    the bf16 error buffers ``err`` — and static batch buffers, made from
+    the first batch, and every step writes the state in place, so each
+    tensor keeps its storage as a donated buffer does (AdamW writes the
+    parameters and moments, this wrapper the new step counter and
+    residuals, with ``copy_``).
+
+    On a card, with no mesh, the first step is the warm-up: a real step,
+    eager, on the side stream the capture then uses (it initialises the
+    libraries' per-stream state, which a capture may not).  At the second
+    step the warm-up's garbage is collected and the allocator's cached
+    blocks released, so the graph's private pool can take them;
+    ``train_step`` is captured with ``torch.cuda.graph`` (a capture runs
+    no kernel: the state is not stepped) and replayed; every later step
+    replays it.  A replay copies the batch into the static buffers
+    first; its metrics are the graph's static ``loss`` / ``grad_norm`` /
+    ``lr`` tensors, which the next step overwrites.  On the CPU, and on
+    a mesh (DTensors: there the step stays eager), every step runs the
+    same code eagerly.  A batch of another shape or dtype raises
+    ``ValueError``: a graph replays only what it captured.  A failed
+    capture or replay raises; nothing falls back to the eager step."""
+
+    def __init__(self, train_step, params: dict, opt_state: dict, err: dict):
+        self.train_step = train_step
+        self.params, self.opt_state, self.err = params, opt_state, err
+        leaf = leaves_with_paths(params)[0][1]
+        self.captures = local(leaf).device.type == "cuda" \
+            and not is_dtensor(leaf)
+        self.batch: Optional[dict] = None
+        self.stream: Optional["torch.cuda.Stream"] = None
+        self.graph: Optional["torch.cuda.CUDAGraph"] = None
+        self.metrics: Optional[dict] = None
+        # host seconds of the warm-up step and of the capture
+        self.warmup_s: Optional[float] = None
+        self.capture_s: Optional[float] = None
+
+    @property
+    def state(self) -> dict:
+        """The train state as a checkpoint stores it."""
+        return {"params": self.params, "opt": self.opt_state,
+                "err": self.err}
+
+    def __call__(self, batch: dict) -> dict:
+        """One step on ``batch`` → ``{"loss", "grad_norm", "lr"}``, scalar
+        tensors on the device."""
+        self._fill(batch)
+        if not self.captures:
+            return self._step()
+        if self.stream is None:
+            return self._warm_up()
+        if self.graph is None:
+            self._capture()
+        self.graph.replay()
+        return self.metrics
+
+    def _fill(self, batch: dict):
+        if self.batch is None:
+            self.batch = {k: v.clone() for k, v in batch.items()}
+            return
+        want = {k: (tuple(v.shape), v.dtype) for k, v in self.batch.items()}
+        got = {k: (tuple(v.shape), v.dtype) for k, v in batch.items()}
+        if got != want:
+            raise ValueError(f"batch {got} is not the step's {want}: the "
+                             "step replays only the shapes it captured")
+        for k, v in batch.items():
+            self.batch[k].copy_(v)
+
+    def _step(self) -> dict:
+        """``train_step`` on the static state and batch; the new step
+        counter and residuals copied into the state's own tensors."""
+        _, opt_state, err, metrics = self.train_step(
+            self.params, dict(self.opt_state), self.err, self.batch)
+        with torch.no_grad():
+            self.opt_state["step"].copy_(opt_state["step"])
+            if err is not self.err:
+                new = dict(leaves_with_paths(err))
+                for path, e in leaves_with_paths(self.err):
+                    local(e).copy_(local(new[path]))
+        return metrics
+
+    def _warm_up(self) -> dict:
+        main = torch.cuda.current_stream(self.opt_state["step"].device)
+        self.stream = torch.cuda.Stream(main.device)
+        t0 = time.perf_counter()
+        self.stream.wait_stream(main)
+        with torch.cuda.stream(self.stream):
+            metrics = self._step()
+        main.wait_stream(self.stream)
+        self.warmup_s = time.perf_counter() - t0
+        return metrics
+
+    def _capture(self):
+        t0 = time.perf_counter()
+        main = torch.cuda.current_stream(self.stream.device)
+        # the warm-up's garbage first: remat's checkpoint leaves reference
+        # cycles that hold its gradients, whose blocks the pool could take
+        gc.collect()
+        torch.cuda.empty_cache()
+        self.graph = torch.cuda.CUDAGraph()
+        # the outer context gives the caller its stream back if the
+        # capture fails (torch.cuda.graph's exit then leaves its own)
+        with torch.cuda.stream(main), \
+                torch.cuda.graph(self.graph, stream=self.stream):
+            self.metrics = self._step()
+        self.capture_s = time.perf_counter() - t0
+
+
 def train(
     arch: str = "qwen2-0.5b",
     steps: int = 20,
@@ -99,12 +217,19 @@ def train(
     """Train ``arch`` (``smoke``: its reduced config) to step ``steps`` on
     ``device`` (default: the card), from step 0 or the latest checkpoint
     under ``ckpt_dir``; on ``mesh`` (a ``DeviceMesh`` on ``device``'s
-    type) with the train cell's rules.  Returns ``losses`` and
+    type) with the train cell's rules.  The step runs through a
+    :class:`TrainGraph`: on a card with no mesh the run's first step (or
+    the first after a restore) is its eager warm-up, and the step is
+    captured once at the second and replayed at it and every later step;
+    on the CPU, and on a mesh, eagerly.  Returns ``losses`` and
     ``history`` (per step run: ``step``, ``loss``, ``grad_norm``, ``lr``,
-    ``seconds``; the loss the global batch's), the first step run
+    ``seconds``; the loss the global batch's; the first step's seconds
+    are the warm-up's, the second's hold the capture), the first step run
     (``start_step``), the final ``params``, ``opt_state`` and ``err``
-    (the error-feedback buffers; DTensors on a mesh) and the ``rules``
-    (None without a mesh)."""
+    (the error-feedback buffers; DTensors on a mesh), the ``rules`` (None
+    without a mesh) and the host seconds of the warm-up step and of the
+    capture (``warmup_s``, ``capture_s``; None where nothing was
+    captured)."""
     dev = devices.resolve(device)
     cfg = ARCHS[arch]
     if smoke:
@@ -152,6 +277,7 @@ def train(
         DataConfig(cfg.vocab, seq_len, global_batch, seed=seed))
 
     # --- loop -------------------------------------------------------------------
+    run = TrainGraph(train_step, params, opt_state, err)
     losses, durations, history = [], [], []
     for step in range(start_step, steps):
         tokens = torch.from_numpy(np.ascontiguousarray(
@@ -163,8 +289,7 @@ def train(
             batch["embeds"] = frontend_embeds(cfg, tokens, seed, step, rank,
                                               world)
         t0 = time.perf_counter()
-        params, opt_state, err, metrics = train_step(
-            params, opt_state, err, batch)
+        metrics = run(batch)
         loss = float(metrics["loss"])
         dt = time.perf_counter() - t0
         losses.append(loss)
@@ -182,18 +307,18 @@ def train(
                   f"{history[-1]['grad_norm']:.3f} lr "
                   f"{history[-1]['lr']:.3g} {dt * 1e3:.0f}ms", flush=True)
         if mgr and (step + 1) % ckpt_every == 0:
-            mgr.save(step + 1, {"params": params, "opt": opt_state,
-                                "err": err},
-                     blocking=False, extra={"arch": arch, "loss": loss})
+            mgr.save(step + 1, run.state, blocking=False,
+                     extra={"arch": arch, "loss": loss})
     if mgr:
-        mgr.save(steps, {"params": params, "opt": opt_state, "err": err},
+        mgr.save(steps, run.state,
                  extra={"arch": arch, "loss": losses[-1] if losses else None})
         mgr.wait()
         if mesh is not None:        # every rank sees the committed step
             torch.distributed.barrier()
     return {"losses": losses, "history": history, "start_step": start_step,
-            "params": params, "opt_state": opt_state, "err": err,
-            "rules": rules}
+            "params": run.params, "opt_state": run.opt_state, "err": run.err,
+            "rules": rules, "warmup_s": run.warmup_s,
+            "capture_s": run.capture_s}
 
 
 def _is_main() -> bool:

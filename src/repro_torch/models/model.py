@@ -414,9 +414,12 @@ def _call(remat: bool, fn, x):
     """``fn(x)``; under ``remat`` through ``torch.utils.checkpoint``
     (non-reentrant), so the layer keeps only its input for the backward
     and recomputes the rest there.  ``fn`` is a ``functools.partial``,
-    bound before the recompute runs."""
+    bound before the recompute runs.  No layer draws a random number, so
+    the RNG state is not stashed for the recompute: reading the card's
+    generator state would fail inside a CUDA graph capture."""
     if remat:
-        return checkpoint(fn, x, use_reentrant=False)
+        return checkpoint(fn, x, use_reentrant=False,
+                          preserve_rng_state=False)
     return fn(x)
 
 

@@ -1379,6 +1379,146 @@ def test_checkpoint_from_the_card_restores_on_the_cpu(card, tmp_path):
         assert torch.equal(bits(a), bits(b)), k
 
 
+# every family the port trains, at smoke width; qwen2-0.5b also with remat
+# (its full config's), whose checkpoint must capture
+TRAINED = [("qwen2-0.5b", False), ("qwen2-0.5b", True),
+           ("deepseek-v2-lite-16b", False), ("falcon-mamba-7b", False),
+           ("zamba2-7b", False), ("hubert-xlarge", False),
+           ("llava-next-34b", False)]
+
+
+@pytest.fixture
+def deterministic(monkeypatch):
+    """Deterministic algorithms, cuBLAS's workspace config set as they
+    require."""
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    yield
+    torch.use_deterministic_algorithms(False)
+
+
+def _bits(t):
+    t = t.detach()
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def _train_batch(cfg, dev, step, seq=32):
+    from repro_torch.data import DataConfig, ShardedTokenStream
+    from repro_torch.launch.train import frontend_embeds
+
+    toks = torch.from_numpy(ShardedTokenStream(DataConfig(
+        cfg.vocab, seq, 2)).batch_at(step)["tokens"]).to(dev)
+    batch = {"labels": toks}
+    if cfg.uses_tokens:
+        batch["tokens"] = toks
+    else:
+        batch["embeds"] = frontend_embeds(cfg, toks, 0, step)
+    return batch
+
+
+@pytest.mark.parametrize("name,remat", TRAINED)
+def test_train_graph_replay_equals_eager_step(card, deterministic, name,
+                                              remat):
+    """``TrainGraph`` on the card: the first step its eager warm-up, then
+    one capture and a replay at each of the next two; under deterministic
+    algorithms every step's metrics and, after it, every state leaf
+    (params, moments, the step counter, the residuals) equal the plain
+    step run eagerly on a copy, bit for bit."""
+    import dataclasses
+
+    from repro_torch.launch.train import TrainGraph
+    from repro_torch.tree import leaves_with_paths
+
+    cfg = dataclasses.replace(smoke_config(ARCHS[name]), remat=remat)
+    step, params, state, err = _train_state(cfg, card)
+    eager = [_to_dev(tree, card) for tree in (params, state, err)]
+    run = TrainGraph(step, params, state, err)
+    for i in range(3):
+        batch = _train_batch(cfg, card, i)
+        got = {k: float(v) for k, v in run(batch).items()}
+        *eager, m = step(*eager, batch)
+        assert got == {k: float(v) for k, v in m.items()}, i
+        want = dict(leaves_with_paths({"params": eager[0], "opt": eager[1],
+                                       "err": eager[2]}))
+        for k, t in leaves_with_paths(run.state):
+            assert torch.equal(_bits(t), _bits(want[k])), (i, k)
+    assert run.graph is not None and run.capture_s > 0 and run.warmup_s > 0
+    assert int(run.opt_state["step"]) == 3
+
+
+def test_train_checkpoint_after_replays_restores_and_recaptures(
+        card, deterministic, tmp_path):
+    """``train`` on the card: 3 steps (a warm-up, then a capture and two
+    replays) and a checkpoint; the checkpoint restores bit-equal to the
+    run's state; the resumed run captures again and its 2 steps equal
+    the last 2 of 5 straight, losses and state bit for bit."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch.train import train
+    from repro_torch.tree import leaves_with_paths
+
+    kw = dict(arch="qwen2-0.5b", smoke=True, seq_len=32, global_batch=2,
+              device=card, log_every=100)
+    straight = train(steps=5, **kw)
+    first = train(steps=3, ckpt_dir=str(tmp_path), **kw)
+    assert first["capture_s"] is not None
+    saved = {"params": first["params"], "opt": first["opt_state"],
+             "err": first["err"]}
+    restored, manifest = CheckpointManager(str(tmp_path)).restore(
+        saved, device=card)
+    assert manifest["step"] == 3
+    want = dict(leaves_with_paths(saved))
+    for k, t in leaves_with_paths(restored):
+        assert torch.equal(_bits(t), _bits(want[k])), k
+    resumed = train(steps=5, ckpt_dir=str(tmp_path), **kw)
+    assert resumed["start_step"] == 3 and resumed["capture_s"] is not None
+    assert resumed["losses"] == straight["losses"][3:]
+    want = dict(leaves_with_paths({"params": straight["params"],
+                                   "opt": straight["opt_state"],
+                                   "err": straight["err"]}))
+    for k, t in leaves_with_paths({"params": resumed["params"],
+                                   "opt": resumed["opt_state"],
+                                   "err": resumed["err"]}):
+        assert torch.equal(_bits(t), _bits(want[k])), k
+
+
+def test_train_graph_rejects_a_batch_of_another_shape(card):
+    from repro_torch.launch.train import TrainGraph
+
+    cfg = smoke_config(ARCHS["qwen2-0.5b"])
+    run = TrainGraph(*_train_state(cfg, card))
+    for i in range(3):
+        run(_train_batch(cfg, card, i))
+    assert run.graph is not None
+    with pytest.raises(ValueError, match="replays only"):
+        run(_train_batch(cfg, card, 2, seq=16))
+
+
+def test_train_graph_capture_failure_propagates(card):
+    """A step that reads a value on the host cannot be captured: after
+    the eager warm-up the capture's error reaches the caller, and a
+    third call raises too (the graph replays only a successful capture)
+    instead of running eagerly."""
+    from repro_torch.launch.train import TrainGraph
+
+    cfg = smoke_config(ARCHS["qwen2-0.5b"])
+    step, params, state, err = _train_state(cfg, card)
+
+    def reading(*args):
+        out = step(*args)
+        float(out[3]["loss"])
+        return out
+    run = TrainGraph(reading, params, state, err)
+    run(_train_batch(cfg, card, 0))
+    assert run.warmup_s is not None and run.graph is None
+    main = torch.cuda.current_stream(card)
+    for i in (1, 2):
+        with pytest.raises(RuntimeError):
+            run(_train_batch(cfg, card, i))
+        assert int(run.opt_state["step"]) == 1, i   # the warm-up's alone
+        assert torch.cuda.current_stream(card) == main
+    torch.cuda.synchronize()
+
+
 def test_moe_block_ep_on_a_unit_mesh_equals_the_plain_block(card, tmp_path):
     """A world of one on the card (NCCL over a ``FileStore``), a (1, 1)
     (data, model) mesh: deepseek-v2-lite-16b's MoE at 512 channels (4
