@@ -201,20 +201,29 @@ Phases (any failure exits non-zero and prints no result line):
    its loss falling by more than 0.5, capture seconds, peak memory;
 15. the mesh layer (``[mesh]``; no kernel of the port may launch, counts
    set to 0 before each part and read after): a world of one on the card
-   (NCCL over a ``FileStore``) and its (1, 1) (data, model) mesh — (a)
-   qwen2-0.5b at full width, its depth cut to 4 of 24 layers, 2 steps of
-   2 x 512 tokens with ``mesh=`` (eager) against the same 2 without (the
-   second replayed) under deterministic algorithms: losses and params
-   bit-equal (else [train] (b)'s bounds); (b) [train] (d)'s
-   deepseek-v2-lite-16b cut, one step of 1 x 4096 tokens whose MoE
-   layers go through ``moe_block_ep`` (counted), its loss against the
-   no-mesh step's, step time and peak memory; (c) the pipelined prefill
-   on a (1, 1, 1) (stage, data, model) mesh, 4 layers, 4 x 512 tokens (4
-   rows, so 4 microbatches split them), 2 and 4 microbatches, against
-   ``forward`` within 3e-2; then the group destroyed and (d) four gloo
-   CPU ranks, spawned by this script at [train]'s start so they run
-   while [train] and (a)–(c) do, at (2, 2): one deepseek smoke train
-   step against the single-rank port (losses within 1e-4 relative);
+   (NCCL over a ``FileStore``) and its (1, 1) (data, model) mesh, each
+   ``train(mesh=...)`` run's step captured with its collectives at its
+   second step and replayed, as without a mesh — (a) qwen2-0.5b at full
+   width and depth, 3 steps of 2 x 512 tokens with ``mesh=`` under
+   deterministic algorithms: per step loss, grad norm and lr and every
+   state leaf bit-equal to 3 all-eager mesh steps and to 3 steps without
+   a mesh; a capture of the step records its 2 NCCL calls (the global
+   norm's and the compression scale's all-reduces), and a replay's NCCL
+   kernels are counted by ``torch.profiler`` and printed; (b) [train]
+   (d)'s deepseek-v2-lite-16b cut, 2 steps of 1 x 4096 tokens whose MoE
+   layers go through ``moe_block_ep`` (counted), the second replayed,
+   its losses against the no-mesh steps', step times and peak memory;
+   (c) the pipelined prefill on a (1, 1, 1) (stage, data, model) mesh, 4
+   layers, 4 x 512 tokens (4 rows, so 4 microbatches split them), 2 and
+   4 microbatches, against ``forward`` within 3e-2; (e) qwen2-0.5b at
+   full width and depth, 4 steps of 2 x 4096 tokens on the mesh, then
+   one replayed and one eager mesh step profiled (wall, busy share,
+   host-bound seconds, kernels and copies, NCCL kernels) beside [train]
+   (a)'s replayed step without a mesh; then the group destroyed and (d)
+   four gloo CPU ranks, spawned by this script at [train]'s start so
+   they run while [train] and (a)–(e) do, at (2, 2): one deepseek smoke
+   train step against the single-rank port (losses within 1e-4
+   relative);
 16. the dry run (``[dryrun]``): (a) a process spawned at the script's
    start traces, on the meta device as rank 0 of fake 256- and
    512-rank process groups (``repro_torch.launch.dryrun``), qwen2-0.5b x
@@ -3483,26 +3492,26 @@ def cut_arch(arch: str, n_layers: int) -> str:
     return name
 
 
-def _history_lines(tag: str, out, tokens: int):
+def _history_lines(tag: str, out, tokens: int, phase: str = "train"):
     graphed = out["capture_s"] is not None
     for i, h in enumerate(out["history"]):
         how = ("eager" if not graphed else "the eager warm-up" if i == 0
                else "the capture + its first replay" if i == 1
                else "replayed")
-        print(f"[train] {tag} step {h['step']} ({how}): {h['seconds']:.3f} "
+        print(f"[{phase}] {tag} step {h['step']} ({how}): {h['seconds']:.3f} "
               f"s wall, {tokens / h['seconds']:.1f} tokens/s, loss "
               f"{h['loss']:.5f}, grad_norm {h['grad_norm']:.5f}, lr "
               f"{h['lr']:.4g}", flush=True)
         if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
                 and h["grad_norm"] > 0):
-            raise AssertionError(f"[train] {tag}: step {h['step']} {h}")
+            raise AssertionError(f"[{phase}] {tag}: step {h['step']} {h}")
 
 
 def _graph_line(torch, out, dev) -> str:
     """A ``train`` run's warm-up and capture host seconds, and the card's
     peak allocated and reserved memory since the last reset."""
     if out["capture_s"] is None:
-        raise AssertionError(f"[train] no capture on {dev}")
+        raise AssertionError(f"a train run captured nothing on {dev}")
     reserved = torch.cuda.max_memory_reserved(dev)
     return (f"warm-up step {out['warmup_s']:.3f} s, capture "
             f"{out['capture_s']:.3f} s (host); peak allocated "
@@ -3510,14 +3519,45 @@ def _graph_line(torch, out, dev) -> str:
             f"now {torch.cuda.memory_reserved(dev)} B")
 
 
-def profile_replayed_step(torch, cfg, out, dev, batch):
-    """Two more steps of (a)'s state through a fresh ``TrainGraph`` (its
-    warm-up, its capture and first replay), then one replay under
-    ``torch.profiler`` (device activity only), read from the raw events
-    as [graph] (c) reads them: the step's wall, the device's busy share
-    and the top kernels."""
+def profiled_step(torch, dev, fn) -> dict:
+    """``fn()`` (one train step; its loss read) under ``torch.profiler``
+    (device activity only), read from the raw events as [graph] (c) reads
+    them: the wall, the device's busy seconds and share, the host-bound
+    rest, the kernels and copies on the card (``kernels``), the NCCL
+    kernels among them (``nccl``), the events and the top five."""
     from torch.profiler import ProfilerActivity, profile
 
+    _sync(torch, dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        _sync(torch, dev)
+        wall = time.perf_counter() - t0
+    by_name, n_events = device_events(prof)
+    busy = sum(ns for ns, _ in by_name.values()) / 1e9
+    top = sorted(((k, ns / 1e3, n) for k, (ns, n) in by_name.items()),
+                 key=lambda t: -t[1])[:5]
+    return {"wall": wall, "busy": busy, "share": busy / wall,
+            "host": wall - busy, "events": n_events,
+            "kernels": sum(n for _, n in by_name.values()),
+            "nccl": sum(n for k, (_, n) in by_name.items()
+                        if "nccl" in k.lower()),
+            "top": "; ".join(f"{k[:50]} {us / 1e3:.1f} ms x{n}"
+                             for k, us, n in top)}
+
+
+def profile_line(p: dict) -> str:
+    return (f"wall {p['wall']:.3f} s, device busy {p['busy']:.3f} s "
+            f"({100 * p['share']:.1f}%), host-bound (wall not busy) "
+            f"{p['host']:.3f} s; {p['kernels']} kernels and copies on the "
+            f"card ({p['events']} events), {p['nccl']} NCCL kernels")
+
+
+def profile_replayed_step(torch, cfg, out, dev, batch) -> dict:
+    """Two more steps of (a)'s state through a fresh ``TrainGraph`` (its
+    warm-up, its capture and first replay), then one replay profiled
+    (:func:`profiled_step`): the step's wall, the device's busy share and
+    the top kernels.  Returns the profile, for [mesh] (e)."""
     from repro_torch.launch.steps import make_train_step
     from repro_torch.launch.train import TrainGraph
 
@@ -3525,25 +3565,12 @@ def profile_replayed_step(torch, cfg, out, dev, batch):
     run = TrainGraph(step, out["params"], out["opt_state"], out["err"])
     for _ in range(2):
         float(run(batch)["loss"])
-    _sync(torch, dev)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        float(run(batch)["loss"])
-        _sync(torch, dev)
-        wall = time.perf_counter() - t0
-    by_name, n_events = device_events(prof)
-    busy = sum(ns for ns, _ in by_name.values()) / 1e9
-    top = sorted(((k, ns / 1e3, n) for k, (ns, n) in by_name.items()),
-                 key=lambda t: -t[1])[:5]
+    p = profiled_step(torch, dev, lambda: float(run(batch)["loss"]))
     print(f"[train] (a) one replayed {cfg.name} step of "
-          f"{batch['tokens'].numel()} tokens under torch.profiler: wall "
-          f"{wall:.3f} s, device busy {busy:.3f} s ({100 * busy / wall:.1f}"
-          f"%), host-bound (wall not busy) {wall - busy:.3f} s; "
-          f"{sum(n for _, n in by_name.values())} kernels and copies on the "
-          f"card ({n_events} events); capture {run.capture_s:.3f} s, warm-up"
-          f" {run.warmup_s:.3f} s (host); top: "
-          + "; ".join(f"{k[:50]} {us / 1e3:.1f} ms x{n}" for k, us, n in top),
-          flush=True)
+          f"{batch['tokens'].numel()} tokens under torch.profiler: "
+          f"{profile_line(p)}; capture {run.capture_s:.3f} s, warm-up "
+          f"{run.warmup_s:.3f} s (host); top: {p['top']}", flush=True)
+    return p
 
 
 def profile_train_step(torch, cfg, out, dev, tokens):
@@ -3608,7 +3635,8 @@ def train_full_width(torch, train, dev, arch=TRAIN_ARCH,
     tokens/s, loss, grad_norm, lr; the warm-up and capture seconds, peak
     allocated and reserved; every loss and norm finite, grad_norm > 0,
     every leaf changed from its initial draw; then one eager step
-    profiled by phase and one replayed step profiled."""
+    profiled by phase and one replayed step profiled (returned: None on
+    the CPU)."""
     import numpy as np
 
     from repro_torch.configs import ARCHS, smoke_config
@@ -3646,11 +3674,13 @@ def train_full_width(torch, train, dev, arch=TRAIN_ARCH,
                                     shares.items()), flush=True)
     tokens = torch.from_numpy(np.ascontiguousarray(
         _stream(cfg, seq, batch).batch_at(steps)["tokens"])).to(dev)
+    replayed = None
     if dev.type == "cuda":
         profile_train_step(torch, cfg, out, dev, tokens)
-        profile_replayed_step(torch, cfg, out, dev,
-                              {"tokens": tokens, "labels": tokens})
+        replayed = profile_replayed_step(torch, cfg, out, dev,
+                                         {"tokens": tokens, "labels": tokens})
     del out
+    return replayed
 
 
 def _stream(cfg, seq, batch, seed=0):
@@ -3772,25 +3802,37 @@ def _same_bytes(torch, a, b) -> bool:
         b.detach().reshape(-1).view(torch.uint8))
 
 
-def eager_train(torch, cfg, steps, seq, batch, dev, seed=0):
+def eager_train(torch, cfg, steps, seq, batch, dev, seed=0, mesh=None):
     """``train``'s loop with no graph: the plain ``make_train_step`` step
     called eagerly at every step, from ``train``'s initial state, on its
-    token stream.  Returns the per-step ``(loss, grad_norm, lr)`` and the
-    final state as a checkpoint stores it."""
+    token stream; on ``mesh`` (``train(mesh=...)``'s twin) under the train
+    cell's rules, the state sharded as ``train`` places it, this rank's
+    rows of each batch.  Returns the per-step ``(loss, grad_norm, lr)``
+    and the final state as a checkpoint stores it."""
     import numpy as np
 
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import batch_rows
+    from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import model
     from repro_torch.optim import init as opt_init
     from repro_torch.optim.grad_compress import init_error_feedback
 
-    step, ocfg = make_train_step(cfg, grad_compression=True)
-    params = model.init_params(cfg, seed=seed, device=dev)
+    rules = rank = None
+    if mesh is not None:
+        rules = mesh_lib.rules_for(cfg, ShapeConfig("train", seq, batch,
+                                                    "train"), mesh)
+        rank = batch_rows(rules.act().sharding_for_shape(("batch", "seq"),
+                                                         (batch, seq)))
+    step, ocfg = make_train_step(cfg, rules=rules, grad_compression=True)
+    params = model.init_params(cfg, seed=seed, device=dev) if rules is None \
+        else mesh_lib.init_sharded_params(cfg, rules, seed, dev)
     state, err = opt_init(ocfg, params), init_error_feedback(params)
     data, history = _stream(cfg, seq, batch, seed), []
     for i in range(steps):
         toks = torch.from_numpy(np.ascontiguousarray(
-            data.batch_at(i)["tokens"])).to(dev)
+            data.batch_at(i, *(rank or ()))["tokens"])).to(dev)
         params, state, err, m = step(params, state, err,
                                      {"tokens": toks, "labels": toks})
         history.append((float(m["loss"]), float(m["grad_norm"]),
@@ -3987,14 +4029,17 @@ def train_100m_path(torch, dev):
           flush=True)
 
 
-def train_path(torch, build, dev="cuda"):
+def train_path(torch, build, dev="cuda") -> dict:
     """[train]: (a)–(e), the launch counts set to 0 before each and read
-    after: no kernel of the port may launch."""
+    after: no kernel of the port may launch.  Returns (a)'s profiled
+    replay (None on the CPU), which [mesh] (e) prints beside its own."""
     from repro_torch.launch.train import train
 
     dev = torch.device(dev)
+    got = {}
     for part, fn in (
-            ("(a)", lambda: train_full_width(torch, train, dev)),
+            ("(a)", lambda: got.update(a=train_full_width(torch, train,
+                                                          dev))),
             ("(b)", lambda: train_card_vs_cpu(torch, dev)),
             ("(c)", lambda: train_resume(torch, train, dev)),
             ("(d)", lambda: train_moe(torch, train, dev)),
@@ -4010,16 +4055,23 @@ def train_path(torch, build, dev="cuda"):
             torch.cuda.empty_cache()
         print(f"[train] {part} done in {time.perf_counter() - t0:.1f} s; "
               f"{_allocated(torch, dev)} B allocated", flush=True)
+    return got["a"]
 
 
 MESH_ARCH = "qwen2-0.5b"
-MESH_LAYERS = 4              # [mesh] (a), (c): the first 4 of its 24 layers
 MESH_SEQ, MESH_BATCH = 512, 2
+MESH_STEPS = 3               # (a): the warm-up, the capture, a replay
+MESH_MOE_STEPS = 2           # (b): the warm-up, the capture
+MESH_PP_LAYERS = 4           # (c): the first 4 of its 24 layers
 MESH_PP_BATCH = 4            # (c): 4 rows, so 4 microbatches split them
 MESH_RANKS = 4               # (d): gloo CPU ranks at (data, model) (2, 2)
 MESH_SMOKE_SEQ, MESH_SMOKE_BATCH = 32, 4
 MESH_RANK_TIMEOUT = 240      # seconds (d)'s ranks may take, spawn included
 PP_TOL = 3e-2                # (c) pipelined prefill vs forward
+# (a): the NCCL collectives a world-of-one step issues, the global norm's
+# sum and the compression scale's max (DTensor and the port's helpers
+# skip mesh dims of size 1)
+UNIT_MESH_NCCL_CALLS = 2
 
 
 def _group_of_one(torch, dev, tmp):
@@ -4033,10 +4085,17 @@ def _group_of_one(torch, dev, tmp):
 
 
 def _whole(torch, tree):
+    """Each leaf of ``tree`` whole, a copy (a DTensor on a world of one
+    is its own local tensor, which later steps write in place)."""
     from repro_torch.models.sharding import full
     from repro_torch.tree import leaves_with_paths
 
-    return {k: full(v).detach() for k, v in leaves_with_paths(tree)}
+    return {k: full(v).detach().clone() for k, v in leaves_with_paths(tree)}
+
+
+def _unequal(torch, got: dict, want: dict) -> list:
+    """The keys of two dicts of whole tensors whose bytes differ."""
+    return [k for k, t in want.items() if not _same_bytes(torch, got[k], t)]
 
 
 def _state_diff(torch, a, b, lr_sum: float) -> dict:
@@ -4057,64 +4116,125 @@ def _state_diff(torch, a, b, lr_sum: float) -> dict:
     return {"share": same / total, "ulps": worst, "far": far}
 
 
-def mesh_train_vs_plain(torch, train, dev, mesh, arch=None, smoke=False,
-                        seq=MESH_SEQ, batch=MESH_BATCH):
-    """(a): two train steps with ``mesh=`` (a world of one; eager)
-    against the same two without (on a card the second replayed), under
-    deterministic algorithms: losses and params bit-equal (a world of one
-    reorders no sum), else within [train] (b)'s bounds."""
-    arch = arch or cut_arch(MESH_ARCH, MESH_LAYERS)
-    kw = dict(arch=arch, steps=2, smoke=smoke, seq_len=seq,
+def _history(out) -> list:
+    return [(h["loss"], h["grad_norm"], h["lr"]) for h in out["history"]]
+
+
+def nccl_calls(torch, fn) -> int:
+    """The NCCL collectives ``fn()`` issues on the host (the process
+    group's ``nccl:*`` ranges under ``torch.profiler``'s host activity):
+    for a capture, the calls it records into the graph."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    return sum(1 for e in prof.profiler.kineto_results.events()
+               if e.name().startswith("nccl:")
+               and "CPU" in str(e.device_type()))
+
+
+def mesh_train_vs_plain(torch, train, dev, mesh, arch=MESH_ARCH,
+                        smoke=False, seq=MESH_SEQ, batch=MESH_BATCH,
+                        steps=MESH_STEPS):
+    """(a): ``arch`` (at full width and depth) takes ``steps`` steps of
+    ``train`` with ``mesh=`` — on a card the first the warm-up, the
+    second captured with its collectives and replayed, as every later
+    one — under deterministic algorithms, against the same steps all
+    eager on the mesh (:func:`eager_train`) and ``train`` without a mesh
+    (captured too): per step loss, grad norm and lr, and every leaf of
+    the final state, bit for bit, each (a world of one reorders no sum).
+    Then, on a card, a ``TrainGraph`` over the mesh run's state: its
+    warm-up, its capture (the NCCL calls it records, which must be the
+    step's :data:`UNIT_MESH_NCCL_CALLS`) and one replay profiled (the
+    NCCL kernels it launches)."""
+    import numpy as np
+
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import TrainGraph
+
+    cfg = smoke_config(ARCHS[arch]) if smoke else ARCHS[arch]
+    kw = dict(arch=arch, steps=steps, smoke=smoke, seq_len=seq,
               global_batch=batch, grad_compression=True, seed=0,
               device=dev, log_every=100)
+    calls = replay = None
     torch.use_deterministic_algorithms(True)
     try:
         plain = train(**kw)
-        want = _whole(torch, plain["params"])
+        want = _whole(torch, _state_of(plain))
         del plain["params"], plain["opt_state"], plain["err"]
+        eager, eager_state = eager_train(torch, cfg, steps, seq, batch, dev,
+                                         mesh=mesh)
+        eager_state = _whole(torch, eager_state)
         t0 = time.perf_counter()
         meshed = train(mesh=mesh, **kw)
         _sync(torch, dev)
         wall = time.perf_counter() - t0
+        got = _whole(torch, _state_of(meshed))
+        if dev.type == "cuda":
+            toks = torch.from_numpy(np.ascontiguousarray(
+                _stream(cfg, seq, batch).batch_at(steps)["tokens"])).to(dev)
+            b = {"tokens": toks, "labels": toks}
+            step, _ = make_train_step(cfg, rules=meshed["rules"],
+                                      grad_compression=True)
+            run = TrainGraph(step, meshed["params"], meshed["opt_state"],
+                             meshed["err"])
+            float(run(b)["loss"])
+            calls = nccl_calls(torch, lambda: float(run(b)["loss"]))
+            replay = profiled_step(torch, dev,
+                                   lambda: float(run(b)["loss"]))
+            del run
     finally:
         torch.use_deterministic_algorithms(False)
-    if meshed["capture_s"] is not None or (
-            dev.type == "cuda") != (plain["capture_s"] is not None):
-        raise AssertionError(f"[mesh] (a) captures: mesh "
-                             f"{meshed['capture_s']}, without "
-                             f"{plain['capture_s']}")
-    got = _whole(torch, meshed["params"])
-    d = _state_diff(torch, got, want, sum(h["lr"] for h in meshed["history"]))
-    dl = max(abs(a - b) for a, b in zip(meshed["losses"], plain["losses"]))
-    how = "eager" if plain["capture_s"] is None else \
-        "its second step replayed"
-    print(f"[mesh] (a) {arch}: 2 steps of {batch} x {seq} tokens with "
-          f"mesh (1, 1) in {wall:.2f} s (steps "
-          + ", ".join(f"{h['seconds']:.3f}" for h in meshed["history"])
-          + f" s): losses {meshed['losses']} vs {plain['losses']} without "
-          f"({how}), "
-          f"largest |diff| {dl:.3g}; params bit-equal {d['share']:.6f}, "
-          f"largest difference {d['ulps']:.3g} bf16 ulps, {d['far']} "
-          f"elements more than 1 ulp and 2 lr apart", flush=True)
-    if dl > CMP_LOSS_ATOL or d["share"] < CMP_PARAM_SHARE or d["far"]:
-        raise AssertionError("[mesh] (a) mesh vs plain past [train] (b)'s "
-                             "bounds")
-    return {"bit_equal": dl == 0 and d["share"] == 1.0}
+    _history_lines("(a)", meshed, batch * seq, phase="mesh")
+    off_eager = _unequal(torch, got, eager_state)
+    off_plain = _unequal(torch, got, want)
+    captured = [meshed["capture_s"], plain["capture_s"]]
+    secs = [None if t is None else round(t, 3) for t in
+            captured + [meshed["warmup_s"]]]
+    print(f"[mesh] (a) {arch}: {cfg.n_layers} layers, {steps} steps of "
+          f"{batch} x {seq} tokens with mesh (1, 1) in {wall:.2f} s "
+          f"(capture {secs[0]}, warm-up {secs[2]} s of host time; the "
+          f"no-mesh run's capture {secs[1]} s): losses "
+          f"{meshed['losses']}; == all eager on the mesh: history "
+          f"{_history(meshed) == eager}, {len(got) - len(off_eager)} of "
+          f"{len(got)} state leaves bit-equal; == without a mesh: history "
+          f"{_history(meshed) == _history(plain)}, "
+          f"{len(got) - len(off_plain)} of {len(got)} leaves bit-equal",
+          flush=True)
+    if replay is not None:
+        print(f"[mesh] (a) a TrainGraph over the run's state: its capture "
+              f"recorded {calls} NCCL calls (torch.profiler's host ranges); "
+              f"one replay: {profile_line(replay)} (NCCL's one-rank path "
+              f"does an in-place sum or max on the host side alone)",
+              flush=True)
+    if _history(meshed) != eager or off_eager \
+            or _history(meshed) != _history(plain) or off_plain:
+        raise AssertionError(f"[mesh] (a) graph vs eager mesh / no mesh: "
+                             f"leaves differ {off_eager[:5]} / "
+                             f"{off_plain[:5]}")
+    if dev.type == "cuda" and (None in captured
+                               or calls != UNIT_MESH_NCCL_CALLS):
+        raise AssertionError(f"[mesh] (a) captures {captured}, NCCL calls "
+                             f"in the capture {calls}")
 
 
 def mesh_moe(torch, train, dev, mesh, arch=None, smoke=False,
-             seq=MOE_TRAIN_SEQ, batch=MOE_TRAIN_BATCH):
-    """(b): [train] (d)'s deepseek cut, one step with ``mesh=`` whose MoE
-    layers go through ``moe_block_ep`` (counted), its loss against the
-    step without (a unit mesh's local capacity is the global one); step
-    time and peak memory."""
+             seq=MOE_TRAIN_SEQ, batch=MOE_TRAIN_BATCH,
+             steps=MESH_MOE_STEPS):
+    """(b): [train] (d)'s deepseek cut, ``steps`` steps with ``mesh=`` (on
+    a card the second captured and replayed) whose MoE layers go through
+    ``moe_block_ep`` (counted), its losses against the steps without (a
+    unit mesh's local capacity is the global one); step times, the
+    capture's seconds and peak memory."""
     from repro_torch.models import layers
 
     arch = arch or cut_arch(MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS)
-    kw = dict(arch=arch, steps=1, smoke=smoke, seq_len=seq,
+    kw = dict(arch=arch, steps=steps, smoke=smoke, seq_len=seq,
               global_batch=batch, grad_compression=True, seed=0, device=dev,
               log_every=100)
     plain = train(**kw)["losses"]
+    gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -4125,14 +4245,17 @@ def mesh_moe(torch, train, dev, mesh, arch=None, smoke=False,
     finally:
         layers.moe_block_ep = ep
     _sync(torch, dev)
-    loss = out["losses"][0]
-    print(f"[mesh] (b) {arch}: one step of {batch} x {seq} tokens on mesh "
-          f"(1, 1): {out['history'][0]['seconds']:.3f} s, peak allocated "
-          f"{_peak(torch, dev)} B; moe_block_ep called {len(calls)} times "
-          f"(forward and remat's recompute); loss {loss:.6f} vs "
-          f"{plain[0]:.6f} without, |diff| {abs(loss - plain[0]):.3g} "
-          f"(bound {CMP_LOSS_ATOL})", flush=True)
-    if not calls or abs(loss - plain[0]) > CMP_LOSS_ATOL:
+    diff = max(abs(a - b) for a, b in zip(out["losses"], plain))
+    graph = _graph_line(torch, out, dev) if dev.type == "cuda" else \
+        "no capture on the CPU"
+    print(f"[mesh] (b) {arch}: {steps} steps of {batch} x {seq} tokens on "
+          f"mesh (1, 1), steps "
+          + ", ".join(f"{h['seconds']:.3f}" for h in out["history"])
+          + f" s; {graph}; moe_block_ep called {len(calls)} times (the "
+          f"warm-up's and the capture's forward and remat's recompute); "
+          f"losses {out['losses']} vs {plain} without, largest |diff| "
+          f"{diff:.3g} (bound {CMP_LOSS_ATOL})", flush=True)
+    if not calls or diff > CMP_LOSS_ATOL:
         raise AssertionError("[mesh] (b) no EP call, or the loss is off")
     del out
 
@@ -4150,7 +4273,8 @@ def mesh_pipeline(torch, dev, cfg=None):
     from repro_torch.launch.pipeline import make_pp_prefill_step
     from repro_torch.models.model import forward, init_params
 
-    cfg = cfg or dataclasses.replace(ARCHS[MESH_ARCH], n_layers=MESH_LAYERS)
+    cfg = cfg or dataclasses.replace(ARCHS[MESH_ARCH],
+                                     n_layers=MESH_PP_LAYERS)
     mesh = make_mesh((1, 1, 1), ("stage", "data", "model"), dev)
     params = init_params(cfg, seed=0, device=dev)
     toks = torch.from_numpy(np.ascontiguousarray(_stream(
@@ -4252,12 +4376,77 @@ def mesh_gloo_ranks(torch, started):
         raise AssertionError("[mesh] (d) ranks vs one rank past bounds")
 
 
-def mesh_path(torch, build, dev="cuda", smoke=False, ranks=None):
+def mesh_step_profile(torch, train, dev, mesh, no_mesh=None, arch=MESH_ARCH,
+                      smoke=False, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+                      steps=TRAIN_STEPS):
+    """(e): ``arch`` at full width and depth takes ``steps`` steps of
+    ``train`` with ``mesh=`` at [train] (a)'s ``seq`` x ``batch`` tokens
+    (on a card the first the warm-up, the second captured and replayed,
+    as the rest): per step wall, tokens/s, loss, grad norm, lr, the
+    warm-up and capture seconds and peak memory.  Then, on a card, from
+    its state a fresh ``TrainGraph``'s warm-up and capture, one replayed
+    mesh step and one eager mesh step, each profiled
+    (:func:`profiled_step`: wall, busy seconds and share, host-bound
+    seconds, kernels and copies, NCCL kernels), printed beside [train]
+    (a)'s replayed no-mesh step of this run (``no_mesh``)."""
+    import numpy as np
+
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import TrainGraph
+
+    cfg = smoke_config(ARCHS[arch]) if smoke else ARCHS[arch]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = train(arch=arch, steps=steps, smoke=smoke, seq_len=seq,
+                global_batch=batch, grad_compression=True, seed=0,
+                device=dev, mesh=mesh, log_every=steps)
+    _sync(torch, dev)
+    graph = _graph_line(torch, out, dev) if dev.type == "cuda" else \
+        "no capture on the CPU"
+    print(f"[mesh] (e) {arch}: {cfg.n_layers} layers, {steps} steps of "
+          f"{batch} x {seq} tokens on mesh (1, 1) in "
+          f"{time.perf_counter() - t0:.2f} s; {graph}", flush=True)
+    _history_lines("(e)", out, batch * seq, phase="mesh")
+    if dev.type != "cuda":
+        return
+    toks = torch.from_numpy(np.ascontiguousarray(
+        _stream(cfg, seq, batch).batch_at(steps)["tokens"])).to(dev)
+    b = {"tokens": toks, "labels": toks}
+    step, _ = make_train_step(cfg, rules=out["rules"], grad_compression=True)
+    run = TrainGraph(step, out["params"], out["opt_state"], out["err"])
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    for _ in range(2):
+        float(run(b)["loss"])
+    replayed = profiled_step(torch, dev, lambda: float(run(b)["loss"]))
+    eager = profiled_step(torch, dev, lambda: float(step(
+        run.params, dict(run.opt_state), run.err, b)[3]["loss"]))
+    tag = f"{cfg.name} step of {toks.numel()} tokens"
+    print(f"[mesh] (e) one replayed mesh {tag}: {profile_line(replayed)}; "
+          f"capture {run.capture_s:.3f} s, warm-up {run.warmup_s:.3f} s "
+          f"(host); top: {replayed['top']}", flush=True)
+    print(f"[mesh] (e) one eager mesh {tag}: {profile_line(eager)}; top: "
+          f"{eager['top']}", flush=True)
+    if no_mesh is not None:
+        print(f"[mesh] (e) beside [train] (a)'s replayed no-mesh {tag} in "
+              f"this run: {profile_line(no_mesh)}; the replayed mesh step "
+              f"{replayed['wall'] / no_mesh['wall']:.4f}x its wall, the "
+              f"eager mesh step {eager['wall'] / no_mesh['wall']:.4f}x",
+              flush=True)
+    del run
+
+
+def mesh_path(torch, build, dev="cuda", smoke=False, ranks=None,
+              no_mesh=None):
     """[mesh]: (d)'s gloo CPU ranks (``ranks``, as :func:`start_gloo_ranks`
     spawned them, else spawned first), then a world of one on ``dev`` and
-    its (1, 1) mesh for (a)–(c), then (d) collected; the launch counts set
-    to 0 before each part and read after (no kernel of the port is on
-    this path); the world of one destroyed after (c)."""
+    its (1, 1) mesh for (a)–(c) and (e) (``no_mesh``: [train] (a)'s
+    profiled replay, printed beside (e)'s), then (d) collected; the
+    launch counts set to 0 before each part and read after (no kernel of
+    the port is on this path); the world of one destroyed after (e)."""
     import dataclasses
     import tempfile
 
@@ -4276,14 +4465,15 @@ def mesh_path(torch, build, dev="cuda", smoke=False, ranks=None):
             mesh = make_mesh((1, 1), ("data", "model"), dev)
             parts = (
                 ("(a)", lambda: mesh_train_vs_plain(
-                    torch, train, dev, mesh,
-                    arch=MESH_ARCH if smoke else None, **small)),
+                    torch, train, dev, mesh, **small)),
                 ("(b)", lambda: mesh_moe(
                     torch, train, dev, mesh,
                     arch=MOE_TRAIN_ARCH if smoke else None, **small)),
                 ("(c)", lambda: mesh_pipeline(torch, dev, dataclasses.replace(
-                    smoke_config(ARCHS[MESH_ARCH]), n_layers=MESH_LAYERS)
-                    if smoke else None)))
+                    smoke_config(ARCHS[MESH_ARCH]), n_layers=MESH_PP_LAYERS)
+                    if smoke else None)),
+                ("(e)", lambda: mesh_step_profile(
+                    torch, train, dev, mesh, no_mesh, **small)))
             for part, fn in parts:
                 t0 = time.perf_counter()
                 build.reset_launches()
@@ -4292,6 +4482,7 @@ def mesh_path(torch, build, dev="cuda", smoke=False, ranks=None):
                     raise AssertionError(f"[mesh] {part} launched a kernel "
                                          f"of the port: "
                                          f"{dict(build.LAUNCHES)}")
+                gc.collect()    # remat's reference cycles
                 if dev.type == "cuda":
                     torch.cuda.empty_cache()
                 print(f"[mesh] {part} done in {time.perf_counter() - t0:.1f}"
@@ -4301,7 +4492,7 @@ def mesh_path(torch, build, dev="cuda", smoke=False, ranks=None):
         t0 = time.perf_counter()
         mesh_gloo_ranks(torch, ranks)
         print(f"[mesh] (d) done in {time.perf_counter() - t0:.1f} s after "
-              f"(c)", flush=True)
+              f"(e)", flush=True)
 
 
 DRYRUN_ARCH = "qwen2-0.5b"
@@ -4536,9 +4727,11 @@ def check_devlen_attention(torch, k_attn, results):
     (a tile boundary) and the capacity (and [main]'s 576): within the f32
     tolerance of its plain version on the same tensor length, bit-equal
     across two calls and to a CUDA graph's replay of the call, timed
-    beside the host-length entry at the same length.  Row
-    ``decode_attn_devlen`` (launches: [main]'s) is [main]'s shape at 576,
-    its bound the valid K / V rows read once."""
+    beside the host-length entry and SDPA's fastest backend over the
+    cache sliced to the length (:func:`sdpa_backends`), with the bound,
+    at each length.  Row ``decode_attn_devlen`` (launches: [main]'s) is
+    [main]'s shape at 576, its bound the valid K / V rows read once, its
+    library time SDPA's there."""
     gen = torch.Generator(device="cuda").manual_seed(26)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     errs, lines = [], []
@@ -4586,10 +4779,14 @@ def check_devlen_attention(torch, k_attn, results):
                 q, k, v, valid), 20)
             b, _ = bound_ms(B * (2 * valid * KV * hd * 2 + H * hd * 6) + 4,
                             B * 4 * H * valid * hd)
+            lib = min(sdpa_backends(torch, q, k, v, valid).items(),
+                      key=lambda kv: kv[1])
             parts.append(f"valid_len {valid}: device length {us(dev_t)}, "
-                         f"host length {us(host_t)}, bound {b * 1e3:.3f} us")
+                         f"host length {us(host_t)}, SDPA's fastest "
+                         f"({lib[0]}, the cache sliced to the length) "
+                         f"{lib[1] * 1e3:.2f} us, bound {b * 1e3:.3f} us")
             if tag == "main" and valid == VALID_LEN:
-                row_t, row_b = dev_t, b
+                row_t, row_b, row_lib = dev_t, b, lib[1]
         del graph
         lines.append(f"[kernel] decode_attn_devlen at {tag}'s shape, q "
                      f"{(B, H, hd)} over {(B, S, KV, hd)} ({-(-S // chunk)} "
@@ -4609,8 +4806,7 @@ def check_devlen_attention(torch, k_attn, results):
         max_abs_err=max(errs), **row_t,
         plain_ms=timed(torch, lambda: k_attn.decode_attention_plain(
             q, k, v, length))["ms"],
-        bound_ms=row_b, bound_by="bytes",
-        library_ms=results["decode_attn"]["library_ms"])
+        bound_ms=row_b, bound_by="bytes", library_ms=row_lib)
 
 
 # [graph]: one full-width qwen2-0.5b request of 512 + 64 tokens through a
@@ -4947,9 +5143,9 @@ def main():
     phase("frontends")
     mesh_tmp = tempfile.mkdtemp(prefix="mesh_ranks_")
     gloo_ranks = start_gloo_ranks(mesh_tmp)     # [mesh] (d), beside [train]
-    train_path(torch, build)
+    no_mesh = train_path(torch, build)
     phase("train")
-    mesh_path(torch, build, ranks=gloo_ranks)
+    mesh_path(torch, build, ranks=gloo_ranks, no_mesh=no_mesh)
     shutil.rmtree(mesh_tmp, ignore_errors=True)
     phase("mesh")
     dryrun_path(torch, results, dryrun_traces)

@@ -64,7 +64,9 @@ the scan's steps.
 tensors on the card as rank 0 of the fake world: the collectives leave
 their outputs unwritten, so the inputs are random (from a seed) and no
 value is compared; the record adds the measured peak, the step's wall
-time and the kernel launches beside the trace's numbers.
+time and the kernel launches beside the trace's numbers.  That step
+runs once and eagerly, not through ``launch.train.TrainGraph``: a cell
+measures one step, which a CUDA graph would record but never replay.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --out dryrun.json

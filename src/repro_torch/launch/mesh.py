@@ -19,6 +19,11 @@ per (arch × shape) cell:
 A mesh needs its process group started first
 (``torch.distributed.init_process_group``; one rank per device); a
 group that cannot start raises, and nothing falls back to one process.
+On a card the train step is captured with its NCCL collectives
+(``launch.train.TrainGraph``), which needs no setting of the group: by
+default a collective's wait is a wait of the caller's stream on the
+group's.  The capture relies on that default: with
+``TORCH_NCCL_BLOCKING_WAIT=1`` a wait would block the host inside it.
 """
 
 from __future__ import annotations

@@ -20,9 +20,11 @@ contract:
 
 The step runs as the reference's ``jax.jit(train_step, donate_argnums=
 (0, 1, 2))`` does (:class:`TrainGraph`): the train state is written in
-place, and on a card, with no mesh, the step is captured once a run as a
-CUDA graph (after the first step, eager, has warmed it up) and replayed
-at every later step.  On the CPU and on a mesh each step runs eagerly.
+place, and on a card the step is captured once a run as a CUDA graph
+(after the first step, eager, has warmed it up) and replayed at every
+later step — on a mesh too, its DTensor and NCCL collectives captured
+with it, as XLA compiles the sharded step whole.  On the CPU each step
+runs eagerly.
 
 Labels are aligned with the positions: the stream's ``tokens`` go to
 :func:`..models.model.lm_loss` as both inputs and labels, and its causal
@@ -65,7 +67,7 @@ from ..configs.base import ShapeConfig
 from ..data import DataConfig, ShardedTokenStream
 from ..data.pipeline import batch_rows
 from ..models.model import DTYPE, init_params, schema
-from ..models.sharding import is_dtensor, local, mesh_dims
+from ..models.sharding import local, mesh_dims
 from ..optim import init as opt_init
 from ..optim.grad_compress import init_error_feedback
 from ..tree import leaves_with_paths
@@ -99,18 +101,24 @@ class TrainGraph:
     parameters and moments, this wrapper the new step counter and
     residuals, with ``copy_``).
 
-    On a card, with no mesh, the first step is the warm-up: a real step,
-    eager, on the side stream the capture then uses (it initialises the
-    libraries' per-stream state, which a capture may not).  At the second
+    On a card the first step is the warm-up: a real step, eager, on the
+    side stream the capture then uses (it initialises the libraries'
+    per-stream state, which a capture may not, and on a mesh issues every
+    collective of the step on every process group it uses, so NCCL has
+    made each communicator, lazily, before the capture).  At the second
     step the warm-up's garbage is collected and the allocator's cached
     blocks released, so the graph's private pool can take them;
     ``train_step`` is captured with ``torch.cuda.graph`` (a capture runs
     no kernel: the state is not stepped) and replayed; every later step
-    replays it.  A replay copies the batch into the static buffers
-    first; its metrics are the graph's static ``loss`` / ``grad_norm`` /
-    ``lr`` tensors, which the next step overwrites.  On the CPU, and on
-    a mesh (DTensors: there the step stays eager), every step runs the
-    same code eagerly.  A batch of another shape or dtype raises
+    replays it.  On a mesh the state's leaves are DTensors, and the
+    capture takes their local ops and collectives as the step issues
+    them: the process group runs each NCCL collective on its own stream,
+    which joins the capture's through events, and the functional
+    collectives' waits fall inside the step.  A replay copies the batch
+    (on a mesh this rank's rows) into the static buffers first; its
+    metrics are the graph's static ``loss`` / ``grad_norm`` / ``lr``
+    tensors, which the next step overwrites.  On the CPU every step runs
+    the same code eagerly.  A batch of another shape or dtype raises
     ``ValueError``: a graph replays only what it captured.  A failed
     capture or replay raises; nothing falls back to the eager step."""
 
@@ -118,8 +126,7 @@ class TrainGraph:
         self.train_step = train_step
         self.params, self.opt_state, self.err = params, opt_state, err
         leaf = leaves_with_paths(params)[0][1]
-        self.captures = local(leaf).device.type == "cuda" \
-            and not is_dtensor(leaf)
+        self.captures = local(leaf).device.type == "cuda"
         self.batch: Optional[dict] = None
         self.stream: Optional["torch.cuda.Stream"] = None
         self.graph: Optional["torch.cuda.CUDAGraph"] = None
@@ -218,10 +225,10 @@ def train(
     ``device`` (default: the card), from step 0 or the latest checkpoint
     under ``ckpt_dir``; on ``mesh`` (a ``DeviceMesh`` on ``device``'s
     type) with the train cell's rules.  The step runs through a
-    :class:`TrainGraph`: on a card with no mesh the run's first step (or
-    the first after a restore) is its eager warm-up, and the step is
-    captured once at the second and replayed at it and every later step;
-    on the CPU, and on a mesh, eagerly.  Returns ``losses`` and
+    :class:`TrainGraph`: on a card, with a mesh or without, the run's
+    first step (or the first after a restore) is its eager warm-up, and
+    the step is captured once at the second and replayed at it and every
+    later step; on the CPU eagerly.  Returns ``losses`` and
     ``history`` (per step run: ``step``, ``loss``, ``grad_norm``, ``lr``,
     ``seconds``; the loss the global batch's; the first step's seconds
     are the warm-up's, the second's hold the capture), the first step run

@@ -29,6 +29,13 @@ partitioner).  Every rank runs the model on local tensors:
   along ``model`` compute the same activations, and the backward of
   every exchange that crosses them is written so that their gradients
   are not summed M times.
+
+A CUDA graph captures a train step through these helpers
+(``launch.train.TrainGraph``): each issues the same collectives, in the
+same order, on every rank, reads no tensor on the host and allocates
+only what the inputs' shapes fix (equal chunks; a mesh dim of size 1
+issues nothing, as DTensor skips it too).  The CPU tests of
+``test_torch_mesh_graph.py`` hold the step to that on gloo ranks.
 """
 
 from __future__ import annotations

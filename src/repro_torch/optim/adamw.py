@@ -74,7 +74,10 @@ def _counted_once(x) -> bool:
 def global_norm(tree: dict) -> torch.Tensor:
     """sqrt of the sum over the leaves, in the reference's order (sorted
     keys), of each leaf's f32 sum of squares — over the whole leaf, for a
-    DTensor (its shards' sums added by one all-reduce)."""
+    DTensor (its shards' sums added by one all-reduce on the default
+    group: the group's stream waits on the caller's and the caller's on
+    it through events, and nothing on the host waits, so a CUDA graph
+    captures it)."""
     leaves = [x for _, x in leaves_with_paths(tree)]
     sums = [local(x).float().square().sum() for x in leaves]
     sharded = [is_dtensor(x) for x in leaves]

@@ -41,9 +41,10 @@ def _g32(g, e) -> torch.Tensor:
 
 
 def _global_amax(pairs: list, sharded: list) -> list:
-    """Each leaf's max|g + e|: a sharded leaf's over every rank.  Each
-    f32 sum is dropped once its max is read, so the pass holds one leaf's
-    at a time."""
+    """Each leaf's max|g + e|: a sharded leaf's over every rank (one
+    all-reduce on the default group, on its stream, joined through
+    events: a CUDA graph captures it).  Each f32 sum is dropped once its
+    max is read, so the pass holds one leaf's at a time."""
     amax = [_g32(g, e).abs().amax() for g, e in pairs]
     if any(sharded):
         import torch.distributed as dist

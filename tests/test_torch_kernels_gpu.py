@@ -1296,13 +1296,24 @@ def _tree_to(tree, dev):
             for k, v in tree.items()}
 
 
-def _train_state(cfg, dev):
+MESH_SEQ, MESH_BATCH = 32, 2     # _train_batch's
+
+
+def _train_state(cfg, dev, mesh=None):
+    """The train step and its initial state; on ``mesh`` under the train
+    cell's rules of :data:`MESH_BATCH` x :data:`MESH_SEQ` tokens, the
+    state sharded."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import init_sharded_params, rules_for
     from repro_torch.launch.steps import make_train_step
     from repro_torch.optim import init as opt_init
     from repro_torch.optim.grad_compress import init_error_feedback
 
-    params = init_params(cfg, seed=0, device=dev)
-    step, ocfg = make_train_step(cfg, grad_compression=True)
+    rules = None if mesh is None else rules_for(
+        cfg, ShapeConfig("train", MESH_SEQ, MESH_BATCH, "train"), mesh)
+    params = init_params(cfg, seed=0, device=dev) if rules is None \
+        else init_sharded_params(cfg, rules, 0, dev)
+    step, ocfg = make_train_step(cfg, rules=rules, grad_compression=True)
     return step, params, opt_init(ocfg, params), init_error_feedback(params)
 
 
@@ -1481,11 +1492,16 @@ def test_train_checkpoint_after_replays_restores_and_recaptures(
         assert torch.equal(_bits(t), _bits(want[k])), k
 
 
-def test_train_graph_rejects_a_batch_of_another_shape(card):
+@pytest.mark.parametrize("on_mesh", [False, True], ids=["plain", "mesh"])
+def test_train_graph_rejects_a_batch_of_another_shape(card, request,
+                                                      on_mesh):
+    """After its capture a ``TrainGraph`` (on a unit mesh too) refuses a
+    batch of another shape."""
     from repro_torch.launch.train import TrainGraph
 
     cfg = smoke_config(ARCHS["qwen2-0.5b"])
-    run = TrainGraph(*_train_state(cfg, card))
+    mesh = request.getfixturevalue("unit_mesh") if on_mesh else None
+    run = TrainGraph(*_train_state(cfg, card, mesh))
     for i in range(3):
         run(_train_batch(cfg, card, i))
     assert run.graph is not None
@@ -1519,7 +1535,30 @@ def test_train_graph_capture_failure_propagates(card):
     torch.cuda.synchronize()
 
 
-def test_moe_block_ep_on_a_unit_mesh_equals_the_plain_block(card, tmp_path):
+@pytest.fixture(scope="module")
+def nccl_world(tmp_path_factory):
+    """A process group of this process alone, NCCL over a ``FileStore``,
+    for the module's tests on a unit mesh; destroyed at teardown."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path_factory.mktemp("nccl") / "store"), 1), rank=0,
+        world_size=1)
+    yield
+    dist.destroy_process_group()
+
+
+@pytest.fixture
+def unit_mesh(card, nccl_world):
+    """The (1, 1) (data, model) mesh of the world of one."""
+    from repro_torch.launch.mesh import make_mesh
+
+    return make_mesh((1, 1), ("data", "model"))
+
+
+def test_moe_block_ep_on_a_unit_mesh_equals_the_plain_block(card, unit_mesh):
     """A world of one on the card (NCCL over a ``FileStore``), a (1, 1)
     (data, model) mesh: deepseek-v2-lite-16b's MoE at 512 channels (4
     experts, top-2) under the train cell's rules goes through
@@ -1527,43 +1566,163 @@ def test_moe_block_ep_on_a_unit_mesh_equals_the_plain_block(card, tmp_path):
     no-ops — and equals the plain block bit for bit, output and aux."""
     import dataclasses
 
-    import torch.distributed as dist
-
     from repro_torch.configs.base import ShapeConfig
-    from repro_torch.launch.mesh import make_mesh, rules_for, shard_tree
+    from repro_torch.launch.mesh import rules_for, shard_tree
     from repro_torch.launch.mesh import param_shardings
     from repro_torch.models import layers
     from repro_torch.models.sharding import use_rules
 
     cfg = dataclasses.replace(smoke_config(ARCHS["deepseek-v2-lite-16b"]),
                               d_model=512)
-    dist.init_process_group("nccl", store=dist.FileStore(
-        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    rules = rules_for(cfg, ShapeConfig("train", 64, 2, "train"), unit_mesh)
+    params = init_params(cfg, seed=0, device=card)
+    moe = {k: (v[0] if not isinstance(v, dict) else
+               {kk: vv[0] for kk, vv in v.items()})
+           for k, v in params["layers"]["moe"].items()}
+    placed = shard_tree(params, param_shardings(cfg, rules))["layers"]
+    pm = {k: (v[0] if not isinstance(v, dict) else
+              {kk: vv[0] for kk, vv in v.items()})
+          for k, v in placed["moe"].items()}
+    gen = torch.Generator(device=card).manual_seed(1)
+    x = torch.randn(2, 64, 512, generator=gen, device=card).to(
+        torch.bfloat16)
+    want, want_aux = layers.moe_block(x, moe, cfg)
+    calls, ep = [], layers.moe_block_ep
+    layers.moe_block_ep = lambda *a, **kw: calls.append(1) or ep(*a, **kw)
     try:
-        mesh = make_mesh((1, 1), ("data", "model"))
-        rules = rules_for(cfg, ShapeConfig("train", 64, 2, "train"), mesh)
-        params = init_params(cfg, seed=0, device=card)
-        moe = {k: (v[0] if not isinstance(v, dict) else
-                   {kk: vv[0] for kk, vv in v.items()})
-               for k, v in params["layers"]["moe"].items()}
-        placed = shard_tree(params, param_shardings(cfg, rules))["layers"]
-        pm = {k: (v[0] if not isinstance(v, dict) else
-                  {kk: vv[0] for kk, vv in v.items()})
-              for k, v in placed["moe"].items()}
-        gen = torch.Generator(device=card).manual_seed(1)
-        x = torch.randn(2, 64, 512, generator=gen, device=card).to(
-            torch.bfloat16)
-        want, want_aux = layers.moe_block(x, moe, cfg)
-        calls, ep = [], layers.moe_block_ep
-        layers.moe_block_ep = lambda *a, **kw: calls.append(1) or ep(*a, **kw)
-        try:
-            with use_rules(rules.act()):
-                got, aux = layers.moe_block(x, pm, cfg)
-        finally:
-            layers.moe_block_ep = ep
-        torch.cuda.synchronize()
-        assert calls == [1]
-        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
-        assert float(aux) == float(want_aux)
+        with use_rules(rules.act()):
+            got, aux = layers.moe_block(x, pm, cfg)
     finally:
-        dist.destroy_process_group()
+        layers.moe_block_ep = ep
+    torch.cuda.synchronize()
+    assert calls == [1]
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    assert float(aux) == float(want_aux)
+
+
+def _eager_mesh_train(arch, mesh, steps, dev):
+    """``train``'s loop on the unit ``mesh`` with no graph: the plain
+    ``make_train_step`` step under the train cell's rules, eagerly, from
+    ``train``'s initial state on its token stream (a world of one reads
+    every row).  The per-step ``(loss, grad_norm, lr)`` and the final
+    state, each leaf whole."""
+    cfg = smoke_config(ARCHS[arch])
+    step, *state = _train_state(cfg, dev, mesh)
+    history = []
+    for i in range(steps):
+        *state, m = step(*state, _train_batch(cfg, dev, i, MESH_SEQ))
+        history.append(tuple(float(m[k]) for k in ("loss", "grad_norm",
+                                                    "lr")))
+    return history, _whole(dict(zip(("params", "opt", "err"), state)))
+
+
+def _whole(tree):
+    from repro_torch.models.sharding import full
+    from repro_torch.tree import leaves_with_paths
+
+    return {k: _bits(full(v)) for k, v in leaves_with_paths(tree)}
+
+
+def _run_state(out):
+    return _whole({"params": out["params"], "opt": out["opt_state"],
+                   "err": out["err"]})
+
+
+def _mesh_train(mesh, dev, **kw):
+    from repro_torch.launch.train import train
+
+    return train(smoke=True, seq_len=MESH_SEQ, global_batch=MESH_BATCH,
+                 device=dev, mesh=mesh, log_every=100, **kw)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "deepseek-v2-lite-16b"])
+def test_mesh_train_graph_equals_eager_mesh_steps(card, unit_mesh,
+                                                  deterministic, arch):
+    """``train(mesh=...)`` on the unit mesh of an NCCL world of one: the
+    first step the warm-up, the second captured with its collectives and
+    replayed, as every later one; 4 steps equal 4 all-eager mesh steps
+    bit for bit — losses, grad norms, lrs and every state leaf."""
+    out = _mesh_train(unit_mesh, card, arch=arch, steps=4)
+    assert out["capture_s"] is not None and out["warmup_s"] is not None
+    history, want = _eager_mesh_train(arch, unit_mesh, 4, card)
+    assert [(h["loss"], h["grad_norm"], h["lr"])
+            for h in out["history"]] == history
+    got = _run_state(out)
+    for k, t in want.items():
+        assert torch.equal(got[k], t), k
+
+
+def test_mesh_train_resumed_captures_again(card, unit_mesh, deterministic,
+                                           tmp_path):
+    """2 captured mesh steps and a checkpoint, then a run resumed onto the
+    mesh: it warms up and captures again, and its 2 steps equal the last
+    2 of 4 straight, losses and state bit for bit."""
+    straight = _mesh_train(unit_mesh, card, arch="qwen2-0.5b", steps=4)
+    first = _mesh_train(unit_mesh, card, arch="qwen2-0.5b", steps=2,
+                        ckpt_dir=str(tmp_path))
+    assert first["capture_s"] is not None
+    resumed = _mesh_train(unit_mesh, card, arch="qwen2-0.5b", steps=4,
+                          ckpt_dir=str(tmp_path))
+    assert resumed["start_step"] == 2
+    assert resumed["warmup_s"] is not None and resumed["capture_s"] is not None
+    assert resumed["losses"] == straight["losses"][2:]
+    want, got = _run_state(straight), _run_state(resumed)
+    for k, t in want.items():
+        assert torch.equal(got[k], t), k
+
+
+def test_mesh_train_capture_failure_raises_out_of_train(card, unit_mesh,
+                                                        monkeypatch):
+    """A mesh step that reads a value on the host cannot be captured: the
+    capture's error leaves ``train`` at the second step, and the step is
+    not run again eagerly (the compression ran twice: the warm-up and the
+    capture)."""
+    from repro_torch.launch import steps
+    from repro_torch.models.sharding import local
+    from repro_torch.tree import leaves_with_paths
+
+    calls, compress = [], steps.compress_grads
+
+    def reading(grads, err):
+        calls.append(1)
+        float(local(leaves_with_paths(grads)[0][1]).sum())
+        return compress(grads, err)
+
+    monkeypatch.setattr(steps, "compress_grads", reading)
+    main = torch.cuda.current_stream(card)
+    with pytest.raises(RuntimeError):
+        _mesh_train(unit_mesh, card, arch="qwen2-0.5b", steps=4)
+    assert len(calls) == 2
+    assert torch.cuda.current_stream(card) == main
+    torch.cuda.synchronize()
+
+
+def test_mesh_train_graph_across_cards(card, tmp_path):
+    """Every card of the machine an NCCL rank (two or more; skips on one):
+    on (1, n), (n, 1) and, for an even n > 2, (2, n / 2) meshes,
+    qwen2-0.5b and deepseek-v2-lite-16b (expert-parallel) at smoke width
+    take 3 steps through a ``TrainGraph`` and of ``train(mesh=...)``, each
+    captured at the second with its DTensor and NCCL collectives, equal
+    to 3 all-eager mesh steps bit for bit on every rank; no step reads
+    the card on the host, and every rank issues the same collectives at
+    every step; a replay launches NCCL kernels."""
+    import torch_mesh_cases as cases
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more NVIDIA GPUs")
+    shapes = [(1, n), (n, 1)] + ([(2, n // 2)] if n > 2 and n % 2 == 0
+                                 else [])
+    res = cases.run_world(cases.graph_case, n, tmp_path, shapes, "cuda",
+                          timeout=600, backend="nccl")
+    for rank, out in enumerate(res):
+        for key, r in out.items():
+            print(f"rank {rank} {key}: capture {r['capture_s']:.3f} s, "
+                  f"a replay {r['kernels']} kernels and copies, "
+                  f"{r['nccl']} NCCL kernels")
+            assert r["capture_s"] is not None and r["graph"], (rank, key)
+            assert r["graph_eq"] and r["train_eq"], (rank, key)
+            assert r["nccl"] > 0, (rank, key)
+            assert all(a["faults"] == [] for a in r["audits"]), (rank, key)
+            assert r["audits"][0]["collectives"] == \
+                res[0][key]["audits"][0]["collectives"], (rank, key)

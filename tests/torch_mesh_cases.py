@@ -8,16 +8,22 @@ from __future__ import annotations
 import os
 import time
 import traceback
+import weakref
 
 import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+from torch.overrides import TorchFunctionMode
+from torch.utils._python_dispatch import TorchDispatchMode
 
 
-def _rank_main(fn, rank: int, world: int, store: str, out: str, args):
+def _rank_main(fn, rank: int, world: int, store: str, out: str, args,
+               backend: str = "gloo"):
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+    if backend == "nccl":           # a card a rank
+        torch.cuda.set_device(rank)
+    dist.init_process_group(backend, store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
     try:
         res = fn(rank, *args)
@@ -31,17 +37,19 @@ def _rank_main(fn, rank: int, world: int, store: str, out: str, args):
         dist.destroy_process_group()
 
 
-def run_world(fn, world: int, tmp, *args, timeout: float = 120.0) -> list:
+def run_world(fn, world: int, tmp, *args, timeout: float = 120.0,
+              backend: str = "gloo") -> list:
     """``fn(rank, *args)`` on ``world`` spawned gloo ranks (a ``FileStore``
-    under ``tmp``, one thread each); their return values, by rank.  A
-    rank that fails fails the call with its traceback; one that outlives
-    ``timeout`` seconds is killed and fails it too."""
+    under ``tmp``, one thread each; ``backend="nccl"``: NCCL ranks, rank
+    r on card r); their return values, by rank.  A rank that fails
+    fails the call with its traceback; one that outlives ``timeout``
+    seconds is killed and fails it too."""
     tmp = str(tmp)
     os.makedirs(tmp, exist_ok=True)
     store = os.path.join(tmp, f"store_{time.monotonic_ns()}")
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_rank_main,
-                         args=(fn, r, world, store, tmp, args))
+                         args=(fn, r, world, store, tmp, args, backend))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -90,10 +98,10 @@ def from_np(a: np.ndarray, bf16: bool) -> torch.Tensor:
     return t.view(torch.int16).view(torch.bfloat16) if bf16 else t
 
 
-def mesh(shape, axes):
+def mesh(shape, axes, device="cpu"):
     from repro_torch.launch.mesh import make_mesh
 
-    return make_mesh(tuple(shape), tuple(axes), device="cpu")
+    return make_mesh(tuple(shape), tuple(axes), device=device)
 
 
 def rows(t: torch.Tensor, m) -> torch.Tensor:
@@ -640,3 +648,297 @@ def serve_case(rank, shape, tokens):
             "placements": [(type(p).__name__, getattr(p, "dim", None))
                            for p in k.placements],
             "local_seq": local(k).shape[2]} if rank == 0 else None
+
+
+# ---------------------------------------------------------------------------
+# the mesh train step as a CUDA graph would capture it
+# ---------------------------------------------------------------------------
+
+class StepAudit:
+    """Records what a CUDA graph capture of a step could not take, and the
+    step's collectives.  A context manager around one step; it enters a
+    ``TorchDispatchMode`` that sees this rank's local ops (a DTensor op is
+    let through to DTensor, whose local ops and collectives come back to
+    the mode, as ``launch/dryrun.py`` does).  ``faults``: a read of a
+    device value on the host (``_local_scalar_dense``), an op whose
+    output shape depends on the data, or a copy between devices, each
+    with the port's line it came from.  A 0-d host tensor (the port's
+    ``torch.tensor`` scalars, and what is computed from them alone) may be
+    read: it never leaves the host.  ``F.one_hot``'s range checks read
+    its input on the CPU only (on the card a device assert replaces
+    them), so reads inside it on the CPU are not faults.
+    ``collectives``: every ``c10d`` op in order, with its tensors' shapes
+    and dtypes and its group's size."""
+
+    def __init__(self):
+        self.faults, self.collectives = [], []
+        self.host = weakref.WeakSet()      # tensors that live on the host
+        self.in_one_hot = 0
+        self._modes = (_AuditCalls(self), _AuditOps(self))
+
+    def __enter__(self):
+        for m in self._modes:
+            m.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        for m in reversed(self._modes):
+            m.__exit__(*exc)
+        return False
+
+
+class _AuditOps(TorchDispatchMode):
+    def __init__(self, audit: StepAudit):
+        super().__init__()
+        self.audit = audit
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch._subclasses.fake_tensor import FakeTensor
+        from torch.distributed.tensor import DTensor
+
+        kwargs, audit = kwargs or {}, self.audit
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        if any(issubclass(t, FakeTensor) for t in types):
+            return func(*args, **kwargs)        # sharding propagation
+        ins = _tensors_in(args, kwargs)
+        fault = _capture_fault(func, args, kwargs, audit)
+        if fault:
+            audit.faults.append((fault, str(func), _port_site()))
+        out = func(*args, **kwargs)
+        if func in (torch.ops.aten.lift_fresh.default,
+                    torch.ops.aten.lift_fresh_copy.default) \
+                or (ins and all(t in audit.host for t in ins)):
+            for t in _tensors_in((out,), {}):
+                audit.host.add(t)
+        if func.namespace in ("c10d", "_c10d_functional", "c10d_functional"):
+            audit.collectives.append(_collective_record(func, args, kwargs))
+        return out
+
+
+class _AuditCalls(TorchFunctionMode):
+    """Counts the ``F.one_hot`` calls the step is inside."""
+
+    def __init__(self, audit: StepAudit):
+        super().__init__()
+        self.audit = audit
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        inside = func is torch.nn.functional.one_hot
+        self.audit.in_one_hot += inside
+        try:
+            return func(*args, **(kwargs or {}))
+        finally:
+            self.audit.in_one_hot -= inside
+
+
+def _tensors_in(args, kwargs) -> list:
+    out = []
+    for a in list(args) + list(kwargs.values()):
+        for t in (a if isinstance(a, (list, tuple)) else (a,)):
+            if isinstance(t, torch.Tensor):
+                out.append(t)
+    return out
+
+
+def _capture_fault(func, args, kwargs, audit: StepAudit):
+    aten = torch.ops.aten
+    if func is aten._local_scalar_dense.default:
+        t = args[0]
+        if t in audit.host or (audit.in_one_hot and t.device.type == "cpu"):
+            return None
+        return "host read"
+    if func is aten.index.Tensor:    # integer indices keep their shape
+        if any(i is not None and i.dtype in (torch.bool, torch.uint8)
+               for i in args[1]):
+            return "data-dependent shape"
+        return None
+    if torch.Tag.dynamic_output_shape in func.tags:
+        return "data-dependent shape"
+    if func is aten._to_copy.default and "device" in kwargs \
+            and torch.device(kwargs["device"]) != args[0].device:
+        return "copy between devices"
+    if func is aten.copy_.default and args[0].device != args[1].device:
+        return "copy between devices"
+    return None
+
+
+def _port_site() -> str:
+    """The innermost frame of the port's package: where an op came from."""
+    import sys
+
+    f = sys._getframe(2)
+    while f is not None:
+        name = f.f_code.co_filename
+        if f"{os.sep}repro_torch{os.sep}" in name:
+            return (f"{name.split(os.sep + 'repro_torch' + os.sep)[1]}:"
+                    f"{f.f_lineno} {f.f_code.co_name}")
+        f = f.f_back
+    return "?"
+
+
+def _collective_record(func, args, kwargs) -> tuple:
+    from repro_torch.launch.dryrun import _group_ranks
+
+    shapes = tuple((tuple(t.shape), str(t.dtype))
+                   for t in _tensors_in(args, kwargs))
+    try:
+        size = len(_group_ranks(func, args, kwargs))
+    except RuntimeError:        # wait_tensor: no group
+        size = None
+    return (f"{func.namespace}.{func._opname}", shapes, size)
+
+
+GRAPH_STEPS = 3     # the warm-up, the step a card captures, a replay
+
+
+def graph_case(rank, shapes, device="cpu"):
+    """Per (data, model) mesh of ``shapes`` and per arch of
+    :data:`TRAIN_ARCHS` at smoke width, under deterministic algorithms,
+    :data:`GRAPH_STEPS` steps of 4 x 32 tokens three ways: the plain
+    ``make_train_step`` loop on the mesh; a ``TrainGraph`` (on a card the
+    warm-up, the capture and a replay), each step under a
+    :class:`StepAudit` (its faults and collectives) and, on a card, the
+    last under ``torch.profiler`` (the replay's kernels and copies, and
+    the NCCL kernels among them); and ``train(mesh=...)``.  Every rank
+    returns, per ``(shape, arch)``: the audits, whether the
+    ``TrainGraph`` would capture and did, whether every leaf of its state
+    (a DTensor's local shard) kept its storage, ``train``'s ``capture_s``,
+    whether the ``TrainGraph`` run and ``train`` equal the plain loop bit
+    for bit (metrics, and every leaf of the final state whole), and the
+    replay's ``kernels`` and ``nccl`` (None on the CPU)."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import DataConfig, ShardedTokenStream
+    from repro_torch.data.pipeline import batch_rows
+    from repro_torch.launch.mesh import init_sharded_params, rules_for
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import TrainGraph, train
+    from repro_torch.models.sharding import full
+    from repro_torch.optim import init as opt_init
+    from repro_torch.optim.grad_compress import init_error_feedback
+    from repro_torch.tree import leaves_with_paths
+
+    dev = torch.device("cuda", rank) if device == "cuda" \
+        else torch.device(device)
+
+    def metrics(m_):
+        return tuple(float(m_[k]) for k in ("loss", "grad_norm", "lr"))
+
+    def whole(params, state, err):
+        return {k: to_np(full(v)) for k, v in leaves_with_paths(
+            {"params": params, "opt": state, "err": err})}
+
+    out = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for shape in shapes:
+            m = mesh(shape, ("data", "model"), device)
+            for arch in TRAIN_ARCHS:
+                cfg = smoke_config(ARCHS[arch])
+                rules = rules_for(cfg, ShapeConfig(
+                    "train", TRAIN_SEQ, TRAIN_BATCH, "train"), m)
+                r, w = batch_rows(rules.act().sharding_for_shape(
+                    ("batch", "seq"), (TRAIN_BATCH, TRAIN_SEQ)))
+                data = ShardedTokenStream(DataConfig(
+                    cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0))
+                batches = []
+                for i in range(GRAPH_STEPS):
+                    t = torch.from_numpy(np.ascontiguousarray(
+                        data.batch_at(i, r, w)["tokens"])).to(dev)
+                    batches.append({"tokens": t, "labels": t})
+
+                def fresh():
+                    step, ocfg = make_train_step(cfg, rules=rules,
+                                                 grad_compression=True)
+                    params = init_sharded_params(cfg, rules, 0, dev)
+                    return step, params, opt_init(ocfg, params), \
+                        init_error_feedback(params)
+
+                step, *state = fresh()
+                plain = []
+                for b in batches:
+                    *state, mt = step(*state, b)
+                    plain.append(metrics(mt))
+                want = whole(*state)
+                del state
+
+                step, *state = fresh()
+                run = TrainGraph(step, *state)
+                storage = _storages(run.state)
+                audits, graphed = [], []
+                kernels = nccl = None
+                for i, b in enumerate(batches):
+                    audit = StepAudit()
+                    last = dev.type == "cuda" and i == len(batches) - 1
+                    with audit, _device_profile(last) as names:
+                        mt = run(b)
+                    graphed.append(metrics(mt))
+                    audits.append({"faults": audit.faults,
+                                   "collectives": audit.collectives})
+                    if last:
+                        kernels = len(names)
+                        nccl = sum("nccl" in n.lower() for n in names)
+                got = whole(run.params, run.opt_state, run.err)
+                res = {"audits": audits, "captures": run.captures,
+                       "graph": run.graph is not None,
+                       "storage_kept": _storages(run.state) == storage,
+                       "kernels": kernels, "nccl": nccl,
+                       "graph_eq": graphed == plain and _same(got, want)}
+                del run, state
+
+                tr = train(arch=arch, steps=GRAPH_STEPS, smoke=True,
+                           seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                           seed=0, device=dev, mesh=m, log_every=1000)
+                res["capture_s"] = tr["capture_s"]
+                res["train_eq"] = [
+                    tuple(h[k] for k in ("loss", "grad_norm", "lr"))
+                    for h in tr["history"]] == plain and _same(
+                        whole(tr["params"], tr["opt_state"], tr["err"]),
+                        want)
+                out[(tuple(shape), arch)] = res
+                del tr
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return out
+
+
+def _storages(tree) -> dict:
+    """Each leaf's storage (a DTensor's local shard's), by path."""
+    from repro_torch.models.sharding import local
+    from repro_torch.tree import leaves_with_paths
+
+    return {k: local(v).untyped_storage().data_ptr()
+            for k, v in leaves_with_paths(tree)}
+
+
+def _same(got: dict, want: dict) -> bool:
+    return all(np.array_equal(got[k], want[k]) for k in want)
+
+
+class _device_profile:
+    """``torch.profiler`` over the block when ``on`` (device activity);
+    yields a list it fills, on exit, with the names of the kernels and
+    copies that ran on the card."""
+
+    def __init__(self, on: bool):
+        self.on, self.names, self.prof = on, [], None
+
+    def __enter__(self):
+        if self.on:
+            from torch.profiler import ProfilerActivity, profile
+
+            torch.cuda.synchronize()
+            self.prof = profile(activities=[ProfilerActivity.CUDA])
+            self.prof.__enter__()
+        return self.names
+
+    def __exit__(self, *exc):
+        if self.prof is not None:
+            torch.cuda.synchronize()
+            self.prof.__exit__(*exc)
+            self.names.extend(
+                e.name() for e in self.prof.profiler.kineto_results.events()
+                if "CUDA" in str(e.device_type()))
+        return False
