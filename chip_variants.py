@@ -5,12 +5,16 @@ NVIDIA GPU beside the shipped choice.
 Run from the repository root on a machine with a card:
 
     python3 chip_variants.py [--only score,forward,...] [--parent CSRC]
+                             [--tree DIR] [--graph-variants a,b,...]
 
 ``--only`` runs the named sweeps (attention, matmul, kv_read, inverse,
-match, score, forward, pack, prep; default all); ``--parent`` names
-another checkout's ``src/repro_torch/csrc``, whose ``pnm_score.cu``,
-``kv_delta.cu``, ``bitplane_pack.cu`` and ``lz4_prep.cu`` then join the
-scoring, forward, pack and prep sweeps as ``parent``.
+match, score, forward, pack, prep, graph; default all); ``--parent``
+names another checkout's ``src/repro_torch/csrc``, whose
+``pnm_score.cu``, ``kv_delta.cu``, ``bitplane_pack.cu`` and
+``lz4_prep.cu`` then join the scoring, forward, pack and prep sweeps as
+``parent``; ``--tree`` runs the package of another checkout ``DIR``
+instead of this one's (its ``graph`` sweep: the shipped kernel only);
+``--graph-variants`` names the graph sweep's variants (default all).
 
 - Decode attention, q (1, 14, 64) over a (1, S, 2, 64) bf16 cache: at
   each valid length, every block size (``chunk``) of 2 to 64 blocks a
@@ -62,6 +66,18 @@ scoring, forward, pack and prep sweeps as ``parent``.
   channel walking its
   distinct exponents in increasing order (``MODE_BY_WARP``) instead of
   the counted bins.
+- Decode attention in [main]'s captured decode step (qwen2-0.5b at
+  full width, position 576 in a 640-slot cache of random K and V): the
+  device time a replay and every attention call's; then the kernel
+  alone at that shape through the wrapper (a device length), back to
+  back, each call after an elementwise pass over 8 MiB on every SM,
+  each after a 128 MiB write has emptied the L2 cache, and 40 calls
+  captured as one CUDA graph, back to back and each after that pass.
+  The shipped ``decode_attn.cu`` against variants (``graph_variants``):
+  registers capped for two blocks an SM at hd 64 (shipped three), no
+  tensor-map prefetch, every block loading q before it reads the length
+  (shipped: block 0), 2 stages (shipped 3), and the shipped library with
+  short contexts spread over 8 blocks instead of 16 (``cluster8``).
 - Bit-plane pack at the flush slab (131072 elements) and at a 896 x 4864
   weight: the shipped ``bitplane_pack.cu`` against variants
   (``PACK_VARIANTS``): 64-256 threads a block (shipped 32), 2 or 8 runs
@@ -84,10 +100,21 @@ from __future__ import annotations
 import ctypes
 import subprocess
 import sys
+from pathlib import Path
 
 import chip_smoke as cs
 
-sys.path.insert(0, str(cs.ROOT / "src"))
+
+
+def _src() -> str:
+    """The package's source: this checkout's, or ``--tree DIR``'s."""
+    if "--tree" in sys.argv[:-1]:
+        return str(Path(sys.argv[sys.argv.index("--tree") + 1]).resolve()
+                   / "src")
+    return str(cs.ROOT / "src")
+
+
+sys.path.insert(0, _src())
 
 import torch  # noqa: E402
 
@@ -973,8 +1000,157 @@ def forward_sweep(variants: dict) -> None:
               f"{b * 1e3:.3f}), us: " + ", ".join(times), flush=True)
 
 
+def graph_variants() -> dict:
+    """Variants of this checkout's decode_attn.cu for the graph sweep."""
+    return {
+        "minblocks2": (("HD * kG <= 512 ? 3 : (HD * kG <= 1024 ? 2 : 1);",
+                        "HD * kG <= 512 ? 2 : (HD * kG <= 1024 ? 2 : 1);"),),
+        "no-prefetch": (
+            ('    asm volatile("prefetch.tensormap [%0];\\n" ::"l"(\n'
+             "                     reinterpret_cast<uint64_t>(&kmap)) : "
+             '"memory");\n'
+             '    asm volatile("prefetch.tensormap [%0];\\n" ::"l"(\n'
+             "                     reinterpret_cast<uint64_t>(&vmap)) : "
+             '"memory");\n', ""),),
+        "q-first": (("  if (split == 0) load_q();\n", "  load_q();\n"),
+                    ("  if (split > 0) load_q();\n", "")),
+        "stages2": const_variant("decode_attn", kMaxStages=2),
+    }
+
+
+GRAPH_REPLAYS = 20
+ALONE_CALLS = 40
+_GRAPH_PARAMS = {}
+
+
+def _attention_calls(prof) -> list:
+    """Device µs of every decode-attention kernel in a profiler trace."""
+    return [e.duration_ns() / 1e3
+            for e in prof.profiler.kineto_results.events()
+            if "CUDA" in str(e.device_type()) and "decode_attn" in e.name()]
+
+
+def _stats(calls: list) -> str:
+    if not calls:
+        return "no device events in two traces"
+    return (f"{sum(calls) / len(calls):.2f} us a call "
+            f"({min(calls):.2f}-{max(calls):.2f}, {len(calls)} calls)")
+
+
+def graph_step(label: str) -> None:
+    """One line of the graph sweep for the decode-attention library now
+    loaded: [main]'s step captured and replayed, then the kernel alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.model import init_cache, init_params
+    from repro_torch.runtime.serving import DecodeGraph
+
+    cfg, dev = ARCHS["qwen2-0.5b"], torch.device("cuda")
+    if "params" not in _GRAPH_PARAMS:
+        _GRAPH_PARAMS["params"] = init_params(cfg, seed=0, device=dev)
+    params = _GRAPH_PARAMS["params"]
+    gen = torch.Generator(device=dev).manual_seed(cs.GRAPH_SEED)
+    token = torch.randint(0, cfg.vocab, (1, 1), generator=gen, device=dev)
+    cache = init_cache(cfg, 1, cs.MAX_SEQ, device=dev)
+    for leaf in cs._leaves(cache):
+        leaf.copy_(torch.randn(leaf.shape, generator=gen, device=dev))
+    graph = DecodeGraph(cfg, params, cache, token, cs.VALID_LEN)
+    for _ in range(3):
+        graph.replay(token, cs.VALID_LEN)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(GRAPH_REPLAYS):
+            graph.replay(token, cs.VALID_LEN)
+        torch.cuda.synchronize()
+    by_name, _ = cs.device_events(prof)
+    step = sum(ns for ns, _ in by_name.values()) / 1e6 / GRAPH_REPLAYS
+    in_graph = _attention_calls(prof)
+    del graph, cache
+
+    q = torch.randn((1, cs.HEADS, cs.HEAD_DIM), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((1, cs.MAX_SEQ, cs.KV_HEADS, cs.HEAD_DIM),
+                        generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    length = torch.tensor(cs.VALID_LEN, dtype=torch.int32, device=dev)
+    want = k_attn.decode_attention_plain(q, k, v, length)
+    got = k_attn.decode_attention(q, k, v, length)
+    torch.cuda.synchronize()
+    if not bool(((got - want).abs() <= cs.ATOL + cs.RTOL * want.abs()).all()):
+        raise AssertionError(f"graph sweep {label}: beyond tolerance")
+    spread = torch.empty(1 << 21, dtype=torch.float32, device=dev)
+    flush = torch.empty(1 << 25, dtype=torch.int32, device=dev)
+
+    def captured(between):
+        """ALONE_CALLS calls (each after ``between``) as one CUDA graph."""
+        graph = torch.cuda.CUDAGraph()
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            k_attn.decode_attention(q, k, v, length)
+        torch.cuda.current_stream().wait_stream(stream)
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(ALONE_CALLS):
+                if between is not None:
+                    between()
+                k_attn.decode_attention(q, k, v, length)
+        graph.replay()
+        return graph.replay
+
+    def calls(between):
+        for _ in range(ALONE_CALLS):
+            if between is not None:
+                between()
+            k_attn.decode_attention(q, k, v, length)
+
+    mul = lambda: spread.mul_(1)         # noqa: E731
+    alone = {}
+    for what, run in (
+            ("back to back", lambda: calls(None)),
+            ("after 8 MiB elementwise", lambda: calls(mul)),
+            ("after a 128 MiB write", lambda: calls(lambda: flush.fill_(1))),
+            ("one CUDA graph, back to back", captured(None)),
+            ("one CUDA graph, after 8 MiB elementwise", captured(mul))):
+        for _ in range(2):       # a trace may come back empty: once more
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize()
+            alone[what] = _attention_calls(prof)
+            if alone[what]:
+                break
+    print(f"[variant] graph {label}: [main]'s step at {cs.VALID_LEN} in a "
+          f"{cs.MAX_SEQ}-slot cache, {GRAPH_REPLAYS} replays: device "
+          f"{step:.4f} ms a replay, attention {_stats(in_graph)}; alone: "
+          + "; ".join(f"{w} {_stats(c)}" for w, c in alone.items()),
+          flush=True)
+
+
+def graph_sweep(variants: dict, cluster8: bool) -> None:
+    """The shipped library and each variant in turns; with ``cluster8``,
+    the shipped library with the rule's cluster of 8 too."""
+    shipped = build.load("decode_attn")
+    extra = {"cluster8": ()} if cluster8 else {}
+    order = in_turns({**variants, **extra}) if variants or extra else \
+        ["shipped"]
+    label = ("" if "--tree" not in sys.argv[:-1]
+             else f" of {Path(_src()).parent.name}")
+    for name in order:
+        build._LIBS["decode_attn"] = variants.get(name, shipped)
+        if name == "cluster8":
+            cluster = k_attn.block_cluster
+            k_attn.block_cluster = lambda hd, group: 8
+        try:
+            graph_step(name + label)
+        finally:
+            if name == "cluster8":
+                k_attn.block_cluster = cluster
+            build._LIBS["decode_attn"] = shipped
+
+
 SWEEPS = ("attention", "matmul", "kv_read", "inverse", "match", "score",
-          "forward", "pack", "prep")
+          "forward", "pack", "prep", "graph")
 
 
 def main() -> None:
@@ -986,6 +1162,11 @@ def main() -> None:
                     help="comma-separated sweeps to run")
     ap.add_argument("--parent", type=Path, default=None,
                     help="another checkout's src/repro_torch/csrc")
+    ap.add_argument("--tree", type=Path, default=None,
+                    help="run another checkout's package")
+    ap.add_argument("--graph-variants", default=None,
+                    help="comma-separated variants of the graph sweep "
+                    "(default all, cluster8 included)")
     args = ap.parse_args()
     only = set(args.only.split(","))
     if only - set(SWEEPS):
@@ -993,7 +1174,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         cs.fail("no CUDA device")
     print(cs.card_line(), flush=True)
-    build.build_all(("decode_attn", "elastic_matmul", "bitplane_unpack",
+    build.build_all(("decode_attn",) if only == {"graph"} else
+                    ("decode_attn", "elastic_matmul", "bitplane_unpack",
                      "kv_delta", "bitplane_pack", "lz4_prep", "lz4_match",
                      "pnm_score"))
 
@@ -1014,6 +1196,13 @@ def main() -> None:
     fwd = libs("kv_delta", FORWARD_VARIANTS, "forward")
     pack = libs("bitplane_pack", PACK_VARIANTS, "pack")
     prep = libs("lz4_prep", PREP_VARIANTS, "prep")
+    wanted = (None if args.graph_variants is None
+              else set(args.graph_variants.split(",")))
+    graph = ({} if args.tree is not None or "graph" not in only else
+             variant_libs("decode_attn", {
+                 n: subs for n, subs in graph_variants().items()
+                 if wanted is None or n in wanted}))
+    cluster8 = args.tree is None and (wanted is None or "cluster8" in wanted)
     if "attention" in only:
         attention_sweep()
     if "matmul" in only:
@@ -1032,6 +1221,8 @@ def main() -> None:
         pack_sweep(pack)
     if "prep" in only:
         prep_sweep(prep)
+    if "graph" in only:
+        graph_sweep(graph, cluster8)
 
 
 if __name__ == "__main__":

@@ -42,6 +42,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _U = ctypes.c_ulonglong
+_IP = ctypes.POINTER(ctypes.c_int)
 # C launchers of each library: {function: argtypes}; each returns
 # cudaError_t.
 SIGNATURES = {
@@ -50,8 +51,8 @@ SIGNATURES = {
     "decode_attn": {"decode_attn": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _I, _I, _I, _F, _I, _I, _P),
                     "decode_attn_devlen": (_P, _P, _P, _P, _P, _P, _P, _I,
-                                           _I, _I, _I, _I, _I, _F, _I, _I,
-                                           _P)},
+                                           _I, _I, _I, _I, _I, _IP, _F, _I,
+                                           _I, _P)},
     "pnm_score": {"pnm_score": (_P, _P, _P, _P, _I, _I, _I, _I, _P)},
     "kv_delta": {"kv_delta_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
                  "kv_delta_inv": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -12,10 +12,11 @@ Replaces ``src/repro/kernels/decode_attn.py::_kernel``.  Shapes:
 
 A tensor ``valid_len`` is the decode step's position + 1 as the
 reference's jitted step traces it: nothing reads it on the host.  The
-kernel's entry for it (``decode_attn_devlen``) reads it on the card and
-fixes its split from the capacity S, so one launch serves every position
-and a CUDA graph replays it; the length is clamped to [1, S] (the plain
-version clamps it the same way).
+kernel's entry for it (``decode_attn_devlen``) launches a grid fixed by
+the capacity S (:func:`devlen_grid`), so one launch serves every position
+and a CUDA graph replays it; each block reads the length on the card,
+clamped to [1, S] (the plain version clamps it the same way), and takes
+its range of the split that length gets (:func:`device_split`).
 
 Query head ``h`` reads KV head ``h // (H // KV)``; slots at or past
 ``valid_len`` get a finite -1e30 score.  ``scale`` defaults to
@@ -23,13 +24,15 @@ Query head ``h`` reads KV head ``h // (H // KV)``; slots at or past
 (``scale=1``), as the reference decode step's attention computes them.
 
 The kernel splits the valid positions of each (batch row, KV head) into
-blocks of :func:`split_size` positions, each block's online-softmax
-statistics ``(m, l, acc)`` being what :func:`attention_partial` computes
-for its slice, and merges them as :func:`combine_partials` does.
+blocks of :func:`split_size` positions (:func:`device_split` for a device
+length), each block's online-softmax statistics ``(m, l, acc)`` being
+what :func:`attention_partial` computes for its slice, and merges them as
+:func:`combine_partials` does.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Dict, Optional, Sequence, Tuple, Union
 
@@ -62,8 +65,34 @@ MAX_SPLITS = 64
 # 2048 and ties at 3072, the merge through memory wins from 4096.
 CLUSTER_SPLITS = 16
 CLUSTER_TILES = 4
+# The device-length entry's blocks carry hd x (8 or 16) heads; where that
+# is WIDE_BLOCK or more (two blocks an SM), its rule spreads a short
+# context over at most WIDE_CLUSTER blocks a row, each taking up to
+# CLUSTER_SPLITS * CLUSTER_TILES / WIDE_CLUSTER tiles, so the cluster's
+# range stays 2048 positions.  Measured on an H100 (chip_smoke.py's
+# [kernel] lines): 16-block clusters of llava-next-34b's blocks (hd 128,
+# 8 heads) take 1.5 µs more than 8-block ones at 1 and 65 positions of
+# 640, and 0.3 µs more at 576; qwen2-0.5b's (hd 64, three an SM) lose
+# under 0.15 µs to 16-block clusters at short lengths and gain 1 µs at
+# 576.
+WIDE_CLUSTER = 8
+WIDE_BLOCK = 1024
 
 AttnPartial = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]   # (m, l, acc)
+
+
+def _split_tiles(tiles: int, rows: int, sms: int,
+                 cluster: int = CLUSTER_SPLITS) -> int:
+    """Tiles per block of :func:`split_size` for ``tiles`` tiles a row,
+    short contexts spread over ``cluster`` blocks — the rule the kernel's
+    device-length entry applies on the card
+    (``csrc/decode_attn.cu::split_tiles``, with :func:`split_rule`)."""
+    if tiles <= cluster * (CLUSTER_SPLITS * CLUSTER_TILES // cluster):
+        return -(-tiles // cluster)
+    per_block = -(-tiles // MERGE_SPLITS)
+    if per_block > MERGE_TILES:
+        per_block = -(-tiles // MAX_SPLITS)
+    return max(per_block, -(-tiles * rows // (BLOCKS_PER_SM * sms)))
 
 
 def split_size(valid_len: int, rows: int, sms: int) -> int:
@@ -74,19 +103,76 @@ def split_size(valid_len: int, rows: int, sms: int) -> int:
     else over :data:`MERGE_SPLITS` blocks while each takes
     :data:`MERGE_TILES` tiles or fewer, then :data:`MAX_SPLITS` — and
     never more than :data:`BLOCKS_PER_SM` blocks per SM in all."""
-    tiles = -(-valid_len // SPLIT_POSITIONS)
-    if tiles <= CLUSTER_SPLITS * CLUSTER_TILES:
-        return SPLIT_POSITIONS * -(-tiles // CLUSTER_SPLITS)
-    per_block = -(-tiles // MERGE_SPLITS)
-    if per_block > MERGE_TILES:
-        per_block = -(-tiles // MAX_SPLITS)
-    per_block = max(per_block, -(-tiles * rows // (BLOCKS_PER_SM * sms)))
-    return SPLIT_POSITIONS * per_block
+    return SPLIT_POSITIONS * _split_tiles(-(-valid_len // SPLIT_POSITIONS),
+                                          rows, sms)
+
+
+def block_cluster(hd: int, group: int) -> int:
+    """Blocks a row over which the device-length entry's rule spreads a
+    context of 2048 positions or fewer: :data:`CLUSTER_SPLITS`, or
+    :data:`WIDE_CLUSTER` where a block carries ``hd`` x its heads (8 for
+    a ``group`` of 8 or fewer, else 16) of :data:`WIDE_BLOCK` or more."""
+    heads = 8 if group <= 8 else 16
+    return WIDE_CLUSTER if hd * heads >= WIDE_BLOCK else CLUSTER_SPLITS
+
+
+def split_rule(cluster: int = CLUSTER_SPLITS) -> Tuple[int, ...]:
+    """The rule's constants as the device-length entry takes them (the
+    card's SM count follows), short contexts spread over ``cluster``
+    blocks of up to ``CLUSTER_SPLITS * CLUSTER_TILES / cluster`` tiles."""
+    return (SPLIT_POSITIONS, cluster,
+            CLUSTER_SPLITS * CLUSTER_TILES // cluster, MERGE_SPLITS,
+            MERGE_TILES, MAX_SPLITS, BLOCKS_PER_SM)
+
+
+@functools.lru_cache(maxsize=None)
+def grid_splits(capacity: int, rows: int, sms: int,
+                cluster: int = CLUSTER_SPLITS) -> int:
+    """Blocks a row of the device-length entry's grid over a cache of
+    ``capacity`` slots: the most that the rule (:func:`_split_tiles`
+    with ``cluster``) gives any length in [1, capacity], so that every
+    length's split fits the one grid."""
+    return max(-(-t // _split_tiles(t, rows, sms, cluster))
+               for t in range(1, -(-capacity // SPLIT_POSITIONS) + 1))
+
+
+def device_split(valid_len: int, capacity: int, rows: int, sms: int,
+                 cluster: int = CLUSTER_SPLITS) -> Tuple[int, int]:
+    """``(active, chunk)``: the split the device-length entry's blocks
+    compute on the card from the length they read — ``valid_len`` clamped
+    to [1, capacity], cut into blocks of ``chunk`` positions by the rule
+    with ``cluster`` (:func:`block_cluster`; :data:`CLUSTER_SPLITS` is
+    :func:`split_size`'s own), the first ``active`` of the grid's
+    :func:`grid_splits` blocks a row holding them."""
+    valid = min(max(int(valid_len), 1), capacity)
+    tiles = -(-valid // SPLIT_POSITIONS)
+    per = _split_tiles(tiles, rows, sms, cluster)
+    return -(-tiles // per), SPLIT_POSITIONS * per
+
+
+def devlen_grid(capacity: int, rows: int, sms: int, hd: int,
+                group: int) -> int:
+    """Blocks a row the device-length entry launches over ``capacity``
+    slots for blocks of ``hd`` and ``group`` heads: :func:`grid_splits`
+    with :func:`block_cluster`."""
+    return grid_splits(capacity, rows, sms, block_cluster(hd, group))
 
 
 @functools.lru_cache(maxsize=None)
 def _sms(device: int) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def device_grid(q: torch.Tensor, k: torch.Tensor) -> int:
+    """:func:`devlen_grid` for these CUDA tensors' shapes and card."""
+    B, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    return devlen_grid(S, B * KV, _sms(q.device.index), hd, H // KV)
+
+
+def device_cluster(q: torch.Tensor, k: torch.Tensor) -> int:
+    """:func:`block_cluster` for these tensors' shapes."""
+    return block_cluster(q.shape[2], q.shape[1] // k.shape[2])
 
 
 # Merge counters through device memory, per (device, stream): zeroed once;
@@ -230,11 +316,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{MAX_GROUP} heads per KV head, got hd={hd}, "
                          f"group={H // KV}")
     scale = _default_scale(hd) if scale is None else scale
-    # a device length: the split of the whole capacity, the same at
-    # every position
-    grid_len = S if on_device else int(valid_len)
-    chunk = split_size(grid_len, B * KV, _sms(q.device.index))
-    n_split = -(-grid_len // chunk)
+    rows, sms = B * KV, _sms(q.device.index)
+    if on_device:      # the capacity's grid; the blocks split the length
+        n_split = device_grid(q, k)
+    else:
+        chunk = split_size(int(valid_len), rows, sms)
+        n_split = -(-int(valid_len) // chunk)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     out = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
     partials = counters = None
@@ -250,11 +337,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.device.index, stream)
     if on_device:
         length = valid_len.to(torch.int32)     # no copy when already int32
+        consts = split_rule(block_cluster(hd, H // KV))
+        rule = (ctypes.c_int * (len(consts) + 1))(*consts, sms)
         rc = lib.decode_attn_devlen(*ptrs, length.data_ptr(), B, H, KV, S,
-                                    hd, chunk, *tail)
+                                    hd, n_split, rule, *tail)
         name = "decode_attn_devlen"
     else:
-        rc = lib.decode_attn(*ptrs, B, H, KV, S, hd, grid_len, chunk, *tail)
+        rc = lib.decode_attn(*ptrs, B, H, KV, S, hd, int(valid_len), chunk,
+                             *tail)
         name = "decode_attn"
     build.check(rc, name)
     build.LAUNCHES[name] += 1

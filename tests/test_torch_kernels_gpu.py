@@ -335,11 +335,21 @@ DEVLEN_SHAPES = {"main": (1, 14, 2, 64, 640), "llava": (1, 56, 8, 128, 640),
                  "decode_32k": (8, 14, 2, 64, 32768)}
 
 
-def _devlen_lengths(card, shape):
-    """1, the first position of the grid's second block, and S."""
-    B, H, KV, hd, S = shape
-    chunk = decode_attn.split_size(S, B * KV, decode_attn._sms(card.index))
-    return (1, chunk + 1, S)
+def _devlen_lengths(card, q, k):
+    """1, 2017, S // 2 and S (those within S), the first block boundary
+    +-1 of the split each of them takes on the card (``device_split``
+    with the block's cluster), and the first position of the capacity
+    split's second block."""
+    B, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    sms = decode_attn._sms(card.index)
+    cluster = decode_attn.device_cluster(q, k)
+    base = [n for n in (1, 2017, S // 2, S) if n <= S]
+    out = set(base) | {decode_attn.split_size(S, B * KV, sms) + 1}
+    for n in base:
+        chunk = decode_attn.device_split(n, S, B * KV, sms, cluster)[1]
+        out |= {chunk - 1, chunk, chunk + 1}
+    return tuple(sorted(n for n in out if 1 <= n <= S))
 
 
 @pytest.mark.parametrize("kv", [torch.bfloat16, torch.float8_e4m3fn])
@@ -348,12 +358,12 @@ def test_decode_attention_device_length_matches_plain(card, kv, which):
     """A 0-d int32 length on the card takes the device-length entry
     (counted as ``decode_attn_devlen``): within the f32 tolerance of the
     plain version on the same tensor, bit-equal across two calls, at 1,
-    a block boundary and S — blocks past the length give empty partials
-    that every merge path (one block, the cluster, device memory) takes
-    as nothing."""
+    2017, S // 2, S and the split's block boundaries +-1 — blocks past the
+    split the length takes load and push nothing, whichever merge path
+    (one block, the cluster, device memory) the active ones take."""
     B, H, KV, hd, S = DEVLEN_SHAPES[which]
     q, k, v = _attention_inputs(card, B, H, KV, hd, S, kv, 31)
-    for valid in _devlen_lengths(card, DEVLEN_SHAPES[which]):
+    for valid in _devlen_lengths(card, q, k):
         length = torch.tensor(valid, dtype=torch.int32, device=card)
         before = dict(build.LAUNCHES)
         got = decode_attn.decode_attention(q, k, v, length)
@@ -369,13 +379,15 @@ def test_decode_attention_device_length_matches_plain(card, kv, which):
             atol=ATOL, rtol=RTOL)
 
 
+@pytest.mark.parametrize("kv", [torch.bfloat16, torch.float8_e4m3fn])
 @pytest.mark.parametrize("which", list(DEVLEN_SHAPES))
-def test_decode_attention_device_length_replays_in_a_graph(card, which):
-    """One capture of the call replays at every length, bit-equal to the
-    eager device-length call; a merge through device memory leaves its
-    counters at 0 after every replay."""
+def test_decode_attention_device_length_replays_in_a_graph(card, kv, which):
+    """One capture of the call replays at every length, in a shuffled
+    order, bit-equal to the eager device-length call; a merge through
+    device memory leaves its counters at 0 after every replay and call,
+    a long length followed by a short one included."""
     B, H, KV, hd, S = DEVLEN_SHAPES[which]
-    q, k, v = _attention_inputs(card, B, H, KV, hd, S, torch.bfloat16, 33)
+    q, k, v = _attention_inputs(card, B, H, KV, hd, S, kv, 33)
     length = torch.full((), S, dtype=torch.int32, device=card)
     stream = torch.cuda.Stream(card)
     stream.wait_stream(torch.cuda.current_stream(card))
@@ -385,15 +397,21 @@ def test_decode_attention_device_length_replays_in_a_graph(card, which):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, stream=stream):
         out = decode_attn.decode_attention(q, k, v, length)
-    for valid in _devlen_lengths(card, DEVLEN_SHAPES[which]) + (S // 2,):
+    lengths = np.random.default_rng(29).permutation(
+        _devlen_lengths(card, q, k))
+    # a long length, then a short one
+    lengths = [S, 1] + [int(n) for n in lengths]
+    streams = (stream.cuda_stream,
+               torch.cuda.current_stream(card).cuda_stream)
+    for valid in lengths:
         length.fill_(valid)
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, decode_attn.decode_attention(q, k, v,
                                                              length))
-        counters = decode_attn._COUNTERS.get((card.index,
-                                              stream.cuda_stream))
-        assert counters is None or not bool(counters.any())
+        for s in streams:
+            counters = decode_attn._COUNTERS.get((card.index, s))
+            assert counters is None or not bool(counters.any())
 
 
 def test_counters_are_never_allocated_under_capture(card):
