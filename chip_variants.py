@@ -10,9 +10,9 @@ Run from the repository root on a machine with a card:
 ``--only`` runs the named sweeps (attention, matmul, kv_read, inverse,
 match, score, forward, pack, prep, graph; default all); ``--parent``
 names another checkout's ``src/repro_torch/csrc``, whose
-``pnm_score.cu``, ``kv_delta.cu``, ``bitplane_pack.cu`` and
-``lz4_prep.cu`` then join the scoring, forward, pack and prep sweeps as
-``parent``; ``--tree`` runs the package of another checkout ``DIR``
+``pnm_score.cu``, ``kv_delta.cu``, ``bitplane_pack.cu``, ``lz4_prep.cu``
+and ``lz4_match.cu`` then join the scoring, forward, pack, prep and match
+sweeps as ``parent``; ``--tree`` runs the package of another checkout ``DIR``
 instead of this one's (its ``graph`` sweep: the shipped kernel only);
 ``--graph-variants`` names the graph sweep's variants (default all).
 
@@ -40,15 +40,18 @@ instead of this one's (its ``graph`` sweep: the shipped kernel only);
   and the
   standalone inverse with the same tiles and tokens a thread
   (``INVERSE_VARIANTS``).
-- LZ4 match at the main path's flush shape (256 streams of 1024 bytes,
-  the pre-screen's gaps; the smoke's synthetic slab and the first slab a
-  served request spills): the shipped ``lz4_match.cu`` against variants
-  (``MATCH_VARIANTS``): prev() by a bitonic sort in shared memory instead
-  of the position-ordered table, the same-hash lanes by a ballot per hash
-  bit instead of ``__match_any_sync``, the hash-table pass in 1, 2 or 8
-  segments (shipped: 4), a warp or 2-8 warps per stream (shipped: 16),
-  1-8 streams per block, and the lanes' length and mask-scan reach; then
-  the shipped kernel's clocks per phase (``PHASE_CLOCKS``).
+- LZ4 match at three slabs (the smoke's synthetic flush slab, the first
+  slab a served request spills, 1024 plane streams of 1024 or 256 bytes
+  with the pre-screen's gaps, and a weight load's slab of 256-byte
+  streams): the shipped ``lz4_match.cu`` against variants
+  (``MATCH_VARIANTS``): 8 or 32 warps a block (shipped 16), 1, 2
+  or 8 table segments (shipped 4), 2 or 8 words a chain end compares
+  (shipped 4), streams packed up to 256, 1024 or 2048 region bytes a block
+  (shipped 512); with ``--parent``, the parent checkout's match (its
+  C interface: the prep's words and hashes in) alone and after its prep,
+  in turns with the shipped launch, and its wrapper's host phases against
+  the shipped wrapper's; then the shipped kernel's clocks per phase and
+  block (``PHASE_CLOCKS``).
 - Page scoring at the served gather (64 pages x 64 rows x 128
   channels) and at a long-context one (2048 pages): the shipped
   ``pnm_score.cu`` against variants (``SCORE_VARIANTS``): a cluster of 2
@@ -85,7 +88,7 @@ instead of this one's (its ``graph`` sweep: the shipped kernel only);
   per plane over 32 consecutive elements (``PACK_BY_BALLOT``) instead of
   the register transpose; back to back and from a cold L2, after the
   floor of one launch.
-- LZ4 prep over those slabs' planes, with and without run flags: the
+- LZ4 prep over those slabs' planes: the
   shipped ``lz4_prep.cu`` against variants (``PREP_VARIANTS``): 8 or 16
   positions a lane (shipped 4) and 128 or 512 threads a block (shipped
   256); back to back and from a cold L2.
@@ -250,98 +253,25 @@ def const_variant(source: str, **values) -> tuple:
     return tuple(subs)
 
 
-# lz4_match.cu with prev() by a bitonic sort of (hash << 16 | position)
-# keys in shared memory (the reference's algorithm, per stream): the
-# sorted neighbour of the same hash.  Streams past the tile keep the
-# tables (their positions do not fit 16 bits).
-PREV_BY_SORT = (
-    ("__host__ __device__ constexpr int prev_bytes(int) {\n"
-     "  return kSegments * 2 * kTableEntries;\n}\n",
-     "__host__ __device__ constexpr int pow2_at_least(int n) {\n"
-     "  int p = 1;\n  while (p < n) p <<= 1;\n  return p;\n}\n"
-     "__host__ __device__ constexpr int prev_bytes(int tile) {\n"
-     "  return 4 * pow2_at_least(tile);\n}\n"),
-    ("// Phase 2: the candidate test", """\
-template <typename H, typename I>
-__device__ void sort_pass(const Stream<H, I>& st, uint32_t* keys, int team,
-                          int tid) {
-  const int n = pow2_at_least(st.nval);
-  for (int i = tid; i < n; i += kTeam)
-    keys[i] = i < st.nval ? (static_cast<uint32_t>(st.H[i]) << 16) | i
-                          : 0xFFFFFFFFu;
-  team_sync(team);
-  for (int k = 2; k <= n; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = tid; i < n; i += kTeam) {
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          const uint32_t a = keys[i], b = keys[ixj];
-          if ((a > b) == ((i & k) == 0)) {
-            keys[i] = b;
-            keys[ixj] = a;
-          }
-        }
-      }
-      team_sync(team);
-    }
-  }
-  for (int i = tid; i < st.nval; i += kTeam) {
-    const uint32_t key = keys[i];
-    const bool same = i > 0 && (keys[i - 1] >> 16) == (key >> 16);
-    st.dist[key & 0xFFFFu] =
-        same ? static_cast<I>((keys[i - 1] & 0xFFFFu) + 1u) : static_cast<I>(0);
-  }
-}
-
-// Phase 2: the candidate test"""),
-    ("  const int segw = (st.nwords + kSegments - 1) / kSegments;\n"
-     "  for (int g = tid / 32; g < kSegments; g += kWarpsPerStream)\n",
-     "  if constexpr (sizeof(I) == 2) {\n"
-     "    sort_pass(st, reinterpret_cast<uint32_t*>(st.table), team, tid);\n"
-     "  } else {\n"
-     "  const int segw = (st.nwords + kSegments - 1) / kSegments;\n"
-     "  for (int g = tid / 32; g < kSegments; g += kWarpsPerStream)\n"),
-    ("  if (kSegments > 1) link_segments(st, segw, tid);\n",
-     "  if (kSegments > 1) link_segments(st, segw, tid);\n  }\n"),
-    ("    int4* t4 = reinterpret_cast<int4*>(base);\n"
-     "    for (int i = tid; i < prev_bytes(tile) / 16; i += kTeam)\n"
-     "      t4[i] = make_int4(0, 0, 0, 0);\n", ""),
-)
-# lz4_match.cu with the same-hash lanes of a step found by one ballot per
-# hash bit instead of __match_any_sync.
-PEERS_BY_BALLOT = (
-    ("    const unsigned peers = __match_any_sync(kFull, hq);\n",
-     "    unsigned peers = kFull;\n"
-     "#pragma unroll\n"
-     "    for (int b = 0; b <= kHashLog; ++b) {\n"
-     "      const unsigned v = __ballot_sync(kFull, (hq >> b) & 1u);\n"
-     "      peers &= (hq >> b) & 1u ? v : ~v;\n"
-     "    }\n"),
-)
-
-# Variants of lz4_match.cu (shipped: the tables of 4 segments,
-# __match_any_sync, 16 warps a stream, one stream a block).
+# Variants of lz4_match.cu (shipped: 16 warps a block, 4 table segments,
+# 4 words a chain end compares in its thread, streams of up to 512 bytes
+# of region packed a block).
 MATCH_VARIANTS = {
-    "sort": PREV_BY_SORT,
-    "ballot": PEERS_BY_BALLOT,
-    "ballot-w8": PEERS_BY_BALLOT + const_variant("lz4_match",
-                                                 kWarpsPerStream=8),
-    **{f"w{w}s{n}": const_variant("lz4_match", kWarpsPerStream=w,
-                                  kStreamsPerBlock=n)
-       for w, n in ((1, 1), (1, 4), (1, 8), (2, 2), (4, 1), (4, 2),
-                    (4, 4), (8, 1))},
+    **{f"w{w}": const_variant("lz4_match", kWarps=w) for w in (8, 32)},
     **{f"seg{n}": const_variant("lz4_match", kSegments=n)
        for n in (1, 2, 8)},
-    "lcp4": const_variant("lz4_match", kLcpWords=4),
-    "lcp16": const_variant("lz4_match", kLcpWords=16),
-    "scan1": const_variant("lz4_match", kScanWords=1),
-    "scan4": const_variant("lz4_match", kScanWords=4),
+    "lcp2": const_variant("lz4_match", kLcpWords=2),
+    "lcp8": const_variant("lz4_match", kLcpWords=8),
+    **{f"pack{n}": const_variant("lz4_match", kPackBytes=n)
+       for n in (256, 1024, 2048)},
 }
 
 
-def variant_libs(source: str, variants: dict, csrc=build.CSRC) -> dict:
+def variant_libs(source: str, variants: dict, csrc=build.CSRC,
+                 signatures=None) -> dict:
     """Build every variant of ``<csrc>/<source>.cu``, one nvcc each,
-    together: {variant: library, its C launchers' signatures set}."""
+    together: {variant: library, its C launchers' signatures set (those
+    of ``build.SIGNATURES``, or ``signatures``)}."""
     src = (csrc / f"{source}.cu").read_text()
     out = build.BUILD_DIR / "variants"
     out.mkdir(parents=True, exist_ok=True)
@@ -363,7 +293,8 @@ def variant_libs(source: str, variants: dict, csrc=build.CSRC) -> dict:
         if proc.wait() != 0:
             raise RuntimeError(f"nvcc failed for the {source} {name} variant")
         lib = ctypes.CDLL(str(so))
-        for fn_name, argtypes in build.SIGNATURES[source].items():
+        for fn_name, argtypes in (signatures or
+                                  build.SIGNATURES[source]).items():
             fn = getattr(lib, fn_name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
@@ -519,43 +450,55 @@ def served_flush_slab():
     return seen[0]
 
 
-# The shipped lz4_match.cu with clock64() reads at each phase boundary,
-# per stream, read back through lz4_match_phases.
+# The shipped lz4_match.cu with clock64() read at each phase mark, per
+# block (16 slots: marks 0-9, the longest chain walk over chunks in 14,
+# the start in 15), kept in shared memory until the last mark (a global
+# store before a barrier would make the barrier wait for it), read back
+# through lz4_match_phases.
 PHASE_CLOCKS = (
-    ("namespace {\n", "namespace {\n__device__ long long g_phase[8 * 4096];\n"
-     "__device__ long long g_start[4096];\n"),
-    ("  if (s >= S) return;\n",
-     "  if (s >= S) return;\n  if (tid == 0) g_start[s] = clock64();\n"),
-    ("  __shared__ int events[kStreamsPerBlock];\n",
-     "  __shared__ int events[kStreamsPerBlock];\n  long long clk[7];\n"
-     "  clk[0] = clock64();\n"),
-    *((f"  team_sync(team);\n  {nxt}", f"  team_sync(team);\n  clk[{i}] = "
-       f"clock64();\n  {nxt}")
-      for i, nxt in ((1, "mask_pass"), (2, "length_pass"), (3, "jump_pass"),
-                     (4, "if (tid < 32) {"), (5, "const int n = events"))),
-    ("  emit(st, n, start, pos, dst, len, tid);\n  return n;",
-     "  emit(st, n, start, pos, dst, len, tid);\n  if (tid == 0) {\n"
-     "    const int sidx = blockIdx.x * (blockDim.x / kTeam) + team;\n"
-     "    long long* d = g_phase + 8 * sidx;\n"
-     "    d[0] = clk[0] - g_start[sidx];\n"
-     "    for (int i = 1; i < 6; ++i) d[i] = clk[i] - clk[i - 1];\n"
-     "    d[6] = clock64() - clk[5];\n    d[7] = n;\n  }\n  return n;"),
+    ("#define PHASE_MARK(i)\n",
+     "__device__ long long g_phase[16 * 65536];\n"
+     "__shared__ long long s_clk[16];\n"
+     "#define PHASE_MARK(i) do { if (threadIdx.x == 0) { s_clk[i] = clock64();"
+     " if ((i) == 9) for (int c = 0; c < 16; ++c) "
+     "g_phase[16 * blockIdx.x + c] = s_clk[c]; } } while (0)\n"),
+    ("  __shared__ Streams st;\n",
+     "  __shared__ Streams st;\n  if (threadIdx.x == 0) {\n"
+     "    for (int i = 0; i < 15; ++i) s_clk[i] = 0;\n"
+     "    s_clk[15] = clock64();\n  }\n"),
+    ("      int total = 0;\n", "      int total = 0, nstep = 0;\n"),
+    ("        a.base[e] = static_cast<I>(total);\n",
+     "        ++nstep;\n        a.base[e] = static_cast<I>(total);\n"),
+    ("      st.count[j] = total;\n", "      st.count[j] = total;\n"
+     "      atomicMax(reinterpret_cast<unsigned long long*>(&s_clk[14]), "
+     "static_cast<unsigned long long>(nstep));\n"),
     ("}  // namespace\n", "}  // namespace\n\nextern \"C\" int "
      "lz4_match_phases(void* dst, int n) {\n  return static_cast<int>("
-     "cudaMemcpyFromSymbol(dst, g_phase, 8 * sizeof(long long) * n));\n}\n"),
+     "cudaMemcpyFromSymbol(dst, g_phase, 16 * sizeof(long long) * n));\n}\n"),
 )
-PHASES = ("stage", "prev", "masks", "lengths", "jumps", "walk", "emit")
+PHASES = ("setup", "bytes", "hashes", "tables", "candidates", "lengths",
+          "gallops", "chunks", "walk", "events")
 
 
-def match_sweep(variants: dict) -> None:
-    """The LZ4 match launch at two flush slabs (the smoke's synthetic KV
-    windows, and the first slab a served request spills), shipped and
-    variants, each variant's events held equal to the numpy twin's; then
-    the shipped kernel's phases per stream."""
-    slabs = {"smoke flush slab": cs.flush_slab(torch, k_bitplane, k_kv, 3),
-             "served flush slab": served_flush_slab()}
+def match_slabs() -> dict:
+    """The slabs of the match sweep: the smoke's synthetic flush slab, the
+    first slab a served request spills, and a weight load's slab."""
+    return {"smoke flush slab": cs.flush_slab(torch, k_bitplane, k_kv, 3),
+            "served flush slab": served_flush_slab(),
+            "weight encode slab": cs.weight_slab(torch, k_bitplane, 5)}
+
+
+def match_sweep(variants: dict, parent) -> None:
+    """The LZ4 match launch at the three slabs, shipped and variants, each
+    variant's events held equal to the numpy twin's; with a parent
+    checkout's kernel, its match alone and its prep + match in turns with
+    the shipped launch, and the two wrappers; then the shipped kernel's
+    phases per block."""
+    slabs = match_slabs()
     for what, (slab, st, en) in slabs.items():
         match_sweep_at(variants, what, slab, st, en)
+        if parent is not None:
+            match_vs_parent(parent, what, slab, st, en)
     lib = variant_libs("lz4_match", {"phases": PHASE_CLOCKS})["phases"]
     lib.lz4_match_phases.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.lz4_match_phases.restype = ctypes.c_int
@@ -567,9 +510,11 @@ def match_sweep(variants: dict) -> None:
 
 
 def match_phases(lib, what: str, slab, st, en, mhz: float) -> None:
-    """Per-stream clocks of each phase (the instrumented kernel, its
-    events checked against the twin): the slowest stream's phases and the
-    median of each."""
+    """Per-block clocks of each phase (the instrumented kernel, its events
+    checked against the twin): the slowest block's phases, the median of
+    each, and the selection's cycles (chunks + walk + events) and its
+    longest walk over chunks at the blocks with the most and the fewest
+    events."""
     import numpy as np
 
     want = k_lz4.match_events_slab(slab.cpu().numpy(), st, en, force="numpy")
@@ -578,21 +523,33 @@ def match_phases(lib, what: str, slab, st, en, mhz: float) -> None:
     got = k_lz4.match_result(out, rows)
     if not all(np.array_equal(g, x) for g, x in zip(got, want)):
         raise AssertionError("the instrumented lz4_match differs")
-    clk = np.zeros((st.size, 8), dtype=np.int64)
-    build.check(lib.lz4_match_phases(clk.ctypes.data, st.size),
-                "lz4_match_phases")
-    total = clk[:, :7].sum(axis=1)
-    worst = int(np.argmax(total))
-    walk = clk[:, 5].sum() / max(int(clk[:, 7].sum()), 1)
-    print(f"[variant] lz4_match phases at the {what}, cycles (us at the "
-          f"{mhz:.0f} MHz max SM clock): slowest stream "
-          f"({int(clk[worst, 7])} events) "
+    meta, B, _, _ = k_lz4.match_plan(st, en, slab.data_ptr(),
+                                     *k_lz4._lib_geometry(lib))
+    first = meta[5 * st.size:]
+    counts = out[: st.size].cpu().numpy().astype(np.int64)
+    events = np.add.reduceat(counts, first[:-1])
+    clk = np.zeros((B, 16), dtype=np.int64)
+    build.check(lib.lz4_match_phases(clk.ctypes.data, B), "lz4_match_phases")
+    marks = np.concatenate([clk[:, 15:16], clk[:, :10]], axis=1)
+    done = clk[:, 9] != 0
+    ph = np.diff(marks, axis=1)[done]
+    ev, rounds, streams = events[done], clk[done, 14], np.diff(first)[done]
+    worst = int(np.argmax(ph.sum(axis=1)))
+    sel = ph[:, PHASES.index("chunks"):].sum(axis=1)
+    order = np.argsort(ev, kind="stable")
+    by_ev = "; ".join(f"{int(ev[i])} events, walk {int(rounds[i])} steps, "
+                      f"{int(sel[i])} cycles"
+                      for i in list(order[::-1][:5]) + list(order[:3]))
+    print(f"[variant] lz4_match phases at the {what} ({B} blocks), cycles "
+          f"(us at the {mhz:.0f} MHz max SM clock): slowest block "
+          f"({int(streams[worst])} streams, {int(ev[worst])} events, "
+          f"walk {int(rounds[worst])} steps) "
           + ", ".join(f"{n} {int(c)} ({c / mhz:.2f})"
-                      for n, c in zip(PHASES, clk[worst, :7]))
-          + f"; medians " + ", ".join(
-              f"{n} {int(c)}" for n, c in zip(PHASES,
-                                               np.median(clk[:, :7], 0)))
-          + f"; walk {walk:.0f} cycles an event", flush=True)
+                      for n, c in zip(PHASES, ph[worst]))
+          + "; medians " + ", ".join(
+              f"{n} {int(c)}" for n, c in zip(PHASES, np.median(ph, 0)))
+          + f"; selection at the blocks with the most and fewest events: "
+          + by_ev, flush=True)
 
 
 def match_sweep_at(variants: dict, what: str, slab, st, en) -> None:
@@ -610,6 +567,165 @@ def match_sweep_at(variants: dict, what: str, slab, st, en) -> None:
         times.append(f"{name} {cs.timed(torch, call)['ms'] * 1e3:.2f}")
     print(f"[variant] lz4_match at the {what} ({st.size} streams, "
           f"{want[0].size} events), us: " + ", ".join(times), flush=True)
+
+
+# The C interface of a parent checkout's lz4_match.cu from before the
+# one-launch design (the prep's words and hashes in, a stream a block).
+PARENT_MATCH_SIGNATURES = {
+    "lz4_match": (build._P, build._P, build._P, build._I, build._I, build._P,
+                  build._P, build._L, build._I, build._P),
+    "lz4_match_tile_max": (), "lz4_match_table_bytes": ()}
+
+
+def parent_setup(lib, prep, slab, st, en):
+    """The parent's wrapper set-up at one slab, as its ``match_launch`` did
+    it: the bounds checked, the long streams' scratch sizes a Python list,
+    the meta rows uploaded from pageable memory, the output and the scratch
+    (always) allocated, and its prep (``prep``, the parent's
+    ``lz4_prep.cu``) launched without run flags.  Returns ``(prep_call,
+    match, out, rows)``: the prep's launch and the match's."""
+    import numpy as np
+
+    starts = np.asarray(st, dtype=np.int64).ravel()
+    ends = np.asarray(en, dtype=np.int64).ravel()
+    N = slab.numel()
+    sizes = ends - starts
+    if starts.size != ends.size or (sizes < 0).any() or (
+            starts.size and (starts[0] < 0 or ends[-1] > N
+                             or (starts[1:] < ends[:-1]).any())):
+        raise ValueError("stream bounds must be ascending, disjoint and "
+                         "inside the slab")
+    S = int(starts.size)
+    rows = k_lz4.event_rows(starts, ends)
+    E = int(rows[-1])
+    tile_max = lib.lz4_match_tile_max()
+    long = sizes > tile_max
+    staged = sizes[~long]
+    tile = -(-max(int(staged.max()), 1) // 128) * 128 if staged.size else 0
+    soff = np.full(S, -1, dtype=np.int64)
+    table_bytes = lib.lz4_match_table_bytes()
+    nscr = np.array([table_bytes + 28 * (-(-int(n) // 128) * 128)
+                     + (-(-int(n) // 128) * 128) // 4 for n in sizes[long]],
+                    dtype=np.int64)
+    soff[long] = np.cumsum(nscr) - nscr
+    meta = torch.from_numpy(np.stack([starts, ends, rows[:-1], soff])).cuda()
+    scratch = torch.empty(max(int(nscr.sum()), 1), dtype=torch.uint8,
+                          device="cuda")
+    out = torch.empty(S + 3 * E, dtype=torch.int32, device="cuda")
+    w, h = (torch.empty(N, dtype=torch.int32, device="cuda")
+            for _ in range(2))
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def prep_call():
+        build.check(prep.lz4_prep(slab.data_ptr(), w.data_ptr(),
+                                  h.data_ptr(), None, N, 0, stream),
+                    "lz4_prep")
+
+    def match():
+        build.check(lib.lz4_match(
+            w.data_ptr(), h.data_ptr(), meta.data_ptr(), S, tile,
+            scratch.data_ptr(), out.data_ptr(), E, 0, stream), "lz4_match")
+
+    prep_call()
+    return prep_call, match, out, rows
+
+
+def match_vs_parent(parent, what: str, slab, st, en) -> None:
+    """The parent's match alone and its prep + match against the shipped
+    launch at one slab, in turns (parent, shipped, shipped, parent), the
+    parent's events held to the twin's; then the two wrappers' host
+    phases (:func:`wrapper_vs_parent`)."""
+    import numpy as np
+
+    want = k_lz4.match_events_slab(slab.cpu().numpy(), st, en, force="numpy")
+    prep_call, match, out, rows = parent_setup(*parent, slab, st, en)
+    match()
+    if not all(np.array_equal(g, x) for g, x in
+               zip(k_lz4.match_result(out, rows), want)):
+        raise AssertionError(f"the parent's lz4_match differs at the {what}")
+
+    def path():
+        prep_call()
+        match()
+
+    call, _, _ = k_lz4.match_launch(slab, st, en)
+    times = []
+    for name in ("parent", "shipped", "shipped", "parent"):
+        if name == "parent":
+            times.append(f"parent match {cs.timed(torch, match)['ms'] * 1e3:.2f}"
+                         f" (prep + match {cs.timed(torch, path)['ms'] * 1e3:.2f})")
+        else:
+            times.append(f"shipped {cs.timed(torch, call)['ms'] * 1e3:.2f}")
+    print(f"[variant] lz4_match against the parent at the {what} "
+          f"({st.size} streams, {want[0].size} events), us: "
+          + ", ".join(times), flush=True)
+    wrapper_vs_parent(parent, what, slab, st, en, want)
+
+
+def wrapper_vs_parent(parent, what: str, slab, st, en, want,
+                      iters: int = 50) -> None:
+    """The parent's wrapper (its ``lz4_match``) against the shipped one at
+    one slab, ms wall a call (the card synchronised around each phase, the
+    mean of ``iters`` calls), in turns parent, shipped, shipped, parent:
+    the parent's set-up (:func:`parent_setup`, its prep launched in it),
+    launch, copy back into pageable memory and compaction, and the shipped
+    wrapper's set-up for bounds it has not kept (``new``: the layout laid
+    out and uploaded) or at a repeat of them (``kept``), launch, copy back
+    into pinned memory with the compaction, and each whole; both wrappers'
+    events held to the twin's."""
+    import time
+
+    import numpy as np
+
+    def clock(acc, name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        acc[name] = acc.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    def parent_call(acc):
+        t0 = time.perf_counter()
+        _, match, out, rows = clock(acc, "set-up (prep in it)",
+                                    lambda: parent_setup(*parent, slab, st,
+                                                         en))
+        clock(acc, "launch", match)
+        host = clock(acc, "copy back, pageable", lambda: out.cpu().numpy())
+        S = rows.size - 1
+        got = clock(acc, "compaction", lambda: k_lz4.compact_events(
+            host[S:].reshape(3, -1), host[:S], rows))
+        acc["whole"] = acc.get("whole", 0.0) + time.perf_counter() - t0
+        return got
+
+    lib = build.load("lz4_match")
+
+    def shipped_call(acc, new):
+        if new:
+            lib._match_plans = {}
+        t0 = time.perf_counter()
+        launch, out, rows = clock(acc, "set-up",
+                                  lambda: k_lz4.match_launch(slab, st, en))
+        clock(acc, "launch", launch)
+        got = clock(acc, "copy back, pinned, + compaction",
+                    lambda: k_lz4.match_result(out, rows))
+        acc["whole"] = acc.get("whole", 0.0) + time.perf_counter() - t0
+        return got
+
+    calls = {"parent": parent_call,
+             "new": lambda acc: shipped_call(acc, True),
+             "kept": lambda acc: shipped_call(acc, False)}
+    runs = []
+    for name in ("parent", "new", "kept", "kept", "new", "parent"):
+        acc = {}
+        for _ in range(iters):
+            got = calls[name](acc)
+        if not all(np.array_equal(g, x) for g, x in zip(got, want)):
+            raise AssertionError(f"the {name} wrapper differs at the {what}")
+        runs.append(f"{name} " + ", ".join(
+            f"{k} {v / iters * 1e3:.4f}" for k, v in acc.items()))
+    print(f"[variant] lz4_match wrapper against the parent's at the {what}, "
+          "ms wall a call: " + "; ".join(runs), flush=True)
 
 
 def pages_by_cluster(k: int) -> tuple:
@@ -891,42 +1007,33 @@ def pack_sweep(variants: dict) -> None:
 
 def prep_sweep(variants: dict) -> None:
     """The prep over the planes of the flush slab and of a 896 x 4864
-    weight, with and without run flags, shipped and variants (the parent
-    only with them: its kernel has no way to skip them), each call held
-    bit-equal to the plain version."""
+    weight, shipped and variants, each call held bit-equal to the plain
+    version."""
     libs = dict(shipped=build.load("lz4_prep"), **variants)
     stream = torch.cuda.current_stream().cuda_stream
     for n in (cs.SLAB_ELEMS, cs.PACK_LONG):
         buf = pack_planes_of(n, 24)[1].reshape(-1)
         m = buf.numel()
         want = k_lz4.prep_plain(buf)
-        for runb in (True, False):
-            b, _ = cs.bound_ms((13 if runb else 9) * m, 10 * m)
-            times = []
-            for name in in_turns(variants):
-                if name == "parent" and not runb:
-                    continue
-                outs = [torch.empty(m, dtype=torch.int32, device="cuda")
-                        for _ in range(3)]
+        b, _ = cs.bound_ms(13 * m, 10 * m)
+        times = []
+        for name in in_turns(variants):
+            outs = [torch.empty(m, dtype=torch.int32, device="cuda")
+                    for _ in range(3)]
 
-                def call(lib=libs[name], outs=outs):
-                    build.check(lib.lz4_prep(
-                        buf.data_ptr(), outs[0].data_ptr(),
-                        outs[1].data_ptr(),
-                        outs[2].data_ptr() if runb else None, m, 0, stream),
-                        "lz4_prep")
+            def call(lib=libs[name], outs=outs):
+                build.check(lib.lz4_prep(
+                    buf.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
+                    outs[2].data_ptr(), m, 0, stream), "lz4_prep")
 
-                call()
-                torch.cuda.synchronize()
-                if not all(torch.equal(o, w)
-                           for o, w in zip(outs, want[: 2 + runb])):
-                    raise AssertionError(f"lz4_prep {name} ({m} B, runb "
-                                         f"{runb}) differs from its plain "
-                                         "version")
-                times.append(f"{name} {warm_cold(call, 'lz4_prep')}")
-            print(f"[variant] lz4_prep {m} B {'with' if runb else 'without'} "
-                  f"run flags (bound {b * 1e3:.3f}), us back to back/cold: "
-                  + ", ".join(times), flush=True)
+            call()
+            torch.cuda.synchronize()
+            if not all(torch.equal(o, w) for o, w in zip(outs, want)):
+                raise AssertionError(f"lz4_prep {name} ({m} B) differs from "
+                                     "its plain version")
+            times.append(f"{name} {warm_cold(call, 'lz4_prep')}")
+        print(f"[variant] lz4_prep {m} B (bound {b * 1e3:.3f}), us back to "
+              "back/cold: " + ", ".join(times), flush=True)
 
 
 def score_sweep(variants: dict) -> None:
@@ -1192,6 +1299,12 @@ def main() -> None:
     kv = libs("bitplane_unpack", KV_READ_VARIANTS, "kv_read")
     inv = libs("kv_delta", INVERSE_VARIANTS, "inverse")
     match = libs("lz4_match", MATCH_VARIANTS, "match")
+    parent_match = (
+        (variant_libs("lz4_match", {"parent": ()}, args.parent,
+                      PARENT_MATCH_SIGNATURES)["parent"],
+         variant_libs("lz4_prep", {"parent_prep": ()},
+                      args.parent)["parent_prep"])
+        if args.parent is not None and "match" in only else None)
     score = libs("pnm_score", SCORE_VARIANTS, "score")
     fwd = libs("kv_delta", FORWARD_VARIANTS, "forward")
     pack = libs("bitplane_pack", PACK_VARIANTS, "pack")
@@ -1212,7 +1325,7 @@ def main() -> None:
     if "inverse" in only:
         inverse(inv)
     if "match" in only:
-        match_sweep(match)
+        match_sweep(match, parent_match)
     if "score" in only:
         score_sweep(score)
     if "forward" in only:

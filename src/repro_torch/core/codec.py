@@ -8,8 +8,8 @@ bespoke compressor.  The paper's two codecs:
   hash-chain matching, standard end-of-block rules, byte-exact round-trip;
   it stands in for the 32-lane streaming LZ4 engine of the controller
   (paper §IV-E).  On the write path the match search runs on the slab's
-  device (``kernels.lz4``: the prep kernel plus PyTorch passes on the
-  card) and only the byte-level emit runs on the host.
+  device (``kernels.lz4``: one match kernel launch from the slab's bytes
+  on the card) and only the byte-level emit runs on the host.
 * ``zstd`` — the real Zstandard via the optional ``zstandard`` package.
 
 Both are exposed through a tiny registry with block-level *bypass*: when a

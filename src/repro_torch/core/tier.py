@@ -37,8 +37,8 @@ execution is byte-identical to sync.  ``make_device(shards > 1)`` builds
 a fleet (``core.sharding.ShardedTierStore``).
 
 ``TierStore(batched_encode=False)`` encodes block by block (on the card
-a pack launch for each block, and an LZ4 prep and match launch for
-each block whose planes the pre-screen does not all bypass),
+a pack launch for each block, and an LZ4 match launch for each
+block whose planes the pre-screen does not all bypass),
 byte-identical to the slab encoder.
 """
 
@@ -727,8 +727,8 @@ class BitplaneLayout(Layout):
     def encode_batch_scalar(self, chunks, codec, device):
         """Per block: one pack and one ``compress_slab`` over the block's
         16 plane streams, all on ``device`` (on the card a pack launch
-        for each block, and a prep and a match launch for each block with
-        a plane stream the pre-screen keeps)."""
+        for each block, and a match launch for each block with a plane
+        stream the pre-screen keeps)."""
         self._check_sizes(chunks)
         return [self._encode_slab([c], codec, device)[0] for c in chunks]
 

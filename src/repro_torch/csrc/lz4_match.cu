@@ -1,16 +1,18 @@
 // LZ4 greedy match for Hopper (sm_90a): every stream of an encode slab in
-// one launch, from the prep's words and hashes to (pos, dist, mlen) events.
+// one launch, from the slab's bytes to (pos, dist, mlen) events.
 //
-// Replaces the device program around the TPU kernel of lz4_prep.cu:
-// src/repro/kernels/lz4.py::_device_match_impl after its prep (the
-// hash-table sort, the candidate filter, the next-candidate and run-end
-// tables and the greedy lax.while_loop rounds with a gallop while_loop
-// inside).  It is not a pallas_call; the reference compiles it whole, and
-// the port ran it as host-driven rounds of PyTorch ops (match_plain).
+// Replaces the reference's whole match program,
+// src/repro/kernels/lz4.py::_device_match_impl, its prep included (the
+// TPU kernel _prep_kernel, reached through _prep_pallas: the word and hash
+// of each position are computed here, in shared memory, and the match path
+// launches no lz4_prep.cu).  The rest of that program is not a
+// pallas_call: the hash-table sort, the candidate filter, the
+// next-candidate and run-end tables and the greedy lax.while_loop rounds
+// with a gallop while_loop inside.
 //
 // For stream s, with bytes [start, end), L = end - start and local
-// position q = global - start (w and h are the prep's per-position word
-// and hash; the bytes and the run flags are the words' low bytes):
+// position q = global - start (w: the 4-byte little-endian word at q, h
+// its hash):
 // - valid q: q + 4 <= L; prev(q): the latest valid q' < q with
 //   h[q'] == h[q] (the stable-sort neighbour of the reference's key), or
 //   none;
@@ -23,40 +25,61 @@
 //   reference's run table (d == 1) and word gallop + byte tail measure.
 // Events go to rows row_start[s] + i; count[s] holds their number.
 //
-// Bound on this card: neither bytes nor operations.  A slab of the main
-// path is 256 KiB, with 1 MiB each of words and hashes (0.6 us at 3.35
-// TB/s); what sets the time is the chain of dependent steps inside a
-// stream: the position-ordered hash tables, and the greedy walk, where
-// each match starts where the last one ended.
+// Bound on this card: neither bytes nor operations.  The flush slab of the
+// main path moves about 0.1 MB (0.03 us at 3.35 TB/s); what sets the time
+// is latency inside a stream of 256-4096 bytes: chains of dependent
+// shared-memory steps with a block or two an SM, and the barriers between
+// phases.  So the design keeps the phases few (nine barriers) and their
+// dependent steps short.
 //
-// Design: a team (kWarpsPerStream warps) owns a stream and up to
-// kStreamsPerBlock teams share a block.  A stream up to the shared-memory
-// tile is staged there (words, hashes); a longer one uses a global scratch
-// region with the same arrays (32-bit entries there) and the same code,
-// through generic pointers.  Phases, the team synchronised between them:
-// 1. prev() by position-ordered passes over HASH_SIZE tables, one per
-//    segment of the stream (kSegments warps side by side), 32 positions
-//    a step, the same-hash lanes of a step resolved by __match_any_sync;
-//    a position with no prev in its segment then takes the nearest
-//    earlier segment's last occurrence from that segment's table;
-// 2. the candidate test per position (all warps): a distance, one bit per
-//    position in a candidate mask and in a run-end mask (b[q] != b[q+1]);
-// 3. per candidate (a lane each) its match length, measured up to
-//    kLcpWords words (a run's end from the run mask within kScanWords
-//    mask words), and the next candidate after the match (within
-//    kScanWords words), packed into one record; what does not resolve
-//    there is marked for the walk; then each candidate's next four chain
-//    positions from the records;
-// 4. the greedy walk (warp 0): one load per four matches while the jumps
-//    are known; a marked length is measured by the warp (a ballot over 32
-//    mask words for a run's end, else a gallop over 32 words, 128 bytes,
-//    a step), a marked next candidate by a ballot over 32 mask words
-//    (1024 positions a step); the selected positions go to a list;
-// 5. the events of the list (the team, coalesced stores).
+// Design: a block takes a group of streams (streams of up to kPackBytes
+// bytes packed while their regions start within one kPackBytes window,
+// each longer stream a block of its own).  Its positions are block-local:
+// stream s's region starts on a 32-position word and its first byte lies
+// at the same offset mod 16 as in the slab, so that a word of 32 positions
+// belongs to one stream.  A group up to the shared-memory tile is staged
+// there; a longer stream uses a global scratch region with the same arrays
+// (32-bit entries there) and the same code.  In the per-word phases a warp
+// takes a contiguous range of words, a lane a position.  Phases, the block
+// synchronised after each:
+// 1. the bytes, 1 B a position: one bulk asynchronous copy (TMA,
+//    cp.async.bulk) a stream for its 16-byte aligned middle, completing on
+//    an mbarrier, its head and tail bytes by the threads;
+// 2. per word: each position's word (kept: a word read later is one
+//    load) and hash (as _prep_kernel), the run bit b[q] != b[q+1], and by
+//    __match_any_sync the latest lower lane of the same hash and whether a
+//    lane is its hash's last in the word;
+// 3. prev() across words by position-ordered passes over hash tables, one
+//    per segment of the words (kSegments warps side by side), one step a
+//    word: the lanes without a lower peer read the table, the last lane of
+//    each hash writes it.  The tables are never cleared: an entry counts
+//    only if it points into the part of its segment already passed, inside
+//    the stream, at a position of the same hash; garbage that would pass
+//    that test has already been overwritten.  Beside them one warp builds
+//    the next-word table of the run bits (a reverse min-scan);
+// 4. per word: a position without a prev in its segment takes its hash's
+//    valid entry in the nearest earlier segment (those lookups at once); the
+//    candidate test (a ballot), the same-distance chain bit (q and q + 1
+//    candidates at the same distance d > 1), the warp's running count;
+// 5. ranks (the warps' counts added), positions by rank, and the match
+//    length of each run match (d == 1: from the next run bit) and chain
+//    end (up to kLcpWords words in its thread, a longer one queued);
+// 6. the queued lengths, a warp each (32 words a step); one warp builds
+//    the next-word table of chain ends;
+// 7. per chunk of 32 ranks (a warp): inside a chain LCP(p) = (e - p) +
+//    LCP(e), e its chain end; the next candidate after the match (a rank:
+//    the candidates before p + m, none past the stream); and by pointer
+//    doubling in registers (5 rounds of shuffles) each candidate's exit
+//    from the chunk and the chain nodes up to it;
+// 8. the greedy chain of each stream over the chunks (a lane a stream):
+//    from its first candidate, exit to exit, at most one step a chunk,
+//    storing at each chunk entry its events before (other ranks: none);
+// 9. per chunk: the nodes on the chain from its entries by pointer
+//    doubling in registers (a warp-wide OR of each marked node's 2^k-th
+//    successor, 5 rounds), each written to its stream's row from its
+//    entry's events before and the nodes between.
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -66,274 +89,234 @@ constexpr int kMinMatch = 4;
 constexpr int kMfLimit = 12;
 constexpr int kLastLiterals = 5;
 constexpr int kMaxDist = 0xFFFF;
-constexpr int kNone = 1 << 30;
+constexpr int kFar = 1 << 30;        // past every position
 constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr uint16_t kNoHash = 0xFFFF; // hash of a position without a word
 // Design choices, from chip_variants.py's sweep (PERF.md §6).
-constexpr int kWarpsPerStream = 16;
-constexpr int kStreamsPerBlock = 1;
-constexpr int kSegments = 4;      // table passes run side by side
-constexpr int kLcpWords = 8;      // words a lane compares per candidate
-constexpr int kScanWords = 2;     // mask words a lane searches
-constexpr int kTeam = 32 * kWarpsPerStream;
-constexpr int kThreads = kTeam * kStreamsPerBlock;
-constexpr int kSmemBudget = 227 * 1024;
-static_assert(kWarpsPerStream == 1 || kStreamsPerBlock <= 15,
-              "a named barrier per team");
+constexpr int kWarps = 16;           // a block
+constexpr int kSegments = 4;         // table passes side by side
+constexpr int kLcpWords = 4;         // words a thread compares per chain end
+constexpr int kPackBytes = 512;      // streams packed into a block
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxStreams = kPackBytes / 32;   // region starts 32 apart
+constexpr int kSmemBudget = 225 * 1024;        // dynamic, beside the static
+static_assert(kSegments >= 1 && kSegments <= kWarps && kWarps <= 32,
+              "a warp a segment, one warp scans the warps' totals");
+static_assert(kPackBytes % 32 == 0 && kMaxStreams >= 1, "pack in words");
 
-// Shared memory of one team for streams up to `tile` bytes (a multiple of
-// 128): prev structure, later the walk's selected positions | words |
-// hashes | dist | (length, next) records | 4-successor jumps | candidate
-// bits | run bits.
-constexpr int kTableEntries = kHashSize + 32;   // 32 spare entries
-
-// Bytes of the prev() structure (the segments' hash tables) at a tile.
-__host__ __device__ constexpr int prev_bytes(int) {
-  return kSegments * 2 * kTableEntries;
+__host__ __device__ constexpr long long up16(long long x) {
+  return (x + 15) & ~15LL;
 }
-__host__ __device__ constexpr int region_bytes(int tile) {
-  return prev_bytes(tile) + 20 * tile + tile / 4;
+
+// The arrays of a block of P positions (P a multiple of 32, nw = P / 32
+// words), in shared memory (I = uint16_t) or in the global scratch
+// (I = int32_t).  "By rank": indexed by a candidate's rank in the block.
+template <typename I>
+struct Arrays {
+  I* table;          // kSegments tables of kHashSize: a position
+  uint8_t* b;        // the bytes (P + 16)
+  uint32_t* w;       // the word of a valid position
+  uint16_t* h;       // hash of a valid position, else kNoHash
+  I* prev;           // prev + 1 (0: none); then a candidate's distance
+  I* raw;            // the table pass's reads; then by rank: its exit
+  I* cpos;           // by rank: the candidate's position
+  I* clen;           // by rank: its match length
+  I* jmp;            // the gallop queue; then by rank: the next candidate
+  I* cnt;            // by rank: chain nodes from it to its chunk's exit
+  I* base;           // by rank: a chunk entry's events before it in its
+                     // stream, else kNone
+  uint32_t* cand;    // a bit per position: a candidate
+  uint32_t* run;     // a bit per position: b[q] != b[q+1] (or no word)
+  uint32_t* chain;   // the table writers; then the same-distance chain bit
+  I* wpre;           // candidates before word k (nw + 1)
+  I* nrun;           // first word >= k with a run bit (nw + 1)
+  I* nend;           // first word >= k with a chain end (nw + 1)
+  uint8_t* wsid;     // the block's stream of word k
+};
+
+// Bytes of the arrays of P positions; with `a`, their addresses at base.
+template <typename I>
+__host__ __device__ long long carve(unsigned char* base, long long P,
+                                    Arrays<I>* a) {
+  const long long nw = P / 32;
+  const long long per = up16(static_cast<long long>(sizeof(I)) * P);
+  const long long words = up16(4 * nw);
+  const long long idx = up16(static_cast<long long>(sizeof(I)) * (nw + 1));
+  long long o = up16(static_cast<long long>(sizeof(I)) * kSegments *
+                     kHashSize);
+  const long long ob = o;
+  o += up16(P + 16);
+  const long long ow4 = o;
+  o += 4 * P;
+  const long long oh = o;
+  o += up16(2 * P);
+  const long long op = o;
+  o += 7 * per;
+  const long long oc = o;
+  o += 3 * words;
+  const long long ow = o;
+  o += 3 * idx;
+  const long long ows = o;
+  o += up16(nw);
+  if (a != nullptr) {
+    I* arr[7];
+    for (int i = 0; i < 7; ++i)
+      arr[i] = reinterpret_cast<I*>(base + op + i * per);
+    uint32_t* wd[3];
+    for (int i = 0; i < 3; ++i)
+      wd[i] = reinterpret_cast<uint32_t*>(base + oc + i * words);
+    I* ix[3];
+    for (int i = 0; i < 3; ++i) ix[i] = reinterpret_cast<I*>(base + ow + i * idx);
+    a->table = reinterpret_cast<I*>(base);
+    a->b = base + ob;
+    a->w = reinterpret_cast<uint32_t*>(base + ow4);
+    a->h = reinterpret_cast<uint16_t*>(base + oh);
+    a->prev = arr[0];
+    a->raw = arr[1];
+    a->cpos = arr[2];
+    a->clen = arr[3];
+    a->jmp = arr[4];
+    a->cnt = arr[5];
+    a->base = arr[6];
+    a->cand = wd[0];
+    a->run = wd[1];
+    a->chain = wd[2];
+    a->wpre = ix[0];
+    a->nrun = ix[1];
+    a->nend = ix[2];
+    a->wsid = base + ows;
+  }
+  return o;
 }
 
 int tile_max() {
-  int t = 0;
-  while (t + 128 < 65536 && region_bytes(t + 128) <= kSmemBudget) t += 128;
+  static int t = -1;   // a constant of the build, found once
+  if (t < 0) {
+    int m = 0;
+    while (m + 128 < 65535 - 32 &&
+           carve<uint16_t>(nullptr, m + 128, nullptr) <= kSmemBudget)
+      m += 128;
+    t = m;
+  }
   return t;
 }
 
-// Teams a block holds at this tile.
-int teams_per_block(int tile) {
-  if (tile == 0) return kStreamsPerBlock;
-  const int fit = kSmemBudget / region_bytes(tile);
-  return fit < kStreamsPerBlock ? fit : kStreamsPerBlock;
+// No rank / no jump: above every rank of a block.
+template <typename I>
+__host__ __device__ constexpr int none() {
+  return sizeof(I) == 2 ? 0xFFFF : 0x7FFFFFFF;
 }
 
-__device__ __forceinline__ void team_sync(int team) {
-  if constexpr (kWarpsPerStream == 1) {
-    __syncwarp();
-  } else {
-    asm volatile("bar.sync %0, %1;" ::"r"(team + 1), "r"(kTeam) : "memory");
-  }
-}
-
-// A candidate's match length (0: measure it in the walk) and next
-// candidate after the match (>= L - MFLIMIT: none; 0: search in the walk),
-// packed for one load: 16 bits each in shared memory, 32 in the scratch.
-template <typename IdxT>
-using Rec = typename std::conditional<sizeof(IdxT) == 2, uint32_t, int2>::type;
-// The next four candidates of the greedy chain from a candidate (each as
-// a record's next: a position, >= L - MFLIMIT for none, 0 for unknown).
-template <typename IdxT>
-using Jump = typename std::conditional<sizeof(IdxT) == 2, ushort4, int4>::type;
-
-__device__ __forceinline__ uint32_t make_rec(int m, int nx, uint32_t*) {
-  return static_cast<uint32_t>(m) | (static_cast<uint32_t>(nx) << 16);
-}
-__device__ __forceinline__ int2 make_rec(int m, int nx, int2*) {
-  return make_int2(m, nx);
-}
-__device__ __forceinline__ int rec_len(uint32_t r) { return r & 0xFFFFu; }
-__device__ __forceinline__ int rec_len(int2 r) { return r.x; }
-__device__ __forceinline__ int rec_next(uint32_t r) { return r >> 16; }
-__device__ __forceinline__ int rec_next(int2 r) { return r.y; }
-
-// One stream's arrays, in shared memory (16-bit entries) or in the global
-// scratch (32-bit).
-template <typename HashT, typename IdxT>
-struct Stream {
-  const int32_t* W;   // words of local positions 0..nval-1
-  const HashT* H;     // their hashes
-  IdxT* table;        // kSegments tables of kTableEntries: last position
-                      // + 1, 0 = none
-  IdxT* dist;         // prev + 1 after phase 1; a candidate's distance
-  Rec<IdxT>* rec;     // a candidate's (length, next candidate)
-  Jump<IdxT>* jump;   // a candidate's next four chain positions
-  IdxT* sel;          // the walk's selected positions, in order
-  uint32_t* cand;     // one bit per position: a candidate
-  uint32_t* run;      // one bit per position: b[q] != b[q+1]
-  int L, nval, nwords;
+// The block's streams (static shared memory).
+struct Streams {
+  uint64_t bar;                     // the bulk copies' mbarrier
+  long long start[kMaxStreams];     // in the slab
+  long long row[kMaxStreams];       // first event row
+  int cst[kMaxStreams];             // block-local first position
+  int len[kMaxStreams];
+  int warp_tot[kWarps];             // each warp's candidates
+  int count[kMaxStreams];           // each stream's events
+  int nq;                           // gallop queue length
 };
 
-// Phase 1: prev() by position-ordered passes over hash tables, one per
-// segment of mask words [k0, k1), 32 positions a step (a warp): within a
-// step the latest lower lane of the same hash, else the segment's table;
-// then the step's last lane of each hash updates it.  Lanes past the
-// stream's end take the table's 32 spare entries, one each, and write
-// dist entries the later phases never read.
-template <typename H, typename I>
-__device__ void table_pass(const Stream<H, I>& st, I* table, int k0, int k1,
-                           int lane) {
-  const unsigned below = (1u << lane) - 1u;
-  const uint32_t spare = kHashSize + lane;
-  uint32_t hn = 32 * k0 + lane < st.nval
-                    ? static_cast<uint32_t>(st.H[32 * k0 + lane]) : spare;
-  for (int k = k0; k < k1; ++k) {
-    const int q = 32 * k + lane;
-    const uint32_t hq = hn;
-    hn = q + 32 < st.nval ? static_cast<uint32_t>(st.H[q + 32]) : spare;
-    const unsigned peers = __match_any_sync(kFull, hq);
-    const unsigned lower = peers & below;
-    const int prev1 = lower ? 32 * k + 32 - __clz(lower)
-                            : static_cast<int>(table[hq]);
-    __syncwarp();
-    if (lane == 31 - __clz(peers)) table[hq] = static_cast<I>(q + 1);
-    st.dist[q] = static_cast<I>(prev1);
-    __syncwarp();
-  }
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               ::"r"(smem_addr(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+// `bytes` (a multiple of 16) from global `src` to shared `dst`, both
+// 16-byte aligned, counted on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)),
+        "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
 }
 
-// Phase 1, the segments joined (the team): a position with no prev in its
-// own segment takes the last occurrence of its hash in the nearest earlier
-// segment that has one, from that segment's final table.
-template <typename H, typename I>
-__device__ void link_segments(const Stream<H, I>& st, int segw, int tid) {
-  for (int q = 32 * segw + tid; q < st.nval; q += kTeam) {
-    if (st.dist[q] != 0) continue;
-    const uint32_t h = static_cast<uint32_t>(st.H[q]);
-    int prev1 = 0;
-    for (int g = q / (32 * segw) - 1; g >= 0 && prev1 == 0; --g)
-      prev1 = static_cast<int>(st.table[g * kTableEntries + h]);
-    st.dist[q] = static_cast<I>(prev1);
-  }
+// The little-endian word of the 4 bytes at x (b 4-byte aligned, 8 bytes
+// readable from x & ~3).
+__device__ __forceinline__ uint32_t word_at(const uint8_t* b, int x) {
+  const uint32_t* a = reinterpret_cast<const uint32_t*>(b) + (x >> 2);
+  return __funnelshift_r(a[0], a[1], 8 * (x & 3));
 }
 
-// Phase 2: the candidate test of every position and the two masks (the
-// team's warps, a mask word each).
-template <typename H, typename I>
-__device__ void mask_pass(const Stream<H, I>& st, int tid) {
-  const int lane = tid & 31;
-  for (int k = tid / 32; k < st.nwords; k += kWarpsPerStream) {
-    const int q = 32 * k + lane;
-    const bool act = q < st.nval;
-    bool c = false, r = false;
-    if (act) {
-      const uint32_t wq = static_cast<uint32_t>(st.W[q]);
-      r = ((wq ^ (wq >> 8)) & 0xFFu) != 0u;
-      const int prevq = static_cast<int>(st.dist[q]) - 1;
-      const int d = q - prevq;
-      c = prevq >= 0 && q < st.L - kMfLimit && d <= kMaxDist &&
-          static_cast<uint32_t>(st.W[prevq]) == wq;
-      if (c && d == 1 && q >= 2 && (q & 3) != 0) {   // the run-stride rule
-        const uint32_t v = static_cast<uint32_t>(st.W[q - 2]);
-        c = (v & 0xFFu) != ((v >> 8) & 0xFFu);
-      }
-      if (c) st.dist[q] = static_cast<I>(d);
-    }
-    const unsigned cw = __ballot_sync(kFull, c);
-    const unsigned rw = __ballot_sync(kFull, r);
-    if (lane == 0) {
-      st.cand[k] = cw;
-      st.run[k] = rw;
-    }
-  }
+__device__ __forceinline__ unsigned below(int bit) {
+  return (1u << bit) - 1u;
 }
 
-// First set bit at or after position x within kScanWords mask words of
-// one lane: the position, kNone when the mask ends first, -1 when not
-// found in that range.
-__device__ __forceinline__ int scan_lane(const uint32_t* bits, int nwords,
-                                         int x) {
-  const int first = x >> 5;
+// out[k] = the first word k' >= k with nonzero(k'), else n (out[n] = n):
+// one warp, a lane a contiguous range of words, joined by a suffix min.
+template <typename I, typename F>
+__device__ void next_words(int n, F nonzero, I* out, int lane) {
+  const int per = (n + 31) / 32;
+  const int k0 = min(lane * per, n), k1 = min(k0 + per, n);
+  int first = n;
+  #pragma unroll 1
+  for (int k = k1 - 1; k >= k0; --k)
+    if (nonzero(k)) first = k;
 #pragma unroll
-  for (int i = 0; i < kScanWords; ++i) {
-    const int wi = first + i;
-    if (wi >= nwords) return kNone;
-    uint32_t v = bits[wi];
-    if (i == 0) v &= kFull << (x & 31);
-    if (v) return wi * 32 + __ffs(v) - 1;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_down_sync(kFull, first, o);
+    if (lane + o < 32) first = min(first, y);
   }
-  return -1;
+  int carry = __shfl_down_sync(kFull, first, 1);
+  if (lane == 31) carry = n;
+  #pragma unroll 1
+  for (int k = k1 - 1; k >= k0; --k) {
+    if (nonzero(k)) carry = k;
+    out[k] = static_cast<I>(carry);
+  }
+  if (lane == 0) out[n] = static_cast<I>(n);
 }
 
-// Phase 3: per candidate (a lane each) its match length and next
-// candidate, or the marks that leave them to the walk.
-template <typename H, typename I>
-__device__ void length_pass(const Stream<H, I>& st, int tid) {
-  const int lane = tid & 31;
-  const int limit = st.L - kMfLimit;
-  for (int k = tid / 32; k < st.nwords; k += kWarpsPerStream) {
-    if (!((st.cand[k] >> lane) & 1u)) continue;
-    const int p = 32 * k + lane;
-    const int d = static_cast<int>(st.dist[p]);
-    const int cap = st.L - kLastLiterals - p;
-    int m = 0;
-    if (d == 1) {
-      const int r = scan_lane(st.run, st.nwords, p);
-      if (r >= 0)
-        m = min(r - p + 1, cap);
-      else if (32 * ((p >> 5) + kScanWords) >= p + cap)
-        m = cap;   // every run end from here on lies at or past the cap
-    } else {
-      const int c = p - d;
-      int e = 4;
-      m = kMinMatch;
-#pragma unroll
-      for (int i = 0; i < kLcpWords && e == 4 && m < cap; ++i) {
-        const uint32_t x = static_cast<uint32_t>(st.W[p + m] ^ st.W[c + m]);
-        e = x ? (__ffs(x) - 1) >> 3 : 4;
-        m += min(e, cap - m);
-      }
-      if (e == 4 && m < cap) m = 0;   // longer than kLcpWords words
-    }
-    int nx = 0;
-    if (m > 0) {
-      const int f = scan_lane(st.cand, st.nwords, p + m);
-      nx = f >= 0 ? min(f, limit) : 0;
-    }
-    st.rec[p] = make_rec(m, nx, st.rec);
-  }
+// First position >= x whose bit is set (INV: clear) in bits (n words),
+// with nxt the next word holding one; kFar if none.
+template <bool INV, typename I>
+__device__ __forceinline__ int next_bit(const uint32_t* bits, const I* nxt,
+                                        int n, int x) {
+  const int k = x >> 5;
+  if (k >= n) return kFar;
+  const uint32_t v = (INV ? ~bits[k] : bits[k]) & (kFull << (x & 31));
+  if (v) return 32 * k + __ffs(v) - 1;
+  const int k2 = static_cast<int>(nxt[k + 1]);
+  if (k2 >= n) return kFar;
+  return 32 * k2 + __ffs(INV ? ~bits[k2] : bits[k2]) - 1;
 }
 
-// Phase 3b: each candidate's next four chain positions (a lane each).
-template <typename H, typename I>
-__device__ void jump_pass(const Stream<H, I>& st, int tid) {
-  const int lane = tid & 31;
-  const int limit = st.L - kMfLimit;
-  for (int k = tid / 32; k < st.nwords; k += kWarpsPerStream) {
-    if (!((st.cand[k] >> lane) & 1u)) continue;
-    const int p = 32 * k + lane;
-    int c[4];
-    int q = p;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (q != 0 && q < limit) q = rec_next(st.rec[q]);
-      c[i] = q;
-    }
-    Jump<I> j;
-    j.x = static_cast<decltype(j.x)>(c[0]);
-    j.y = static_cast<decltype(j.y)>(c[1]);
-    j.z = static_cast<decltype(j.z)>(c[2]);
-    j.w = static_cast<decltype(j.w)>(c[3]);
-    st.jump[p] = j;
-  }
+// Candidates before position x (x < 32 n): the rank of the first
+// candidate at or after x.
+template <typename I>
+__device__ __forceinline__ int rank_at(const Arrays<I>& a, int x) {
+  return static_cast<int>(a.wpre[x >> 5]) +
+         __popc(a.cand[x >> 5] & below(x & 31));
 }
 
-// First set bit at or after position x (kNone if none): a ballot over 32
-// mask words a step.
-__device__ __forceinline__ int find_first(const uint32_t* bits, int nwords,
-                                          int x, int lane) {
-  const int first = x >> 5;
-  for (int base = first; base < nwords; base += 32) {
-    const int wi = base + lane;
-    uint32_t v = wi < nwords ? bits[wi] : 0u;
-    if (wi == first) v &= kFull << (x & 31);
-    const unsigned any = __ballot_sync(kFull, v != 0u);
-    if (any) {
-      const int j = __ffs(any) - 1;
-      const uint32_t vj = __shfl_sync(kFull, v, j);
-      return (base + j) * 32 + __ffs(vj) - 1;
-    }
-  }
-  return kNone;
-}
-
-// min(LCP(p, c), cap), LCP >= 4 known: 32 words a step while they agree
-// and fit, then the first unequal word's equal low bytes (at most 3).
-__device__ __forceinline__ int gallop(const int32_t* W, int p, int c,
-                                      int cap, int lane) {
-  int m = kMinMatch;
+// min(LCP(p, c), cap) from m, the first m bytes known equal (the warp,
+// 32 words a step while they agree and fit, then at most 3 bytes).
+__device__ int gallop(const uint32_t* w, int p, int c, int cap, int m,
+                      int lane) {
   for (;;) {
-    const int k = m + 4 * lane;
-    const bool ok = k + 4 <= cap && W[p + k] == W[c + k];
+    const int x = m + 4 * lane;
+    const bool ok = x + 4 <= cap && w[p + x] == w[c + x];
     const unsigned bad = __ballot_sync(kFull, !ok);
     if (bad == 0u) {
       m += 128;
@@ -343,214 +326,482 @@ __device__ __forceinline__ int gallop(const int32_t* W, int p, int c,
     break;
   }
   if (m < cap) {
-    const uint32_t x = static_cast<uint32_t>(W[p + m] ^ W[c + m]);
+    const uint32_t x = w[p + m] ^ w[c + m];
     const int e = x ? (__ffs(x) - 1) >> 3 : 4;
     m += min(min(e, 3), cap - m);
   }
   return m;
 }
 
-// Phase 4: the greedy chain of one stream (one warp, uniform control
-// flow, every lane storing the same values): the selected positions in
-// sel, a length measured here back into the candidate's record; returns
-// their number.  Four positions a load while the jumps are known.
-template <typename H, typename I>
-__device__ int walk(const Stream<H, I>& st, int lane) {
-  const int limit = st.L - kMfLimit;
-  int n = 0;
-  int p = find_first(st.cand, st.nwords, 0, lane);
-  while (p < limit) {
-    const auto j = st.jump[p];
-    if (j.x != 0 && j.y != 0 && j.z != 0 && j.w != 0) {
-      st.sel[n++] = static_cast<I>(p);
-      const int c[3] = {static_cast<int>(j.x), static_cast<int>(j.y),
-                        static_cast<int>(j.z)};
-      p = static_cast<int>(j.w);
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        if (c[i] >= limit) {
-          p = c[i];
-          break;
+// Phase markers (empty; chip_variants.py's clocks fill them in).
+#define PHASE_MARK(i)
+
+// Phases 2-8 of the block's ns streams over nw words; the bytes staged.
+// A warp takes a contiguous range of words in the per-word phases.
+template <typename I>
+__device__ void match_block(const Arrays<I>& a, Streams& st, int ns, int nw,
+                            int S, long long E, int s0,
+                            int32_t* __restrict__ out) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  constexpr int kNone = none<I>();
+  if (nw == 0) {   // no byte in the block's streams
+    for (int j = tid; j < ns; j += kThreads) out[s0 + j] = 0;
+    return;
+  }
+  const int wpw = (nw + kWarps - 1) / kWarps;
+  const int kw0 = min(warp * wpw, nw), kw1 = min(kw0 + wpw, nw);
+
+  // -- 2. words, hashes, run bits, peers within a word --------------------
+  #pragma unroll 1
+  for (int k = kw0; k < kw1; ++k) {
+    const int q = 32 * k + lane;
+    const int j = a.wsid[k];
+    const int lq = q - st.cst[j];
+    const bool valid = lq >= 0 && lq + 4 <= st.len[j];
+    const uint32_t wq = valid ? word_at(a.b, q) : 0u;
+    const uint32_t hq = valid ? (wq * 2654435761u) >> (32 - kHashLog)
+                              : static_cast<uint32_t>(kHashSize + lane);
+    const unsigned peers = __match_any_sync(kFull, hq);
+    const unsigned lower = peers & below(lane);
+    a.w[q] = wq;
+    a.h[q] = valid ? static_cast<uint16_t>(hq) : kNoHash;
+    a.prev[q] = static_cast<I>(valid && lower ? 32 * k + 32 - __clz(lower)
+                                              : 0);
+    const unsigned wr = __ballot_sync(kFull, valid &&
+                                                 lane == 31 - __clz(peers));
+    const unsigned rb = __ballot_sync(
+        kFull, !valid || ((wq ^ (wq >> 8)) & 0xFFu) != 0u);
+    if (lane == 0) {
+      a.chain[k] = wr;
+      a.run[k] = rb;
+    }
+  }
+  __syncthreads();
+  PHASE_MARK(2);
+
+  // -- 3. the segments' table passes; the last warp: next run words -------
+  const int nseg = min(kSegments, nw);
+  const int segw = (nw + nseg - 1) / nseg;
+  if (warp < nseg) {
+    I* table = a.table + warp * kHashSize;
+    const int k0 = warp * segw, k1 = min(k0 + segw, nw);
+    if (k0 < k1) {
+      int q = 32 * k0 + lane;
+      uint32_t hq = a.h[q];
+      bool need = hq != kNoHash && a.prev[q] == 0;
+      bool wr = (a.chain[k0] >> lane) & 1u;
+      #pragma unroll 1
+      for (int k = k0; k < k1; ++k) {
+        uint32_t hn = kNoHash;
+        bool nn = false, wn = false;
+        if (k + 1 < k1) {
+          hn = a.h[q + 32];
+          nn = hn != kNoHash && a.prev[q + 32] == 0;
+          wn = (a.chain[k + 1] >> lane) & 1u;
         }
-        st.sel[n++] = static_cast<I>(c[i]);
+        if (need) a.raw[q] = table[hq];
+        __syncwarp();
+        if (wr) table[hq] = static_cast<I>(q);
+        __syncwarp();
+        q += 32;
+        hq = hn;
+        need = nn;
+        wr = wn;
       }
-      continue;
     }
-    const auto r = st.rec[p];
-    int nx = rec_next(r);
-    st.sel[n++] = static_cast<I>(p);
-    if (nx == 0) {   // a marked length or next candidate
-      int m = rec_len(r);
-      if (m == 0) {
-        const int d = static_cast<int>(st.dist[p]);
-        const int cap = st.L - kLastLiterals - p;
-        m = d == 1 ? min(find_first(st.run, st.nwords, p, lane) - p + 1, cap)
-                   : gallop(st.W, p, p - d, cap, lane);
-        st.rec[p] = make_rec(m, 0, st.rec);
+  }
+  if (warp == kWarps - 1)
+    next_words(nw, [&](int k) { return a.run[k] != 0u; }, a.nrun, lane);
+  __syncthreads();
+  PHASE_MARK(3);
+
+  // -- 4. prev across segments, the candidate test, chain bits, ranks in
+  //       the warp's words --------------------------------------------------
+  int running = 0;
+  #pragma unroll 1
+  for (int k = kw0; k < kw1; ++k) {
+    const int q = 32 * k + lane;
+    const int j = a.wsid[k];
+    const int c0 = st.cst[j];
+    const int lq = q - c0;
+    const uint32_t hq = a.h[q];
+    int p1 = static_cast<int>(a.prev[q]);
+    if (hq != kNoHash && p1 == 0) {
+      // this segment's table read, else the nearest earlier segment's
+      // valid entry (those lookups issued at once)
+      int g = 0;
+#pragma unroll
+      for (int t = 1; t < kSegments; ++t) g += k >= t * segw;
+      const int e = static_cast<int>(a.raw[q]);
+      if (e >= max(32 * g * segw, c0) && e < 32 * k && a.h[e] == hq) {
+        p1 = e + 1;
+      } else {
+        int ev[kSegments];
+#pragma unroll
+        for (int t = 0; t + 1 < kSegments; ++t) {
+          const int g2 = g - 1 - t;
+          ev[t] = g2 >= 0 && 32 * (g2 + 1) * segw > c0
+                      ? static_cast<int>(a.table[g2 * kHashSize + hq]) : -1;
+        }
+#pragma unroll
+        for (int t = kSegments - 2; t >= 0; --t) {
+          const int g2 = g - 1 - t;
+          const int et = ev[t];
+          if (et >= 0 && et >= max(32 * g2 * segw, c0) &&
+              et < 32 * (g2 + 1) * segw && a.h[et] == hq)
+            p1 = et + 1;
+        }
       }
-      nx = find_first(st.cand, st.nwords, p + m, lane);
     }
-    p = nx;
+    bool c = p1 != 0 && lq < st.len[j] - kMfLimit;
+    int d = 0;
+    if (c) {
+      d = q - (p1 - 1);
+      c = d <= kMaxDist && a.w[q] == a.w[p1 - 1];
+      if (c && d == 1 && lq >= 2 && (lq & 3) != 0) {   // the run-stride rule
+        const uint32_t v = a.w[q - 2];
+        c = (v & 0xFFu) != ((v >> 8) & 0xFFu);
+      }
+    }
+    if (!c) d = 0;
+    a.prev[q] = static_cast<I>(d);
+    const unsigned cw = __ballot_sync(kFull, c);
+    const int dn = __shfl_down_sync(kFull, d, 1);
+    const unsigned lw = __ballot_sync(
+        kFull, c && lane < 31 && ((cw >> (lane + 1)) & 1u) && dn == d && d > 1);
+    if (lane == 0) {
+      a.cand[k] = cw;
+      a.chain[k] = lw;   // bit 31 (the next word's first position) below
+      a.wpre[k] = static_cast<I>(running);
+    }
+    running += __popc(cw);
   }
-  return n;
+  if (lane == 0) st.warp_tot[warp] = running;
+  __syncthreads();
+  PHASE_MARK(4);
+
+  // -- 5. block ranks, positions by rank, lengths of run matches and chain
+  //       ends (longer than kLcpWords words: queued) -----------------------
+  int before = 0, C = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int n = st.warp_tot[w];
+    before += w < warp ? n : 0;
+    C += n;
+  }
+  #pragma unroll 1
+  for (int k = kw0; k < kw1; ++k) {
+    const int q = 32 * k + lane;
+    const uint32_t cw = a.cand[k];
+    const bool c = (cw >> lane) & 1u;
+    const int d = static_cast<int>(a.prev[q]);
+    const int r0 = static_cast<int>(a.wpre[k]) + before;
+    bool l31 = false;
+    if (lane == 31 && c && k + 1 < nw)
+      l31 = d > 1 && (a.cand[k + 1] & 1u) && static_cast<int>(a.prev[q + 1]) == d;
+    const uint32_t lw = a.chain[k] | __ballot_sync(kFull, l31);
+    if (lane == 0) {
+      a.chain[k] = lw;
+      a.wpre[k] = static_cast<I>(r0);
+    }
+    if (c) {
+      const int r = r0 + __popc(cw & below(lane));
+      a.cpos[r] = static_cast<I>(q);
+      const int j = a.wsid[k];
+      const int cap = st.cst[j] + st.len[j] - kLastLiterals - q;
+      int m = 0;
+      if (d == 1) {
+        m = min(next_bit<false>(a.run, a.nrun, nw, q) - q + 1, cap);
+      } else if (!((lw >> lane) & 1u)) {   // a chain end: measure
+        int e = 4;
+        m = kMinMatch;
+#pragma unroll
+        for (int t = 0; t < kLcpWords && e == 4 && m < cap; ++t) {
+          const uint32_t x = a.w[q + m] ^ a.w[q - d + m];
+          e = x ? (__ffs(x) - 1) >> 3 : 4;
+          m += min(e, cap - m);
+        }
+        if (e == 4 && m < cap) {   // longer than kLcpWords words: the warps
+          a.jmp[atomicAdd(&st.nq, 1)] = static_cast<I>(r);
+          m = 0;
+        }
+      }
+      a.clen[r] = static_cast<I>(m);
+    }
+  }
+  if (tid == 0) a.wpre[nw] = static_cast<I>(C);
+  __syncthreads();
+  PHASE_MARK(5);
+
+  // -- 6. the queued lengths, a warp each; the last warp: next chain ends --
+  const int nq = st.nq;
+  #pragma unroll 1
+  for (int t = warp; t < nq; t += kWarps) {
+    const int r = static_cast<int>(a.jmp[t]);
+    const int p = static_cast<int>(a.cpos[r]);
+    const int j = a.wsid[p >> 5];
+    const int cap = st.cst[j] + st.len[j] - kLastLiterals - p;
+    const int m = gallop(a.w, p, p - static_cast<int>(a.prev[p]), cap,
+                         kMinMatch + 4 * kLcpWords, lane);
+    if (lane == 0) a.clen[r] = static_cast<I>(m);
+  }
+  if (warp == kWarps - 1)
+    next_words(nw, [&](int k) { return ~a.chain[k] != 0u; }, a.nend, lane);
+  __syncthreads();
+  PHASE_MARK(6);
+
+  // -- 7. per chunk of 32 ranks (a warp): lengths inside chains, the next
+  //       candidate, and by pointer doubling in registers each candidate's
+  //       exit from the chunk and the chain nodes up to it ---------------
+  const int nch = (C + 31) >> 5;
+  #pragma unroll 1
+  for (int ch = warp; ch < nch; ch += kWarps) {
+    const int r = 32 * ch + lane;
+    const bool act = r < C;
+    int J = kNone;
+    if (act) {
+      const int p = static_cast<int>(a.cpos[r]);
+      int m = static_cast<int>(a.clen[r]);
+      if (m == 0) {   // inside a same-distance chain: LCP(e) + (e - p)
+        const int e = next_bit<true>(a.chain, a.nend, nw, p);
+        m = e - p + static_cast<int>(a.clen[rank_at(a, e)]);
+        a.clen[r] = static_cast<I>(m);
+      }
+      const int j = a.wsid[p >> 5];
+      const int re =
+          static_cast<int>(a.wpre[(st.cst[j] + st.len[j] + 31) >> 5]);
+      const int t = rank_at(a, p + m);
+      J = t < re ? t : kNone;
+      a.jmp[r] = static_cast<I>(J);
+    }
+    int nx = J != kNone && J < 32 * ch + 32 ? J - 32 * ch : -1;
+    int ex = J, cn = act ? 1 : 0;
+#pragma unroll
+    for (int round = 0; round < 5; ++round) {
+      const int src = nx >= 0 ? nx : lane;
+      const int n2 = __shfl_sync(kFull, nx, src);
+      const int e2 = __shfl_sync(kFull, ex, src);
+      const int c2 = __shfl_sync(kFull, cn, src);
+      if (nx >= 0) {
+        cn += c2;
+        ex = e2;
+        nx = n2;
+      }
+    }
+    if (act) {
+      a.raw[r] = static_cast<I>(ex);
+      a.cnt[r] = static_cast<I>(cn);
+      a.base[r] = static_cast<I>(kNone);
+    }
+  }
+  __syncthreads();
+  PHASE_MARK(7);
+
+  // -- 8. each stream's chain over the chunks (a lane a stream): where it
+  //       enters each chunk, its events before, its count ------------------
+  if (warp == 0) {
+    #pragma unroll 1
+    for (int j = lane; j < ns; j += 32) {
+      const int rb = static_cast<int>(a.wpre[st.cst[j] >> 5]);
+      const int re =
+          static_cast<int>(a.wpre[(st.cst[j] + st.len[j] + 31) >> 5]);
+      int total = 0;
+      for (int e = rb < re ? rb : kNone; e != kNone;
+           e = static_cast<int>(a.raw[e])) {
+        a.base[e] = static_cast<I>(total);
+        total += static_cast<int>(a.cnt[e]);
+      }
+      st.count[j] = total;
+    }
+  }
+  __syncthreads();
+  PHASE_MARK(8);
+
+  // -- 9. the events: per chunk, the nodes on the chain from its entries
+  //       (pointer doubling in registers), each at its entry's base -------
+  for (int j = tid; j < ns; j += kThreads) out[s0 + j] = st.count[j];
+  int32_t* pos = out + S;
+  int32_t* dst = out + S + E;
+  int32_t* len = out + S + 2 * E;
+  #pragma unroll 1
+  for (int ch = warp; ch < nch; ch += kWarps) {
+    const int r = 32 * ch + lane;
+    const bool act = r < C;
+    const int eb = act ? static_cast<int>(a.base[r]) : kNone;
+    const uint32_t ent = __ballot_sync(kFull, eb != kNone);
+    if (ent == 0u) continue;
+    const int J = act ? static_cast<int>(a.jmp[r]) : kNone;
+    int s = J != kNone && J < 32 * ch + 32 ? J - 32 * ch : -1;
+    const int cn = act ? static_cast<int>(a.cnt[r]) : 0;
+    bool on = (ent >> lane) & 1u;
+#pragma unroll
+    for (int round = 0; round < 5; ++round) {
+      const unsigned hit = __reduce_or_sync(kFull, on && s >= 0 ? 1u << s : 0u);
+      on = on || ((hit >> lane) & 1u);
+      const int s2 = __shfl_sync(kFull, s, s >= 0 ? s : lane);
+      s = s >= 0 ? s2 : -1;
+    }
+    // the entry of a node's path: the last entry at or before it (streams
+    // hold disjoint rank ranges)
+    const int el = (31 - __clz(ent & (kFull >> (31 - lane)))) & 31;
+    const int cne = __shfl_sync(kFull, cn, el);
+    const int ebe = __shfl_sync(kFull, eb, el);
+    if (on) {
+      const int p = static_cast<int>(a.cpos[r]);
+      const int j = a.wsid[p >> 5];
+      const long long row = st.row[j] + ebe + cne - cn;
+      pos[row] = static_cast<int32_t>(st.start[j] + (p - st.cst[j]));
+      dst[row] = static_cast<int32_t>(a.prev[p]);
+      len[row] = static_cast<int32_t>(a.clen[r]);
+    }
+  }
+  PHASE_MARK(9);
 }
 
-// Phase 5: the events of the selected positions (the team, coalesced).
-template <typename H, typename I>
-__device__ void emit(const Stream<H, I>& st, int n, long long start,
-                     int32_t* pos, int32_t* dist, int32_t* mlen, int tid) {
-  for (int i = tid; i < n; i += kTeam) {
-    const int p = static_cast<int>(st.sel[i]);
-    pos[i] = static_cast<int32_t>(start + p);
-    dist[i] = static_cast<int32_t>(st.dist[p]);
-    mlen[i] = rec_len(st.rec[p]);
-  }
-}
-
-template <typename H, typename I>
-__device__ int match_stream(const Stream<H, I>& st, long long start,
-                            int32_t* pos, int32_t* dst, int32_t* len,
-                            int team, int tid) {
-  __shared__ int events[kStreamsPerBlock];
-  const int segw = (st.nwords + kSegments - 1) / kSegments;
-  for (int g = tid / 32; g < kSegments; g += kWarpsPerStream)
-    table_pass(st, st.table + g * kTableEntries, g * segw,
-               min((g + 1) * segw, st.nwords), tid & 31);
-  team_sync(team);
-  if (kSegments > 1) link_segments(st, segw, tid);
-  team_sync(team);
-  mask_pass(st, tid);
-  team_sync(team);
-  length_pass(st, tid);
-  team_sync(team);
-  jump_pass(st, tid);
-  team_sync(team);
-  if (tid < 32) {
-    const int n = walk(st, tid);
-    if (tid == 0) events[team] = n;
-  }
-  team_sync(team);
-  const int n = events[team];
-  emit(st, n, start, pos, dst, len, tid);
-  return n;
-}
-
-// meta: (4, S) int64 — starts, ends, row_start, scratch offset (-1: the
-// stream is staged in shared memory).  out: count (S) | pos | dist | mlen
-// (E each), int32.
+// meta (int64): starts (S) | ends (S) | row_start (S) | scratch offset (S;
+// -1: staged in shared memory) | block-local first position (S) | each
+// block's first stream (B + 1).  out: count (S) | pos | dist | mlen (E
+// each), int32.
 __global__ void __launch_bounds__(kThreads)
-lz4_match_kernel(const int32_t* __restrict__ w, const int32_t* __restrict__ h,
+lz4_match_kernel(const uint8_t* __restrict__ buf,
                  const long long* __restrict__ meta, int S, int tile,
                  unsigned char* __restrict__ scratch,
                  int32_t* __restrict__ out, long long E) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int teams = blockDim.x / kTeam;
-  const int team = threadIdx.x / kTeam;
-  const int tid = threadIdx.x % kTeam;
-  const int s = blockIdx.x * teams + team;
-  if (s >= S) return;
-  const long long start = meta[s];
-  const int L = static_cast<int>(meta[S + s] - start);
-  const long long row = meta[2 * S + s];
-  const long long soff = meta[3 * S + s];
-  if (L <= kMfLimit + 1) {   // no position has both a prev and room
-    if (tid == 0) out[s] = 0;
-    return;
+  __shared__ Streams st;
+  const int tid = threadIdx.x;
+  const int s0 = static_cast<int>(meta[5 * S + blockIdx.x]);
+  const int ns = static_cast<int>(meta[5 * S + blockIdx.x + 1]) - s0;
+  const long long soff = meta[3 * S + s0];
+  for (int j = tid; j < ns; j += kThreads) {
+    st.start[j] = meta[s0 + j];
+    st.len[j] = static_cast<int>(meta[S + s0 + j] - meta[s0 + j]);
+    st.row[j] = meta[2 * S + s0 + j];
+    st.cst[j] = static_cast<int>(meta[4 * S + s0 + j]);
   }
-  const int nval = L - 3;
-  const int nwords = (nval + 31) / 32;
-  int32_t* pos = out + S + row;
-  int32_t* dst = out + S + E + row;
-  int32_t* len = out + S + 2 * E + row;
-  const int32_t* gw = w + start;
-  const int32_t* gh = h + start;
-  int n;
+  if (tid == 0) {
+    st.nq = 0;
+    mbar_init(&st.bar, 1);
+    // the barrier's init visible to the copy engine (the async proxy)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+  PHASE_MARK(0);
+  const int nw = (st.cst[ns - 1] + st.len[ns - 1] + 31) >> 5;
   if (soff < 0) {
-    unsigned char* base =
-        smem + static_cast<size_t>(team) * region_bytes(tile);
-    unsigned char* after = base + prev_bytes(tile);
-    int32_t* sw = reinterpret_cast<int32_t*>(after);
-    uint16_t* sh = reinterpret_cast<uint16_t*>(after + 4 * tile);
-    uint16_t* sd = reinterpret_cast<uint16_t*>(after + 6 * tile);
-    uint32_t* sr = reinterpret_cast<uint32_t*>(after + 8 * tile);
-    ushort4* sj = reinterpret_cast<ushort4*>(after + 12 * tile);
-    uint32_t* sc = reinterpret_cast<uint32_t*>(after + 20 * tile);
-    uint16_t* prev = reinterpret_cast<uint16_t*>(base);   // dead after phase 1
-    Stream<uint16_t, uint16_t> st{sw, sh, prev, sd, sr, sj, prev, sc,
-                                  sc + tile / 32, L, nval, nwords};
-    int4* t4 = reinterpret_cast<int4*>(base);
-    for (int i = tid; i < prev_bytes(tile) / 16; i += kTeam)
-      t4[i] = make_int4(0, 0, 0, 0);
-    int i0 = 0;
-    if ((start & 3) == 0) {   // 16-byte loads: 4 words, 4 hashes
-      const int nv = nval >> 2;
-#pragma unroll 4
-      for (int i = tid; i < nv; i += kTeam) {
-        const int4 a = __ldg(reinterpret_cast<const int4*>(gw) + i);
-        const int4 b = __ldg(reinterpret_cast<const int4*>(gh) + i);
-        reinterpret_cast<int4*>(sw)[i] = a;
-        reinterpret_cast<uint2*>(sh)[i] = make_uint2(
-            static_cast<uint32_t>(b.x) | (static_cast<uint32_t>(b.y) << 16),
-            static_cast<uint32_t>(b.z) | (static_cast<uint32_t>(b.w) << 16));
+    Arrays<uint16_t> a;
+    carve<uint16_t>(smem, tile, &a);
+    // -- 1. the bytes: a bulk copy a stream, head and tail bytes by hand --
+    if (tid < 32) {
+      uint32_t total = 0;
+      for (int j = tid; j < ns; j += 32) {
+        const uintptr_t g = reinterpret_cast<uintptr_t>(buf + st.start[j]);
+        const uintptr_t lo = (g + 15) & ~uintptr_t(15);
+        const uintptr_t hi = (g + st.len[j]) & ~uintptr_t(15);
+        if (hi > lo) total += static_cast<uint32_t>(hi - lo);
       }
-      i0 = 4 * nv;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        total += __shfl_xor_sync(kFull, total, o);
+      if (tid == 0) mbar_expect_tx(&st.bar, total);
+      __syncwarp();
+      for (int j = tid; j < ns; j += 32) {
+        const uint8_t* g = buf + st.start[j];
+        const uintptr_t lo = (reinterpret_cast<uintptr_t>(g) + 15) &
+                             ~uintptr_t(15);
+        const uintptr_t hi = (reinterpret_cast<uintptr_t>(g) + st.len[j]) &
+                             ~uintptr_t(15);
+        if (hi > lo)
+          bulk_copy(a.b + st.cst[j] + (lo - reinterpret_cast<uintptr_t>(g)),
+                    reinterpret_cast<const void*>(lo),
+                    static_cast<uint32_t>(hi - lo), &st.bar);
+      }
     }
-    for (int i = i0 + tid; i < nval; i += kTeam) {
-      sw[i] = __ldg(gw + i);
-      sh[i] = static_cast<uint16_t>(__ldg(gh + i));
+    #pragma unroll 1
+    for (int i = tid; i < 32 * ns; i += kThreads) {
+      const int j = i >> 5, t = i & 31;
+      const uint8_t* g = buf + st.start[j];
+      const int L = st.len[j];
+      const int head = static_cast<int>(
+          ((reinterpret_cast<uintptr_t>(g) + 15) & ~uintptr_t(15)) -
+          reinterpret_cast<uintptr_t>(g));
+      const int tail = static_cast<int>(
+          ((reinterpret_cast<uintptr_t>(g) + L) & ~uintptr_t(15)) -
+          reinterpret_cast<uintptr_t>(g));
+      int x;
+      if (tail <= head)   // no aligned middle: the whole stream (< 32 B)
+        x = t;
+      else if (t < 16)
+        x = t < head ? t : L;
+      else
+        x = tail + t - 16;
+      if (x < L) a.b[st.cst[j] + x] = g[x];
     }
-    team_sync(team);
-    n = match_stream(st, start, pos, dst, len, team, tid);
+    #pragma unroll 1
+    for (int k = tid; k < nw; k += kThreads) {
+      int lo = 0, hi = ns - 1;   // the last stream whose region starts <= k
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if ((st.cst[mid] >> 5) <= k)
+          lo = mid;
+        else
+          hi = mid - 1;
+      }
+      a.wsid[k] = static_cast<uint8_t>(lo);
+    }
+    mbar_wait(&st.bar, 0);
+    __syncthreads();
+    PHASE_MARK(1);
+    match_block(a, st, ns, nw, S, E, s0, out);
   } else {
-    // global scratch: table | dist (int32) | records (int2) | jumps (int4)
-    // | cand | run bits; the walk's selected positions go to the pos row
-    const int lp = (L + 127) / 128 * 128;
-    int32_t* table = reinterpret_cast<int32_t*>(scratch + soff);
-    int32_t* gd = table + kSegments * kTableEntries;
-    int2* gr = reinterpret_cast<int2*>(gd + lp);
-    int4* gj = reinterpret_cast<int4*>(gr + lp);
-    uint32_t* gc = reinterpret_cast<uint32_t*>(gj + lp);
-    Stream<int32_t, int32_t> st{gw, gh, table, gd, gr, gj, pos, gc,
-                                gc + lp / 32, L, nval, nwords};
-    for (int i = tid; i < kSegments * kTableEntries; i += kTeam) table[i] = 0;
-    team_sync(team);
-    n = match_stream(st, start, pos, dst, len, team, tid);
+    // one stream past the tile: the same arrays in its global scratch
+    Arrays<int32_t> a;
+    carve<int32_t>(scratch + soff, (32LL * nw + 511) / 512 * 512, &a);
+    const uint8_t* g = buf + st.start[0];
+    for (int x = tid; x < st.len[0]; x += kThreads) a.b[st.cst[0] + x] = g[x];
+    for (int k = tid; k < nw; k += kThreads) a.wsid[k] = 0;
+    __syncthreads();
+    PHASE_MARK(1);
+    match_block(a, st, ns, nw, S, E, s0, out);
   }
-  if (tid == 0) out[s] = n;
 }
 
 }  // namespace
 
-// Largest stream (bytes, a multiple of 128) staged in shared memory; the
-// wrapper gives longer streams global scratch.
+// Largest block of positions (a multiple of 128) staged in shared memory;
+// the wrapper gives a stream whose region is longer global scratch.
 extern "C" int lz4_match_tile_max() { return tile_max(); }
 
-// Bytes of a long stream's int32 hash tables in the global scratch.
-extern "C" int lz4_match_table_bytes() {
-  return kSegments * kTableEntries * 4;
+// Streams of up to this many region bytes are packed several to a block.
+extern "C" int lz4_match_pack_bytes() { return kPackBytes; }
+
+// Bytes of a long stream's global scratch for P positions (P a multiple of
+// 512: then affine in P).
+extern "C" int lz4_match_scratch_bytes(int P) {
+  return static_cast<int>(carve<int32_t>(nullptr, P, nullptr));
 }
 
-// w, h: the prep's int32 words and hashes of the slab (16-byte aligned);
-// meta: (4, S) int64 (see the kernel); tile: the shared-memory tile in
-// bytes (a multiple of 128, at least every staged stream's length, at
-// most lz4_match_tile_max); scratch: global scratch of the long streams,
-// lz4_match_table_bytes() + 28 * Lp + Lp / 4 bytes each at its offset (Lp:
-// L rounded up to 128, offsets 16-byte aligned); out: S + 3 * E int32.
-// Returns the launch's cudaError_t.
-extern "C" int lz4_match(const void* w, const void* h, const void* meta,
-                         int S, int tile, void* scratch, void* out,
-                         long long E, int device, void* stream) {
-  if (S < 0 || tile < 0 || tile % 128 != 0 || tile > tile_max() || E < 0 ||
-      ((reinterpret_cast<uintptr_t>(w) | reinterpret_cast<uintptr_t>(h)) &
-       15u))
+// buf: the slab's bytes; meta: int64 (see the kernel), each block's
+// streams' regions (32-byte granules from their block-local first
+// position, which lies at the stream's address mod 16) within `tile`
+// positions, at most lz4_match_pack_bytes() / 32 streams a block; tile: a
+// multiple of 128, at most lz4_match_tile_max(); scratch: each long
+// stream's lz4_match_scratch_bytes() at its 16-byte aligned offset; out:
+// S + 3 * E int32.  B blocks.  Returns the launch's cudaError_t.
+extern "C" int lz4_match(const void* buf, const void* meta, int S, int B,
+                         int tile, void* scratch, void* out, long long E,
+                         int device, void* stream) {
+  if (S < 0 || B < 0 || tile < 0 || tile % 128 != 0 || tile > tile_max() ||
+      E < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   int cur = -1;
   cudaError_t err = cudaGetDevice(&cur);
   if (err == cudaSuccess && cur != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (S == 0) return 0;
-  const int teams = teams_per_block(tile);
-  const int smem = tile > 0 ? teams * region_bytes(tile) : 0;
+  if (S == 0 || B == 0) return 0;
+  const int smem =
+      tile > 0 ? static_cast<int>(carve<uint16_t>(nullptr, tile, nullptr))
+               : 0;
   static int smem_set[64] = {};   // per device, the largest set so far
   if (smem > 48 * 1024 && (device < 0 || device >= 64 ||
                            smem > smem_set[device])) {
@@ -560,10 +811,9 @@ extern "C" int lz4_match(const void* w, const void* h, const void* meta,
     if (err != cudaSuccess) return static_cast<int>(err);
     if (device >= 0 && device < 64) smem_set[device] = smem;
   }
-  lz4_match_kernel<<<(S + teams - 1) / teams, teams * kTeam, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(w), static_cast<const int32_t*>(h),
-      static_cast<const long long*>(meta), S, tile,
-      static_cast<unsigned char*>(scratch), static_cast<int32_t*>(out), E);
+  lz4_match_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(buf), static_cast<const long long*>(meta),
+      S, tile, static_cast<unsigned char*>(scratch),
+      static_cast<int32_t*>(out), E);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,12 +9,10 @@
 //   w[i]    = b[i] | b[i+1] << 8 | b[i+2] << 16 | b[i+3] << 24
 //   h[i]    = (w[i] * 2654435761 mod 2^32) >> (32 - HASH_LOG)
 //   runb[i] = b[i] != b[i+1]
-// runb is optional: a null pointer skips it (the match kernel reads only
-// w and h).
 //
-// Bound on this card: memory.  One byte in and 12 bytes out per position
-// (8 without runb), a few integer operations each: 13 (9) B/position over
-// 3.35 TB/s, 1.017 (0.704) us at a flush slab's 262144 plane bytes.
+// Bound on this card: memory.  One byte in and 12 bytes out per position,
+// a few integer operations each: 13 B/position over 3.35 TB/s, 1.017 us at
+// a flush slab's 262144 plane bytes.
 //
 // Design: the work is stores, so every store is a 16-byte vector and a
 // warp's store covers 512 contiguous bytes of one output.
@@ -58,8 +56,8 @@ __device__ __forceinline__ int32_t hash(uint32_t w) {
   return static_cast<int32_t>((w * 2654435761u) >> (32 - kHashLog));
 }
 
-// ALIGNED: the slab starts on a word (s == 0).  RUNB: write runb.
-template <bool ALIGNED, bool RUNB>
+// ALIGNED: the slab starts on a word (s == 0).
+template <bool ALIGNED>
 __global__ void __launch_bounds__(kThreads)
 lz4_prep_kernel(const uint32_t* __restrict__ a, int s,
                 int32_t* __restrict__ w, int32_t* __restrict__ h,
@@ -96,40 +94,27 @@ lz4_prep_kernel(const uint32_t* __restrict__ a, int s,
                     static_cast<int>(word[2]), static_cast<int>(word[3]));
       *reinterpret_cast<int4*>(h + q) = make_int4(
           hash(word[0]), hash(word[1]), hash(word[2]), hash(word[3]));
-      if (RUNB)
-        *reinterpret_cast<int4*>(runb + q) = make_int4(
-            (word[0] ^ (word[0] >> 8)) & 0xFFu ? 1 : 0,
-            (word[1] ^ (word[1] >> 8)) & 0xFFu ? 1 : 0,
-            (word[2] ^ (word[2] >> 8)) & 0xFFu ? 1 : 0,
-            (word[3] ^ (word[3] >> 8)) & 0xFFu ? 1 : 0);
+      *reinterpret_cast<int4*>(runb + q) = make_int4(
+          (word[0] ^ (word[0] >> 8)) & 0xFFu ? 1 : 0,
+          (word[1] ^ (word[1] >> 8)) & 0xFFu ? 1 : 0,
+          (word[2] ^ (word[2] >> 8)) & 0xFFu ? 1 : 0,
+          (word[3] ^ (word[3] >> 8)) & 0xFFu ? 1 : 0);
     } else {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         if (q + j >= n) break;
         w[q + j] = static_cast<int32_t>(word[j]);
         h[q + j] = hash(word[j]);
-        if (RUNB) runb[q + j] = (word[j] ^ (word[j] >> 8)) & 0xFFu ? 1 : 0;
+        runb[q + j] = (word[j] ^ (word[j] >> 8)) & 0xFFu ? 1 : 0;
       }
     }
   }
 }
 
-template <bool ALIGNED>
-void launch(unsigned blocks, cudaStream_t stream, const uint32_t* a, int s,
-            int32_t* w, int32_t* h, int32_t* runb, long long n) {
-  if (runb != nullptr)
-    lz4_prep_kernel<ALIGNED, true><<<blocks, kThreads, 0, stream>>>(
-        a, s, w, h, runb, n);
-  else
-    lz4_prep_kernel<ALIGNED, false><<<blocks, kThreads, 0, stream>>>(
-        a, s, w, h, runb, n);
-}
-
 }  // namespace
 
-// b: n bytes, any alignment; w, h: n int32 each, 16-byte aligned; runb: n
-// int32, 16-byte aligned, or null to skip it.  Returns the launch's
-// cudaError_t.
+// b: n bytes, any alignment; w, h, runb: n int32 each, 16-byte aligned.
+// Returns the launch's cudaError_t.
 extern "C" int lz4_prep(const void* b, void* w, void* h, void* runb,
                         long long n, int device, void* stream) {
   int cur = -1;
@@ -148,8 +133,8 @@ extern "C" int lz4_prep(const void* b, void* w, void* h, void* runb,
   auto* rp = static_cast<int32_t*>(runb);
   auto st = static_cast<cudaStream_t>(stream);
   if (s == 0)
-    launch<true>(blocks, st, a, s, wp, hp, rp, n);
+    lz4_prep_kernel<true><<<blocks, kThreads, 0, st>>>(a, s, wp, hp, rp, n);
   else
-    launch<false>(blocks, st, a, s, wp, hp, rp, n);
+    lz4_prep_kernel<false><<<blocks, kThreads, 0, st>>>(a, s, wp, hp, rp, n);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,6 +4,7 @@ version (taken for tensors on the CPU):
 * bit-plane pack/unpack (bitplane.py,       csrc/bitplane_pack.cu,
                                             csrc/bitplane_unpack.cu)
 * LZ4 match prep        (lz4.py,            csrc/lz4_prep.cu)
+* LZ4 match, from bytes (lz4.py,            csrc/lz4_match.cu)
 * decode attention      (decode_attn.py,    csrc/decode_attn.cu)
 * PNM page scoring      (pnm_score.py,      csrc/pnm_score.cu)
 * KV exponent delta     (kv_delta.py,       csrc/kv_delta.cu)

@@ -63,8 +63,9 @@ SIGNATURES = {
                                               _I, _I, _I, _I, _I, _I, _P)},
     "elastic_matmul": {"elastic_matmul": (_P, _P, _L, _P, _I, _I, _I, _I, _I,
                                           _I, _I, _I, _P)},
-    "lz4_match": {"lz4_match": (_P, _P, _P, _I, _I, _P, _P, _L, _I, _P),
-                  "lz4_match_tile_max": (), "lz4_match_table_bytes": ()},
+    "lz4_match": {"lz4_match": (_P, _P, _I, _I, _I, _P, _P, _L, _I, _P),
+                  "lz4_match_tile_max": (), "lz4_match_pack_bytes": (),
+                  "lz4_match_scratch_bytes": (_I,)},
 }
 
 # Launches per kernel: each wrapper adds one where it launches its kernel

@@ -2,32 +2,34 @@
 
 The encoder's hot path — match-table build, previous-occurrence
 resolution, LCP extension and greedy selection — over a whole flush
-group's concatenated (plane, block) streams.  On the card it is two
-launches and one copy back:
+group's concatenated (plane, block) streams.  On the card it is one
+launch and one copy back:
 
-1. **prep** — 4-byte little-endian words and multiplicative hashes for
-   every position: ``csrc/lz4_prep.cu`` (replacing
-   ``src/repro/kernels/lz4.py::_prep_kernel``; its byte-run boundaries,
-   which only the plain pipeline reads, are skipped here);
-2. **match** — ``csrc/lz4_match.cu`` (replacing the rest of the
-   reference's jitted ``_device_match_impl``): per stream the previous
+1. **match** — ``csrc/lz4_match.cu`` (replacing the reference's whole
+   jitted ``_device_match_impl``, its prep ``_prep_kernel`` included):
+   from the slab's bytes, per stream the words and hashes, the previous
    same-hash position, the candidate filter (window / end-of-block /
-   run-stride rules) and the greedy chain (run end for offset-1 runs,
-   word gallop plus an exact tail otherwise), every stream of the slab in
-   one launch, events in per-stream rows;
-3. the events and counts come back in one copy; streams are ascending
+   run-stride rules), the match lengths (run end for offset-1 runs, word
+   gallop plus an exact tail otherwise) and the greedy chain (pointer
+   doubling), every stream of the slab in one launch, events in
+   per-stream rows;
+2. the events and counts come back in one copy; streams are ascending
    and events rise within a stream, so dropping the unused row slots
    (:func:`compact_events`) leaves them sorted by position.
 
 :func:`lz4_match` is that wrapper; for a slab on the CPU it runs
-:func:`match_plain`, the same function as PyTorch operations (a stable
-sort of stream-namespaced hash keys, reverse cumulative minima for the
-next-candidate and run-end tables, then Python-driven rounds that advance
-every live stream by one match), which is also what the card's kernel is
-held against.
+:func:`match_plain`, the same function as PyTorch operations (the prep's
+plain version, a stable sort of stream-namespaced hash keys, reverse
+cumulative minima for the next-candidate and run-end tables, then
+Python-driven rounds that advance every live stream by one match), which
+is also what the card's kernel is held against.  :func:`match_chain_plain`
+follows the kernel's own selection rule in PyTorch operations (chain-end
+lengths, next candidates by rank, the chain by pointer doubling); only
+the tests run it.  The prep's kernel (``csrc/lz4_prep.cu``,
+:func:`lz4_prep`) stays as the reference's ``_prep_kernel`` on its own.
 
 :func:`match_events_slab` dispatches on where the slab lives: a tensor on
-the card takes the kernels, host data takes the vectorized-numpy twin
+the card takes the kernel, host data takes the vectorized-numpy twin
 (the CPU production encoder).  ``force="device"`` runs :func:`lz4_match`
 on a tensor's device (:func:`match_plain` on the CPU), ``force="numpy"``
 pins the twin.  All are byte-identical to the scalar reference
@@ -88,10 +90,10 @@ def match_events_slab(slab, starts, ends,
 # prep: Hopper kernel + plain PyTorch version
 # ---------------------------------------------------------------------------
 
-def prep_plain(buf: torch.Tensor, runb: bool = True):
+def prep_plain(buf: torch.Tensor):
     """Plain PyTorch prep over a flat uint8 slab → ``(w, h, runb)`` int32
     tensors of length N (bytes past the end read as 0; ``w`` holds the
-    uint32 word's bits; ``runb`` None when not asked for).  int64
+    uint32 word's bits).  int64
     arithmetic: the 32x32-bit hash product is split so it never leaves
     int64's range."""
     n = buf.numel()
@@ -102,32 +104,27 @@ def prep_plain(buf: torch.Tensor, runb: bool = True):
     prod = (lo * _HASH_MUL + (((hi * _HASH_MUL) & 0xFFFF) << 16)) & 0xFFFFFFFF
     h = prod >> (32 - HASH_LOG)
     w32 = torch.where(w >= 1 << 31, w - (1 << 32), w)
-    return (w32.to(torch.int32), h.to(torch.int32),
-            (b0 != b1).to(torch.int32) if runb else None)
+    return w32.to(torch.int32), h.to(torch.int32), (b0 != b1).to(torch.int32)
 
 
-def lz4_prep(buf: torch.Tensor, runb: bool = True):
+def lz4_prep(buf: torch.Tensor):
     """Prep of a flat uint8 slab (any start) on its device: the CUDA kernel
-    on the card, :func:`prep_plain` on the CPU.  Returns ``(w, h, runb)``;
-    with ``runb=False`` the run flags are neither computed nor written, and
-    ``runb`` is None."""
+    on the card, :func:`prep_plain` on the CPU.  Returns ``(w, h, runb)``."""
     if buf.dtype != torch.uint8 or buf.dim() != 1:
         raise TypeError(f"prep expects a flat uint8 slab, got {buf.dtype} "
                         f"{tuple(buf.shape)}")
     if buf.device.type == "cpu":
-        return prep_plain(buf, runb)
+        return prep_plain(buf)
     if buf.device.type != "cuda":
         raise ValueError(f"unsupported device {buf.device}")
     if not buf.is_contiguous():
         raise ValueError("prep kernel needs a contiguous slab")
     n = buf.numel()
-    w, h = (torch.empty(n, dtype=torch.int32, device=buf.device)
-            for _ in range(2))
-    run = torch.empty(n, dtype=torch.int32, device=buf.device) if runb \
-        else None
+    w, h, run = (torch.empty(n, dtype=torch.int32, device=buf.device)
+                 for _ in range(3))
     rc = build.load("lz4_prep").lz4_prep(
-        buf.data_ptr(), w.data_ptr(), h.data_ptr(),
-        None if run is None else run.data_ptr(), n, buf.device.index,
+        buf.data_ptr(), w.data_ptr(), h.data_ptr(), run.data_ptr(), n,
+        buf.device.index,
         torch.cuda.current_stream(buf.device).cuda_stream)
     build.check(rc, "lz4_prep")
     build.LAUNCHES["lz4_prep"] += 1
@@ -562,27 +559,253 @@ def match_plain(buf: torch.Tensor, starts: np.ndarray, ends: np.ndarray):
                           event_rows(starts, ends))
 
 
-def _scratch_bytes(n: int, table_bytes: int) -> int:
-    """Global scratch of a stream too long for the kernel's shared-memory
-    tile (lz4_match.cu's layout: the int32 hash tables, then per position
-    int32 dist, int2 record and int4 jumps, then the candidate and run
-    bits)."""
-    lp = -(-n // 128) * 128
-    return table_bytes + 28 * lp + lp // 4
+def match_chain_plain(buf: torch.Tensor, starts: np.ndarray,
+                      ends: np.ndarray):
+    """The match kernel's selection rule as PyTorch operations on ``buf``'s
+    device (the tests hold it to :func:`match_plain` and the reference):
+    ``(pos, dist, mlen)`` int64 arrays sorted by position.
+
+    prev() and the candidate test as in :func:`match_rows_plain` (the prep
+    through :func:`prep_plain`); then, as ``csrc/lz4_match.cu`` does:
+    candidate ranks (the rank of the first candidate at or after a
+    position is the count before it); reverse cumulative minima for the
+    run ends and the same-distance chain ends; match lengths of chain
+    ends measured (run end for distance 1, else a word gallop and a byte
+    tail), inside a chain ``LCP(p) = (e - p) + LCP(e)``; each candidate's
+    next candidate by rank, none past its stream; in chunks of 32 ranks,
+    each candidate's exit from its chunk and the chain nodes up to it by
+    pointer doubling; each stream's chain over the chunks (an entry in a
+    chunk, its events before); and the nodes on the chain from each entry
+    by pointer doubling, written to their rows as the kernel writes them.
+    """
+    N = int(buf.numel())
+    dev = buf.device
+    i64 = torch.int64
+    S = int(starts.size)
+    if N < MIN_MATCH or S == 0:
+        return _EMPTY
+    npos = N - 3
+    sid, covered = _stream_ids(npos, starts, ends)
+    sidc = np.minimum(sid, S - 1)
+    valid = covered & (np.arange(npos) + MIN_MATCH <= ends[sidc])
+    local = np.arange(npos) - starts[sidc]
+    start_ok = valid & (local < (ends - starts)[sidc] - MFLIMIT)
+    stride_ok = (local >= 2) & (local % RUN_STRIDE != 0)
+
+    def up(a, dtype=i64):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+    valid_t, start_ok_t, stride_ok_t = (up(a, torch.bool)
+                                        for a in (valid, start_ok, stride_ok))
+    w, h, runb = prep_plain(buf)
+    w, h = w[:npos].to(i64), h[:npos].to(i64)
+    b = buf.to(i64)
+    iota = torch.arange(npos, dtype=i64, device=dev)
+    # prev(): the stable-sort neighbour of the stream-namespaced hash key
+    BIG = (S + 1) * HASH_SIZE
+    keys = torch.where(valid_t, up(sidc) * HASH_SIZE + h, BIG)
+    sk, order = torch.sort(keys, stable=True)
+    prev = torch.full((npos,), -1, dtype=i64, device=dev)
+    prev[order[1:]] = torch.where((sk[1:] == sk[:-1]) & (sk[1:] < BIG),
+                                  order[:-1], -1)
+    dist = iota - prev
+    pc = prev.clamp(min=0)
+    bm = torch.cat([torch.zeros(2, dtype=i64, device=dev), b])
+    ok = (start_ok_t & (prev >= 0) & (dist <= 0xFFFF) & (w == w[pc])
+          & ~((dist == 1) & stride_ok_t & (bm[:npos] == bm[1 : npos + 1])))
+    # ranks: cs[x] = candidates before x = the rank of the first at or
+    # after x
+    cs = torch.cat([torch.zeros(1, dtype=i64, device=dev),
+                    torch.cumsum(ok.to(i64), 0)])
+    cpos = torch.nonzero(ok).flatten()
+    C = int(cpos.numel())
+    if C == 0:
+        return _EMPTY
+    d = dist[cpos]
+    # reverse cumulative minima: the next run bit, the next chain end
+    run_at = torch.where(runb[:npos] > 0, iota, npos)
+    run_end = _rev_cummin(run_at)
+    nxt_ok = torch.cat([ok[1:], torch.zeros(1, dtype=torch.bool,
+                                            device=dev)])
+    nxt_d = torch.cat([dist[1:], torch.zeros(1, dtype=i64, device=dev)])
+    link = ok & nxt_ok & (nxt_d == dist) & (dist > 1)
+    chain_end = _rev_cummin(torch.where(link, npos, iota))
+    cap = up(ends)[up(sidc)[cpos]] - LAST_LITERALS - cpos
+    m = torch.zeros(C, dtype=i64, device=dev)
+    run = d == 1
+    m[run] = torch.minimum(run_end[cpos[run]] - cpos[run] + 1, cap[run])
+    end = ~run & ~link[cpos]
+    p, c, cp = cpos[end], cpos[end] - d[end], cap[end]
+    me = torch.full_like(p, MIN_MATCH)
+    while True:     # word gallop while the words agree and fit
+        adv = (me + 4 <= cp) & (w[(p + me).clamp(max=npos - 1)]
+                                 == w[(c + me).clamp(max=npos - 1)])
+        if not bool(adv.any()):
+            break
+        me = me + 4 * adv.to(i64)
+    for _ in range(3):      # exact <= 3-byte tail
+        me = me + ((me < cp) & (b[(p + me).clamp(max=N - 1)]
+                                == b[(c + me).clamp(max=N - 1)])).to(i64)
+    m[end] = me
+    inner = link[cpos]
+    e = chain_end[cpos[inner]]
+    m[inner] = e - cpos[inner] + m[cs[e]]
+    # next candidates by rank (C: none past the stream)
+    re = cs[up(np.minimum(ends, npos))]
+    rb = cs[up(np.minimum(starts, npos))]
+    nxt = cs[cpos + m]
+    J = torch.where(nxt < re[up(sidc)[cpos]], nxt, C)
+    # chunks of 32 ranks: each candidate's exit from its chunk and the
+    # chain nodes up to it, by pointer doubling (list ranking)
+    rank = torch.arange(C, dtype=i64, device=dev)
+    chunk = rank // 32
+    inside = (J < C) & (J // 32 == chunk)
+    succ = torch.where(inside, J, C)
+    link, ex, cnt = succ.clone(), J.clone(), torch.ones(C, dtype=i64,
+                                                       device=dev)
+    for _ in range(5):
+        has = link < C
+        at = link.clamp(max=C - 1)
+        cnt = torch.where(has, cnt + cnt[at], cnt)
+        ex = torch.where(has, ex[at], ex)
+        link = torch.where(has, link[at], link)
+    # each stream's chain over the chunks: entries and events before
+    entry = torch.zeros(C, dtype=torch.bool, device=dev)
+    before = torch.zeros(C, dtype=i64, device=dev)
+    count = np.zeros(S, dtype=np.int64)
+    exits, cnts = ex.tolist(), cnt.tolist()
+    for s, (b0, b1) in enumerate(zip(rb.tolist(), re.tolist())):
+        e = b0 if b0 < b1 else C
+        while e < C:
+            entry[e] = True
+            before[e] = int(count[s])
+            count[s] += cnts[e]
+            e = exits[e]
+    # per chunk, the nodes on the chain from its entries by doubling
+    on = entry.clone()
+    step = succ.clone()
+    for _ in range(5):
+        hit = torch.zeros(C + 1, dtype=torch.bool, device=dev)
+        hit[step[on]] = True
+        on |= hit[:C]
+        step = torch.cat([step, step.new_full((1,), C)])[step]
+    # rows: the entry at or before a node in its chunk (a stream's ranks
+    # are contiguous), its events before, the nodes between
+    last = torch.cummax(torch.where(entry, rank, -1), 0).values
+    assert bool((last[on] >= 0).all() and (last[on] // 32 == chunk[on]).all())
+    el = last.clamp(min=0)
+    row = before[el] + cnt[el] - cnt
+    rows = event_rows(starts, ends)
+    sid_c = up(sidc)[cpos]
+    out = torch.zeros((3, int(rows[-1])), dtype=i64, device=dev)
+    at = up(rows[:-1])[sid_c[on]] + row[on]
+    out[:, at] = torch.stack([cpos[on], d[on], m[on]])
+    return compact_events(out.cpu().numpy(), count, rows)
+
+
+def match_plan(starts, ends, addr: int, pack: int, tile_max: int,
+               scratch_bytes, rows=None):
+    """The match kernel's launch layout, on the host (numpy): ``(meta, B,
+    tile, scratch)``.
+
+    A stream's region starts on a 32-position word of its block and runs
+    ``max(32, ceil32(off + L))`` positions, ``off`` its first byte's
+    address (``addr + start``) mod 16, where its first byte lies.
+    Consecutive streams of at most ``pack`` region bytes form a block
+    while their regions start within one ``pack`` window; every longer
+    stream is a block of its own, staged up to ``tile_max`` positions and
+    past that in global scratch (``scratch_bytes(P)`` bytes for P
+    positions, P its region rounded up to 512).  ``meta`` (int64): starts,
+    ends, first event rows, scratch offsets (-1: staged), block-local first
+    positions, then each block's first stream and S; ``tile`` the largest
+    staged block's positions rounded up to 128; ``scratch`` the scratch
+    bytes in all.  ``rows``: :func:`event_rows`, when the caller has them.
+    """
+    starts = np.asarray(starts, dtype=np.int64).ravel()
+    ends = np.asarray(ends, dtype=np.int64).ravel()
+    S = int(starts.size)
+    if rows is None:
+        rows = event_rows(starts, ends)
+    off = (addr + starts) & 15
+    rsz = np.maximum((off + ends - starts + 31) & ~31, 32)
+    before = np.cumsum(rsz) - rsz
+    small = rsz <= min(pack, tile_max // 2)
+    sm = np.where(small, rsz, 0)
+    window = (np.cumsum(sm) - sm) // pack
+    new = np.ones(S, dtype=bool)
+    new[1:] = ~small[1:] | ~small[:-1] | (window[1:] != window[:-1])
+    first = np.flatnonzero(new)
+    spans = np.add.reduceat(rsz, first) if S else rsz
+    cst = before - before[first][np.cumsum(new) - 1] + off
+    soff = np.full(S, -1, dtype=np.int64)
+    nscr = 0
+    long = rsz > tile_max
+    if long.any():
+        spans = spans[~long[first]]
+        a0 = scratch_bytes(0)
+        per = a0 + (scratch_bytes(512) - a0) * (-(-rsz[long] // 512))
+        soff[long] = np.cumsum(per) - per
+        nscr = int(per.sum())
+    tile = int(-(-spans.max() // 128) * 128) if spans.size else 0
+    meta = np.concatenate([starts, ends, rows[:-1], soff, cst, first, [S]])
+    return meta, int(first.size), tile, nscr
+
+
+def _lib_geometry(lib):
+    """(pack, tile_max, scratch_bytes) of a match library, asked once."""
+    geo = getattr(lib, "_match_geometry", None)
+    if geo is None:
+        sizes = {}
+
+        def scratch_bytes(P: int) -> int:
+            if P not in sizes:
+                sizes[P] = int(lib.lz4_match_scratch_bytes(P))
+            return sizes[P]
+
+        geo = (int(lib.lz4_match_pack_bytes()),
+               int(lib.lz4_match_tile_max()), scratch_bytes)
+        lib._match_geometry = geo
+    return geo
+
+
+PLANS_KEPT = 256    # launch layouts a match library keeps (oldest goes)
+
+
+def _plan_of(lib, buf: torch.Tensor, starts: np.ndarray, ends: np.ndarray):
+    """``(meta, B, tile, scratch, rows)`` of a launch on checked bounds:
+    :func:`match_plan`'s layout with its meta uploaded to the slab's
+    device.  Kept on the library by the device, the slab's address mod 16
+    and the bounds, since a flush or a weight's planes repeat them: a
+    repeat neither lays out nor uploads again.  ``rows`` is read-only."""
+    key = (buf.device, buf.data_ptr() & 15, starts.tobytes(), ends.tobytes())
+    plans = getattr(lib, "_match_plans", None)
+    if plans is None:
+        plans = lib._match_plans = {}
+    plan = plans.get(key)
+    if plan is None:
+        rows = event_rows(starts, ends)
+        rows.setflags(write=False)
+        meta, B, tile, nscr = match_plan(starts, ends, buf.data_ptr(),
+                                         *_lib_geometry(lib), rows=rows)
+        if len(plans) >= PLANS_KEPT:
+            del plans[next(iter(plans))]
+        plan = plans[key] = (torch.from_numpy(meta).to(buf.device), B, tile,
+                             nscr, rows)
+    return plan
 
 
 def match_launch(buf: torch.Tensor, starts, ends, lib=None):
     """The match kernel's launch on a contiguous uint8 slab on the card,
-    set up once: checks the stream bounds, runs the prep kernel (words
-    and hashes; no run flags, which the match kernel never reads), uploads
-    the per-stream meta rows (starts, ends, first event row, scratch
-    offset) and allocates the output and the long streams' scratch.
-    Returns ``(launch, out, rows)``: ``launch()`` runs the match kernel
-    once on PyTorch's current stream and raises if it fails (it counts
-    nothing: :func:`lz4_match` does), ``out`` its ``S + 3 E`` int32 output
-    (counts | pos | dist | mlen, read by :func:`match_result`), ``rows``
-    the streams' event rows (:func:`event_rows`).  ``launch`` is None
-    when no stream has a byte to match.  ``lib`` is the built library
+    set up once: checks the stream bounds, lays the streams out into
+    blocks (:func:`match_plan`) and uploads the meta, both kept for a
+    repeat of the same bounds (:func:`_plan_of`), and allocates the output
+    and the long streams' scratch (none when no stream needs it).  Returns
+    ``(launch, out, rows)``: ``launch()`` runs the match kernel once on
+    PyTorch's current stream and raises if it fails (it counts nothing:
+    :func:`lz4_match` does), ``out`` its ``S + 3 E`` int32 output (counts
+    | pos | dist | mlen, read by :func:`match_result`), ``rows`` the
+    streams' event rows (:func:`event_rows`, read-only).  ``launch`` is
+    None when no stream has a byte to match.  ``lib`` is the built library
     (default: ``csrc/lz4_match.cu``'s)."""
     starts = np.asarray(starts, dtype=np.int64).ravel()
     ends = np.asarray(ends, dtype=np.int64).ravel()
@@ -598,50 +821,45 @@ def match_launch(buf: torch.Tensor, starts, ends, lib=None):
     if N >= 1 << 31:
         raise ValueError(f"slab of {N} bytes: positions are int32")
     S = int(starts.size)
-    rows = event_rows(starts, ends)
     if S == 0 or N < MIN_MATCH:
-        return None, None, rows
-    E = int(rows[-1])
+        return None, None, event_rows(starts, ends)
     lib = build.load("lz4_match") if lib is None else lib
-    tile_max = lib.lz4_match_tile_max()
-    long = sizes > tile_max
-    staged = sizes[~long]
-    tile = -(-max(int(staged.max()), 1) // 128) * 128 if staged.size else 0
-    soff = np.full(S, -1, dtype=np.int64)
-    table_bytes = lib.lz4_match_table_bytes()
-    nscr = np.array([_scratch_bytes(int(n), table_bytes)
-                     for n in sizes[long]], dtype=np.int64)
-    soff[long] = np.cumsum(nscr) - nscr
+    meta, B, tile, nscr, rows = _plan_of(lib, buf, starts, ends)
+    E = int(rows[-1])
     dev = buf.device
-    meta = torch.from_numpy(np.stack([starts, ends, rows[:-1], soff])).to(dev)
-    scratch = torch.empty(max(int(nscr.sum()), 1), dtype=torch.uint8,
-                          device=dev)
+    scratch = (torch.empty(nscr, dtype=torch.uint8, device=dev) if nscr
+               else None)
     out = torch.empty(S + 3 * E, dtype=torch.int32, device=dev)
-    w, h, _ = lz4_prep(buf, runb=False)
 
     def launch():
         build.check(lib.lz4_match(
-            w.data_ptr(), h.data_ptr(), meta.data_ptr(), S, tile,
-            scratch.data_ptr(), out.data_ptr(), E, dev.index,
-            torch.cuda.current_stream(dev).cuda_stream), "lz4_match")
+            buf.data_ptr(), meta.data_ptr(), S, B, tile,
+            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+            E, dev.index, torch.cuda.current_stream(dev).cuda_stream),
+            "lz4_match")
 
     return launch, out, rows
 
 
 def match_result(out: torch.Tensor, rows: np.ndarray):
-    """The match kernel's output (:func:`match_launch`) copied back once:
-    ``(pos, dist, mlen)`` int64 arrays sorted by position."""
+    """The match kernel's output (:func:`match_launch`) copied back once,
+    into pinned memory: ``(pos, dist, mlen)`` int64 arrays sorted by
+    position."""
     S, E = rows.size - 1, int(rows[-1])
-    host = out.cpu().numpy()
+    host = out
+    if out.device.type == "cuda":
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        torch.cuda.current_stream(out.device).synchronize()
+    host = host.numpy()
     return compact_events(host[S:].reshape(3, E), host[:S], rows)
 
 
 def lz4_match(buf: torch.Tensor, starts, ends):
     """Greedy match events of every stream of a flat uint8 slab on its
-    device: on the card the prep kernel, then one launch of the match
-    kernel and one copy of the events back; on the CPU
-    :func:`match_plain`.  Returns ``(pos, dist, mlen)`` int64 arrays
-    sorted by position."""
+    device: on the card one launch of the match kernel (from the bytes)
+    and one copy of the events back; on the CPU :func:`match_plain`.
+    Returns ``(pos, dist, mlen)`` int64 arrays sorted by position."""
     if buf.dtype != torch.uint8 or buf.dim() != 1:
         raise TypeError(f"match expects a flat uint8 slab, got {buf.dtype} "
                         f"{tuple(buf.shape)}")

@@ -7,7 +7,7 @@ its runtime-assigned precision view through plane-aligned fetch
 (Granularity I/II), while word devices always move full containers.
 
 :class:`WeightStore` writes each unit once (bit-plane compressed on
-TRACE: the pack, LZ4 prep and match kernels on the card) and reads it
+TRACE: the pack and LZ4 match kernels on the card) and reads it
 back at its view (the standalone unpack + view round on the card),
 tallying device-DRAM and link bytes in the receipts, so a serving loop
 can measure the traffic of an importance policy with real bytes (the

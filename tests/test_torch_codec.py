@@ -86,37 +86,30 @@ def test_plain_prep_matches_pallas(n):
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 4, 15, 16, 17, 4097])
-def test_plain_prep_without_runb_matches_full_call_and_pallas(n):
-    """``runb=False`` (the match path's call) gives the full call's words
-    and hashes, which are the reference kernel's, and no run flags."""
+def test_plain_prep_run_flags_are_byte_changes(n):
+    """The run flag at i is b[i] != b[i+1], the byte past the end read as
+    0, the reference kernel's flag wherever it computes one."""
     buf = np.random.default_rng(n + 1).integers(0, 3, n, dtype=np.uint8)
-    w, h, runb = tlz4.prep_plain(torch.from_numpy(buf), runb=False)
-    assert runb is None
-    fw, fh, frun = tlz4.prep_plain(torch.from_numpy(buf))
-    assert torch.equal(w, fw) and torch.equal(h, fh) and frun.numel() == n
-    rw, rh, _ = rlz4._prep_pallas(jnp.asarray(buf), interpret=True)
-    m = _pallas_prep_span(n)
-    np.testing.assert_array_equal(w.numpy().view(np.uint32)[:m],
-                                  np.asarray(rw)[:m])
-    np.testing.assert_array_equal(h.numpy()[:m], np.asarray(rh)[:m])
+    _, _, runb = tlz4.prep_plain(torch.from_numpy(buf))
+    assert runb.dtype == torch.int32 and runb.numel() == n
+    nxt = np.append(buf[1:], 0)
+    np.testing.assert_array_equal(runb.numpy(), (buf != nxt).astype(np.int32))
+    _, _, rrun = rlz4._prep_pallas(jnp.asarray(buf), interpret=True)
+    m = min(_pallas_prep_span(n), n - 1)
+    np.testing.assert_array_equal(runb.numpy()[:m], np.asarray(rrun)[:m])
 
 
-@pytest.mark.parametrize("runb", [True, False])
-def test_prep_wrapper_on_cpu_takes_plain_at_any_start(runb):
-    """The CPU wrapper is the plain version, counts no launch, returns None
-    for ``runb`` when not asked for it, and takes a view at any byte
-    offset (the card kernel handles any start too)."""
-    raw = np.random.default_rng(9).integers(0, 4, 1003, dtype=np.uint8)
+@pytest.mark.parametrize("n", [1003, 6])
+def test_prep_wrapper_on_cpu_takes_plain_at_any_start(n):
+    """The CPU wrapper is the plain version, counts no launch, and takes a
+    view at any byte offset (the card kernel handles any start too)."""
+    raw = np.random.default_rng(9).integers(0, 4, n, dtype=np.uint8)
     before = build.LAUNCHES["lz4_prep"]
     for off in range(5):
         view = torch.from_numpy(raw)[off:]
-        got = tlz4.lz4_prep(view, runb=runb)
+        got = tlz4.lz4_prep(view)
         want = tlz4.prep_plain(torch.from_numpy(raw[off:].copy()))
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-        if runb:
-            assert torch.equal(got[2], want[2])
-        else:
-            assert got[2] is None
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert build.LAUNCHES["lz4_prep"] == before
 
 
@@ -129,8 +122,6 @@ def test_prep_wrapper_on_cpu_takes_plain_at_any_start(runb):
 def test_prep_wrapper_rejects_bad_inputs(bad):
     with pytest.raises(TypeError):
         tlz4.lz4_prep(bad())
-    with pytest.raises(TypeError):
-        tlz4.lz4_prep(bad(), runb=False)
 
 
 @pytest.mark.parametrize("which", [0, 1, 2])

@@ -104,78 +104,63 @@ def test_pack_kernel_rejects_a_misaligned_slab(card):
 PREP_SIZES = [1, 2, 3, 4, 5, 15, 16, 17, 1000, 262144, 262147]
 
 
-@pytest.mark.parametrize("runb", [True, False])
 @pytest.mark.parametrize("n", PREP_SIZES)
-def test_prep_kernel_matches_plain(card, n, runb):
+def test_prep_kernel_matches_plain(card, n):
     rng = np.random.default_rng(n)
     buf = torch.from_numpy(rng.integers(0, 3, n, dtype=np.uint8)).to(card)
     before = build.LAUNCHES["lz4_prep"]
-    got = lz4.lz4_prep(buf, runb=runb)
+    got = lz4.lz4_prep(buf)
     assert build.LAUNCHES["lz4_prep"] == before + 1
-    want = lz4.prep_plain(buf, runb=runb)
-    assert (got[2] is None) == (not runb) == (want[2] is None)
+    want = lz4.prep_plain(buf)
     for g, w in zip(got, want):
-        if w is not None:
-            assert torch.equal(g, w)
-    again = lz4.lz4_prep(buf, runb=runb)                     # deterministic
-    assert all(a is b is None or torch.equal(a, b) for a, b in zip(again, got))
+        assert torch.equal(g, w)
+    again = lz4.lz4_prep(buf)                                # deterministic
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
 
 
-@pytest.mark.parametrize("runb", [True, False])
 @pytest.mark.parametrize("off", [1, 2, 3, 4, 5, 17])
 @pytest.mark.parametrize("n", [1, 3, 7, 129, 1000, 262147])
-def test_prep_kernel_at_any_start(card, n, off, runb):
+def test_prep_kernel_at_any_start(card, n, off):
     """A view starting ``off`` bytes into a larger slab (the bytes around
     it nonzero): words, hashes and run flags of the view alone."""
     rng = np.random.default_rng(n + off)
     raw = torch.from_numpy(rng.integers(1, 4, n + off + 7,
                                         dtype=np.uint8)).to(card)
     view = raw[off : off + n]
-    got = lz4.lz4_prep(view, runb=runb)
-    want = lz4.prep_plain(view.clone(), runb=runb)
+    got = lz4.lz4_prep(view)
+    want = lz4.prep_plain(view.clone())
     for g, w in zip(got, want):
-        assert (g is None and w is None) or torch.equal(g, w)
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("n", [5, 262147])
 def test_prep_kernel_writes_only_what_it_is_asked_for(card, n):
-    """Outputs inside guarded buffers: no write past n, and with a null
-    run-flag pointer none at all (the match path's call)."""
+    """Outputs inside guarded buffers: no write past n."""
     rng = np.random.default_rng(n)
     buf = torch.from_numpy(rng.integers(0, 3, n, dtype=np.uint8)).to(card)
     lib = build.load("lz4_prep")
     stream = torch.cuda.current_stream(card).cuda_stream
     want = lz4.prep_plain(buf)
-    for runb in (True, False):
-        outs = [torch.full((n + 64,), -7, dtype=torch.int32, device=card)
-                for _ in range(3)]
-        build.check(lib.lz4_prep(
-            buf.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
-            outs[2].data_ptr() if runb else None, n, card.index, stream),
-            "lz4_prep")
-        for i, o in enumerate(outs):
-            if i < 2 or runb:
-                assert torch.equal(o[:n], want[i])
-                assert bool((o[n:] == -7).all())
-            else:
-                assert bool((o == -7).all())
+    outs = [torch.full((n + 64,), -7, dtype=torch.int32, device=card)
+            for _ in range(3)]
+    build.check(lib.lz4_prep(
+        buf.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
+        outs[2].data_ptr(), n, card.index, stream), "lz4_prep")
+    for o, w in zip(outs, want):
+        assert torch.equal(o[:n], w)
+        assert bool((o[n:] == -7).all())
 
 
-def test_match_path_asks_prep_for_no_run_flags(card, monkeypatch):
-    """``lz4_match`` (serving's match) launches the prep once without run
-    flags: the wrapper allocates and returns none."""
+def test_match_path_launches_no_prep(card, monkeypatch):
+    """``lz4_match`` (serving's match) is one launch from the slab's bytes:
+    it computes the words and hashes itself and never calls the prep."""
     seen = []
-    prep = lz4.lz4_prep
-
-    def record(buf, runb=True):
-        out = prep(buf, runb=runb)
-        seen.append(out[2])
-        return out
-
-    monkeypatch.setattr(lz4, "lz4_prep", record)
+    monkeypatch.setattr(lz4, "lz4_prep", lambda *a, **kw: seen.append(1))
     buf, starts, ends = torch_lz4_cases.cases()["kv_slab"]
+    before = dict(build.LAUNCHES)
     got = lz4.lz4_match(torch.from_numpy(buf).to(card), starts, ends)
-    assert seen == [None]
+    assert seen == [] and build.LAUNCHES["lz4_prep"] == before["lz4_prep"]
+    assert build.LAUNCHES["lz4_match"] == before["lz4_match"] + 1
     want = lz4.match_events_slab(buf, starts, ends, force="numpy")
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
@@ -196,9 +181,11 @@ def test_match_pipeline_on_card_matches_numpy_twin(card):
         np.testing.assert_array_equal(r, g)
 
 
-LZ4_CASES = ["kv_slab", "kv_slab_prescreened", "lengths", "gapped",
-             "periodic_3900", "long_65537", "far_repeat", "hash_collision",
-             "runs", "next_stream", "long_131072"]
+LZ4_CASES = ["kv_slab", "kv_slab_prescreened", "weight_slab", "lengths",
+             "gapped", "periodic_3900", "long_65537", "far_repeat",
+             "hash_collision", "runs", "next_stream", "long_131072",
+             "runs_over_cap", "long_matches", "far_next", "broken_chain",
+             "single_and_short"]
 
 
 @pytest.fixture(scope="module")
@@ -216,16 +203,17 @@ def lz4_slabs():
 @pytest.mark.parametrize("name", LZ4_CASES)
 def test_match_kernel_matches_plain(card, lz4_slabs, name):
     """lz4_match.cu against the plain pipeline on the card and the numpy
-    twin, event for event: main-path slabs, stream lengths 0-4096, streams
-    of 65537 bytes and more (the global-scratch path), the 0xFFFF window,
-    hash collisions, runs and cursors that reach the next stream.  One
-    launch of each kernel per call."""
+    twin, event for event: main-path slabs (a flush, a weight load),
+    stream lengths 0-4096, streams of 65537 bytes and more (the
+    global-scratch path), the 0xFFFF window, hash collisions, runs,
+    cursors that reach the next stream and the selection cases.  One
+    launch of the match kernel per call and none of the prep."""
     buf, starts, ends = lz4_slabs[name]
     d = torch.from_numpy(buf).to(card)
     before = dict(build.LAUNCHES)
     got = lz4.lz4_match(d, starts, ends)
     assert build.LAUNCHES["lz4_match"] == before["lz4_match"] + 1
-    assert build.LAUNCHES["lz4_prep"] == before["lz4_prep"] + 1
+    assert build.LAUNCHES["lz4_prep"] == before["lz4_prep"]
     want = lz4.match_events_slab(buf, starts, ends, force="numpy")
     for g, w in zip(got, want):
         assert g.dtype == np.int64
@@ -233,6 +221,23 @@ def test_match_kernel_matches_plain(card, lz4_slabs, name):
     if name != "long_131072":     # the plain rounds take minutes there
         for g, p in zip(got, lz4.match_plain(d, starts, ends)):
             np.testing.assert_array_equal(g, p)
+
+
+@pytest.mark.parametrize("off", [1, 3, 8, 13])
+@pytest.mark.parametrize("name", ["kv_slab_prescreened", "weight_slab",
+                                  "lengths", "gapped", "long_65537"])
+def test_match_kernel_at_any_slab_address(card, lz4_slabs, name, off):
+    """The slab at every address mod 16 (a view ``off`` bytes into a
+    tensor): the bulk copies take each stream's aligned middle, the
+    threads its head and tail."""
+    buf, starts, ends = lz4_slabs[name]
+    d = torch.from_numpy(np.concatenate([np.full(off, 0x5A, np.uint8),
+                                         buf])).to(card)[off:]
+    assert d.data_ptr() % 16 == off % 16
+    got = lz4.lz4_match(d, starts, ends)
+    want = lz4.match_events_slab(buf, starts, ends, force="numpy")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
 
 
 def test_match_kernel_rejects_what_it_cannot_take(card, lz4_slabs):
@@ -683,9 +688,10 @@ def test_engine_on_card_runs_every_kernel(card):
     """Classic readback and the PNM path (attention importance, 2 shards)
     on the card: together they launch every serving kernel (all but the
     elastic matmul and the standalone KV inverse, which only the kernel
-    API reaches, and decode attention's host-length entry, which the dry
+    API reaches, decode attention's host-length entry, which the dry
     run's step takes: the engine's captured step takes the device
-    length)."""
+    length, and the LZ4 prep, whose words and hashes the match kernel
+    computes itself)."""
     cfg = smoke_config(ARCHS["qwen2-0.5b"])
     params = init_params(cfg, seed=0, device=card)
     build.reset_launches()
@@ -707,9 +713,10 @@ def test_engine_on_card_runs_every_kernel(card):
     # decode attention launches at the position on the device only (the
     # captured step): the host-length entry is the dry run's
     assert build.LAUNCHES["decode_attn"] == 0, build.LAUNCHES
+    assert build.LAUNCHES["lz4_prep"] == 0, build.LAUNCHES
     assert all(build.LAUNCHES[name] > 0 for name in build.KERNELS
                if name not in ("elastic_matmul", "kv_delta_inv",
-                               "decode_attn")), \
+                               "decode_attn", "lz4_prep")), \
         build.LAUNCHES
 
 
@@ -1139,7 +1146,7 @@ def test_unpack_kernel_at_a_weight(card, view):
 def test_scalar_encoder_pack_on_card_matches_the_slab_pack(card,
                                                           monkeypatch):
     """``TierStore(batched_encode=False)`` packs each block in a launch of
-    its own and runs the LZ4 prep and match on the card for each block
+    its own and runs the LZ4 match (no prep) on the card for each block
     with a plane stream the pre-screen keeps; its planes, payloads and
     receipts equal the batched slab pack's and the CPU's."""
     from repro_torch.core import codec as codecs
@@ -1168,11 +1175,12 @@ def test_scalar_encoder_pack_on_card_matches_the_slab_pack(card,
             n_match = matched.count("cpu")
             assert got["bitplane_pack"] == blocks == 18
             assert got["kv_delta_fwd"] == 1
-            assert 0 < got["lz4_prep"] == got["lz4_match"] == n_match \
+            assert got["lz4_prep"] == 0
+            assert 0 < got["lz4_match"] == n_match \
                 == matched.count("scalar") <= blocks
         elif name == "batched":
             assert got["bitplane_pack"] == 1
-            assert got["lz4_prep"] == got["lz4_match"] == 1
+            assert got["lz4_prep"] == 0 and got["lz4_match"] == 1
         state[name] = ([(k, [(b.payloads, b.flags) for b in bl])
                         for k, bl in t._tensors.items()],
                        [{f: v for f, v in vars(r).items() if f != "data"}

@@ -53,6 +53,25 @@ def kv_slab(seed: int = 3, windows: int = 16, tokens: int = 64,
     return buf, starts, ends, starts[keep], ends[keep]
 
 
+def weight_slab(seed: int = 5, blocks: int = 64, block: int = 2048):
+    """An encode slab as the weight store builds one: bf16 weights of
+    random normal values times 0.02, cut into blocks of ``block`` words,
+    16 planes x ``blocks`` streams of ``block / 8`` bytes (1024 x 256 at
+    the weight path's shape); the bounds the pre-screen leaves to the
+    match (the others are gaps)."""
+    rng = np.random.default_rng(seed)
+    f = (rng.standard_normal(blocks * block) * 0.02).astype(np.float32)
+    u = (f.view(np.uint32) >> 16).astype(np.uint16)
+    planes = bitplane.pack_planes_u16(torch.from_numpy(u.view(np.int16)))
+    buf = planes.reshape(-1).numpy().view(np.uint8).copy()
+    nb = block // 8
+    starts = (np.arange(16)[:, None] * planes.shape[1]
+              + np.arange(blocks)[None, :] * nb).ravel().astype(np.int64)
+    ends = starts + nb
+    keep = ~codec._prescreen_slab(buf, starts, ends)
+    return buf, starts[keep], ends[keep]
+
+
 def _hashes(buf):
     b = np.asarray(buf, np.uint64)
     w = b[:-3] | b[1:-2] << 8 | b[2:-1] << 16 | b[3:] << 24
@@ -88,6 +107,7 @@ def cases():
     buf, s, e, sk, ek = kv_slab()
     out["kv_slab"] = (buf, s, e)
     out["kv_slab_prescreened"] = (buf, sk, ek)
+    out["weight_slab"] = weight_slab()
 
     lens = list(range(17)) + [17, 255, 1024, 4096]
     parts = [rng.integers(0, 3, n, dtype=np.uint8) for n in lens]
@@ -136,4 +156,62 @@ def cases():
     pat = rng.integers(0, 256, 6, dtype=np.uint8)
     first = np.concatenate([pat, pat, rng.integers(0, 256, 14)])
     out["next_stream"] = _bounds([first, np.tile(pat, 8), first])
+    out.update(selection_cases(rng))
+    return out
+
+
+def selection_cases(rng):
+    """Streams for the match kernel's selection rule: runs longer than
+    the length cap, matches past 8 words (the lanes' reach) and around
+    it, next candidates past 2 mask words, a chain of same-distance
+    candidates broken by a hash collision, a stream with a single
+    candidate, and streams shorter than MFLIMIT + 1."""
+    out = {}
+    # byte runs ending 1 byte before the cap (L - 5 - p), at it, and past
+    # it, from several offsets
+    runs = []
+    for pre in (0, 1, 5, 9):
+        for n in (20, 29, 64, 300):
+            for tail in (0, 4, 5, 6):
+                runs.append(np.concatenate([
+                    rng.integers(0, 256, pre), np.full(n, 0xA5),
+                    rng.integers(0, 0xA5, tail)]))
+    out["runs_over_cap"] = _bounds(runs, gaps=[3] * len(runs))
+
+    # a random block repeated at distance 300 with 35-37 and 100 bytes
+    # equal, and a repeat that reaches the cap
+    longm = []
+    for n in (35, 36, 37, 40, 100, 160):
+        blk = rng.integers(0, 256, n, dtype=np.uint8)
+        longm.append(np.concatenate([blk, rng.integers(0, 256, 300 - n),
+                                     blk, rng.integers(0, 256, 30)]))
+    blk = rng.integers(0, 256, 200, dtype=np.uint8)
+    longm.append(np.concatenate([blk, blk]))
+    out["long_matches"] = _bounds(longm)
+
+    # matches separated by 100-300 bytes of noise: the next candidate lies
+    # 3-10 mask words on
+    parts = []
+    for gap in (70, 100, 200, 300):
+        tok = rng.integers(0, 256, 12, dtype=np.uint8)
+        parts += [tok, rng.integers(0, 256, gap, dtype=np.uint8), tok]
+    out["far_next"] = _bounds([np.concatenate(parts)])
+
+    # an 80-byte repeat at distance 100 whose copy holds, at one offset, a
+    # word that collides with one written between original and copy: the
+    # chain of distance-100 candidates breaks there and continues after
+    a, b = _colliding_words()
+    src = rng.integers(0, 256, 80, dtype=np.uint8)
+    src[40:44] = a
+    mid = rng.integers(0, 256, 20, dtype=np.uint8)
+    mid[8:12] = b
+    chain = np.concatenate([src, mid, src, rng.integers(0, 256, 40)])
+    out["broken_chain"] = _bounds([chain, np.tile(src[:50], 6)])
+
+    # one candidate: noise with one 6-byte repeat
+    one = rng.integers(0, 256, 400, dtype=np.uint8)
+    one[250:256] = one[50:56]
+    short = [np.zeros(n, np.uint8) for n in range(14)]
+    short += [np.tile(np.array([1, 2], np.uint8), 7)[:n] for n in range(14)]
+    out["single_and_short"] = _bounds([one] + short)
     return out
