@@ -42,6 +42,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import spans
 from ..kernels import lz4 as klz4
 
 try:
@@ -530,8 +531,14 @@ def _lz4_slab_streams(slab, buf: np.ndarray, starts: np.ndarray,
         ends = np.cumsum(sizes)
         starts = ends - sizes
         slab = buf
-    pos, dist, mlen = klz4.match_events_slab(slab, starts, ends, force=force)
-    return lz4_emit_events(buf, starts, ends, pos, dist, mlen)
+    with spans.span("tier.match"):
+        pos, dist, mlen = klz4.match_events_slab(slab, starts, ends,
+                                                 force=force)
+    with spans.span("tier.emit") as sp:
+        out = lz4_emit_events(buf, starts, ends, pos, dist, mlen)
+        if sp:
+            sp.nbytes = sum(map(len, out))
+    return out
 
 
 def lz4_compress_batch(chunks: Sequence[bytes],
@@ -882,13 +889,16 @@ def compress_slab(slab, starts: Sequence[int], ends: Sequence[int],
     S = int(starts.size)
     if isinstance(slab, torch.Tensor):
         slab = slab.reshape(-1)
-        buf = slab.cpu().numpy()
+        with spans.span("tier.wait", nbytes=slab.numel()):
+            buf = slab.cpu().numpy()
     else:
         buf = np.asarray(slab, dtype=np.uint8).ravel()
     payloads: List[bytes] = [b""] * S
     flags: List[int] = [RAW] * S
     todo: List[int] = []
-    for i, skip in enumerate(_prescreen_slab(buf, starts, ends)):
+    with spans.span("tier.prescreen"):
+        bypass = _prescreen_slab(buf, starts, ends)
+    for i, skip in enumerate(bypass):
         if skip:
             payloads[i] = buf[starts[i]: ends[i]].tobytes()
         else:
@@ -925,10 +935,13 @@ def decompress_batch(payloads: Sequence[bytes], flags: Sequence[int],
                      codec: str, orig_lens: Sequence[int]) -> List[bytes]:
     """Inverse of :func:`compress_batch`: one codec resolve for the group."""
     _, d = CODECS[resolve_codec(codec)]
-    return [
-        pay if fl == RAW else d(pay, max_out=n)
-        for pay, fl, n in zip(payloads, flags, orig_lens)
-    ]
+    with spans.span("tier.decompress") as sp:
+        if sp:
+            sp.nbytes = sum(map(len, payloads))
+        return [
+            pay if fl == RAW else d(pay, max_out=n)
+            for pay, fl, n in zip(payloads, flags, orig_lens)
+        ]
 
 
 def ratio(orig: int, comp: int) -> float:

@@ -53,7 +53,7 @@ from typing import (
 import numpy as np
 import torch
 
-from .. import devices
+from .. import devices, spans
 from ..kernels import bitplane as kbitplane
 from ..kernels import kv_delta as kkv
 from . import codec as codecs
@@ -707,7 +707,8 @@ class BitplaneLayout(Layout):
         concatenation and slicing per block equals packing each alone;
         the planes go to the codec as one flat slab with stream bounds."""
         sizes = [_numel(c) for c in chunks]
-        planes = kbitplane.pack_planes_slab(_concat(chunks, device), device)
+        with spans.span("tier.pack"):
+            planes = kbitplane.pack_planes_slab(_concat(chunks, device), device)
         offs = np.cumsum([0] + [n // 8 for n in sizes])
         nblk = len(chunks)
         n8 = planes.shape[1]
@@ -754,16 +755,20 @@ class BitplaneLayout(Layout):
             return []
         plane_set = view.fetched_planes()
         nbytes = [b.padded_elems // 8 for b in blocks]
-        rows = np.stack([
-            np.frombuffer(
-                b"".join(codecs.decompress_batch(
-                    [b.payloads[p] for b in blocks],
-                    [b.flags[p] for b in blocks], codec, nbytes,
-                )),
-                dtype=np.uint8,
-            )
-            for p in plane_set
-        ])
+        with spans.span("tier.decompress") as sp:
+            if sp:
+                sp.nbytes = sum(len(b.payloads[p])
+                                for p in plane_set for b in blocks)
+            rows = np.stack([
+                np.frombuffer(
+                    b"".join(codecs.decompress_batch(
+                        [b.payloads[p] for b in blocks],
+                        [b.flags[p] for b in blocks], codec, nbytes,
+                    )),
+                    dtype=np.uint8,
+                )
+                for p in plane_set
+            ])
         return self._decode_planes(blocks, nbytes, rows, view, device)
 
     @staticmethod
@@ -777,37 +782,40 @@ class BitplaneLayout(Layout):
         round in one launch.  The words come back in one copy."""
         plane_set = view.fetched_planes()
         offs = np.cumsum([0] + nbytes)
-        rows_dev = torch.from_numpy(rows).to(device)
+        with spans.span("tier.to_device", nbytes=rows.nbytes):
+            rows_dev = torch.from_numpy(rows).to(device)
 
         parts: List[torch.Tensor] = []
         where: List[Tuple[int, int, Optional[tuple]]] = [None] * len(blocks)
         base = 0
         plain = [i for i, b in enumerate(blocks) if b.kv_meta is None]
-        if plain:
-            cols = rows_dev if len(plain) == len(blocks) else torch.cat(
-                [rows_dev[:, offs[i]:offs[i + 1]] for i in plain], dim=1)
-            parts.append(kbitplane.unpack_planes(cols, plane_set, view))
-            for i in plain:
-                where[i] = (base, blocks[i].valid_elems, None)
-                base += nbytes[i] * 8
-        groups: Dict[tuple, List[int]] = {}
-        for i, b in enumerate(blocks):
-            if b.kv_meta is not None:
-                m = b.kv_meta
-                groups.setdefault((m.n_tokens, m.n_channels), []).append(i)
-        for (n, C), members in groups.items():
-            L = n * C
-            beta = torch.from_numpy(np.stack(
-                [blocks[i].kv_meta.beta for i in members])).to(device)
-            parts.append(kbitplane.unpack_kv_windows(
-                rows_dev, plane_set, [int(offs[i]) * 8 for i in members], n,
-                C, beta, view))
-            for j, i in enumerate(members):
-                where[i] = (base + j * L, L, (n, C))
-            base += parts[-1].numel()
-        flat = (parts[0].reshape(-1) if len(parts) == 1
-                else torch.cat([p.reshape(-1) for p in parts]))
-        flat = flat.cpu().numpy().view(np.uint16)
+        with spans.span("tier.unpack"):
+            if plain:
+                cols = rows_dev if len(plain) == len(blocks) else torch.cat(
+                    [rows_dev[:, offs[i]:offs[i + 1]] for i in plain], dim=1)
+                parts.append(kbitplane.unpack_planes(cols, plane_set, view))
+                for i in plain:
+                    where[i] = (base, blocks[i].valid_elems, None)
+                    base += nbytes[i] * 8
+            groups: Dict[tuple, List[int]] = {}
+            for i, b in enumerate(blocks):
+                if b.kv_meta is not None:
+                    m = b.kv_meta
+                    groups.setdefault((m.n_tokens, m.n_channels), []).append(i)
+            for (n, C), members in groups.items():
+                L = n * C
+                beta = torch.from_numpy(np.stack(
+                    [blocks[i].kv_meta.beta for i in members])).to(device)
+                parts.append(kbitplane.unpack_kv_windows(
+                    rows_dev, plane_set, [int(offs[i]) * 8 for i in members],
+                    n, C, beta, view))
+                for j, i in enumerate(members):
+                    where[i] = (base + j * L, L, (n, C))
+                base += parts[-1].numel()
+            flat = (parts[0].reshape(-1) if len(parts) == 1
+                    else torch.cat([p.reshape(-1) for p in parts]))
+        with spans.span("tier.wait", nbytes=flat.numel() * 2):
+            flat = flat.cpu().numpy().view(np.uint16)
         return [flat[st : st + ln] if shape is None
                 else flat[st : st + ln].reshape(shape)
                 for st, ln, shape in where]
@@ -1167,27 +1175,32 @@ class TierStore:
         recs = [Receipt(key=r.key, op="write", kind=r.kind, tag=r.tag)
                 for r in reqs]
         slab = _EncodeSlab()
-        try:
-            for req, rec in zip(reqs, recs):
-                self._stage_write(req, rec, slab)
-        finally:
+        with spans.span("tier.write") as sp:
             try:
-                # even on a staging failure, everything staged so far
-                # commits — sync semantics committed prior requests
-                self._encode_commit(slab)
+                with spans.span("tier.stage"):
+                    for req, rec in zip(reqs, recs):
+                        self._stage_write(req, rec, slab)
             finally:
-                lm = self.link_model
-                for rec in recs:
-                    _put(rec, service_s=lm.latency(rec.dram_bytes_written,
-                                                   rec.link_bytes_in))
-                self._schedule_group(
-                    recs,
-                    [(r.dram_bytes_written, r.link_bytes_in) for r in recs],
-                    wait=False,
-                )
-                for rec in recs:
-                    self._apply_receipt(rec)
-                self._sanitize_boundary({r.key for r in reqs})
+                try:
+                    # even on a staging failure, everything staged so far
+                    # commits — sync semantics committed prior requests
+                    self._encode_commit(slab)
+                finally:
+                    lm = self.link_model
+                    for rec in recs:
+                        _put(rec, service_s=lm.latency(rec.dram_bytes_written,
+                                                       rec.link_bytes_in))
+                    self._schedule_group(
+                        recs,
+                        [(r.dram_bytes_written, r.link_bytes_in)
+                         for r in recs],
+                        wait=False,
+                    )
+                    for rec in recs:
+                        self._apply_receipt(rec)
+                    self._sanitize_boundary({r.key for r in reqs})
+            if sp:
+                sp.nbytes = sum(r.link_bytes_in for r in recs)
         return recs
 
     def _stage_write(self, req: WriteReq, rec: Receipt, slab: "_EncodeSlab"):
@@ -1237,17 +1250,18 @@ class TierStore:
         """KV transform, plane pack, codec — then commit in staging order."""
         if not slab.chunks:
             return
-        self._transform_kv_windows(slab)
-        enc = (self.layout.encode_batch if self.batched_encode
-               else self.layout.encode_batch_scalar)
-        encoded = enc(slab.chunks, self.codec, self.device)
-        for (payloads, flags), key, rec, chunk, valid, meta in zip(
-                encoded, slab.keys, slab.recs, slab.chunks, slab.valids,
-                slab.metas):
-            self._commit(rec, key,
-                         _Block(payloads, flags, valid, _numel(chunk),
-                                kv_meta=meta))
-        slab.clear()
+        with spans.span("tier.encode", nbytes=2 * sum(slab.valids)):
+            self._transform_kv_windows(slab)
+            enc = (self.layout.encode_batch if self.batched_encode
+                   else self.layout.encode_batch_scalar)
+            encoded = enc(slab.chunks, self.codec, self.device)
+            for (payloads, flags), key, rec, chunk, valid, meta in zip(
+                    encoded, slab.keys, slab.recs, slab.chunks, slab.valids,
+                    slab.metas):
+                self._commit(rec, key,
+                             _Block(payloads, flags, valid, _numel(chunk),
+                                    kv_meta=meta))
+            slab.clear()
 
     def _transform_kv_windows(self, slab: "_EncodeSlab"):
         """Resolve deferred KV windows on the tier's device: same-shape
@@ -1257,25 +1271,30 @@ class TierStore:
         come back as the blocks' metadata.  The per-block encoder
         transforms each window in a launch of its own."""
         pend = [i for i, w in enumerate(slab.kv_windows) if w is not None]
+        if not pend:
+            return
         groups: Dict[object, List[int]] = {}
         for i in pend:
             key = slab.kv_windows[i].shape if self.batched_encode else i
             groups.setdefault(key, []).append(i)
-        for idxs in groups.values():
-            win = np.stack([slab.kv_windows[i] for i in idxs]).astype(
-                np.uint16, copy=False)
-            B, n, C = win.shape
-            streams, beta = kkv.kv_forward(
-                torch.from_numpy(win.view(np.int16)).to(self.device))
-            flat = streams.reshape(B, n * C)
-            if (n * C) % 8:
-                flat = torch.nn.functional.pad(flat, (0, 8 - (n * C) % 8))
-            beta = beta.cpu().numpy()
-            for j, i in enumerate(idxs):
-                slab.chunks[i] = flat[j]
-                slab.metas[i] = KVBlockMeta(beta=beta[j].copy(), n_tokens=n,
-                                            n_channels=C)
-                slab.kv_windows[i] = None
+        with spans.span("tier.kv_transform"):
+            for idxs in groups.values():
+                win = np.stack([slab.kv_windows[i] for i in idxs]).astype(
+                    np.uint16, copy=False)
+                B, n, C = win.shape
+                streams, beta = kkv.kv_forward(
+                    torch.from_numpy(win.view(np.int16)).to(self.device))
+                flat = streams.reshape(B, n * C)
+                if (n * C) % 8:
+                    flat = torch.nn.functional.pad(flat, (0, 8 - (n * C) % 8))
+                with spans.span("tier.wait",
+                                nbytes=beta.numel() * beta.element_size()):
+                    beta = beta.cpu().numpy()
+                for j, i in enumerate(idxs):
+                    slab.chunks[i] = flat[j]
+                    slab.metas[i] = KVBlockMeta(beta=beta[j].copy(),
+                                                n_tokens=n, n_channels=C)
+                    slab.kv_windows[i] = None
 
     def _commit(self, rec: Receipt, key: str, block: _Block):
         self._tensors.setdefault(key, []).append(block)
@@ -1308,23 +1327,27 @@ class TierStore:
                         op="gather" if isinstance(r, GatherReq) else "read",
                         kind=r.kind, tag=r.tag)
                 for r in reqs]
-        try:
-            read_ix = [i for i, r in enumerate(reqs)
-                       if not isinstance(r, GatherReq)]
-            if read_ix:
-                self._gather_and_decode([reqs[i] for i in read_ix],
-                                        [recs[i] for i in read_ix])
-            for req, rec in zip(reqs, recs):
-                if isinstance(req, GatherReq):
-                    self._do_gather(req, rec)
-            return recs
-        finally:
-            for rec in recs:
-                self._apply_receipt(rec)
-            touched: Set[str] = set()
-            for r in reqs:
-                touched |= _req_keys(r)
-            self._sanitize_boundary(touched)
+        with spans.span("tier.read") as sp:
+            try:
+                read_ix = [i for i, r in enumerate(reqs)
+                           if not isinstance(r, GatherReq)]
+                if read_ix:
+                    self._gather_and_decode([reqs[i] for i in read_ix],
+                                            [recs[i] for i in read_ix])
+                for req, rec in zip(reqs, recs):
+                    if isinstance(req, GatherReq):
+                        self._do_gather(req, rec)
+                if sp:
+                    sp.nbytes = sum(r.data.nbytes for r in recs
+                                    if r.data is not None)
+                return recs
+            finally:
+                for rec in recs:
+                    self._apply_receipt(rec)
+                touched: Set[str] = set()
+                for r in reqs:
+                    touched |= _req_keys(r)
+                self._sanitize_boundary(touched)
 
     def _fetch_keys(self, rec: Receipt, kind: str, keys: Sequence[str],
                     views: Sequence[PrecisionView]) -> List[np.ndarray]:
@@ -1406,26 +1429,29 @@ class TierStore:
                            recs: List[Receipt]):
         req_blocks: List[List[_Block]] = []
         req_views: List[List[PrecisionView]] = []
-        for req, rec in zip(reqs, recs):
-            if req.kind == KV and self._kv_staging.get(req.key):
-                # implicit flush, accounted to this request
-                self._commit_kv_window(rec, req.key)
-            blocks = self._tensors.get(req.key, [])
-            if req.block_range is not None:
-                lo, hi = req.block_range
-                blocks = blocks[lo:hi]
-            # a truncated block clamps the view to its surviving planes
-            views = [req.view if b.view is None
-                     else _intersect_views(req.view, b.view)
-                     for b in blocks]
-            for off, (b, view) in enumerate(zip(blocks, views)):
-                base = (req.block_range[0] if req.block_range else 0) + off
-                self._touch_index(rec, req.key, base)
-                _add(rec, dram_bytes_read=sum(
-                    len(b.payloads[p])
-                    for p in self.layout.fetched_payloads(b, view)))
-            req_blocks.append(list(blocks))
-            req_views.append(views)
+        with spans.span("tier.fetch") as sp:
+            for req, rec in zip(reqs, recs):
+                if req.kind == KV and self._kv_staging.get(req.key):
+                    # implicit flush, accounted to this request
+                    self._commit_kv_window(rec, req.key)
+                blocks = self._tensors.get(req.key, [])
+                if req.block_range is not None:
+                    lo, hi = req.block_range
+                    blocks = blocks[lo:hi]
+                # a truncated block clamps the view to its surviving planes
+                views = [req.view if b.view is None
+                         else _intersect_views(req.view, b.view)
+                         for b in blocks]
+                for off, (b, view) in enumerate(zip(blocks, views)):
+                    base = (req.block_range[0] if req.block_range else 0) + off
+                    self._touch_index(rec, req.key, base)
+                    _add(rec, dram_bytes_read=sum(
+                        len(b.payloads[p])
+                        for p in self.layout.fetched_payloads(b, view)))
+                req_blocks.append(list(blocks))
+                req_views.append(views)
+            if sp:
+                sp.nbytes = sum(r.dram_bytes_read for r in recs)
 
         # all blocks across requests, grouped by effective view, decode
         # once per group

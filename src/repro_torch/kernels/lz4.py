@@ -43,6 +43,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .. import spans
 from . import build
 
 # LZ4 block-format constants + repo match-policy knobs (shared with the
@@ -848,9 +849,10 @@ def match_result(out: torch.Tensor, rows: np.ndarray):
     S, E = rows.size - 1, int(rows[-1])
     host = out
     if out.device.type == "cuda":
-        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        host.copy_(out, non_blocking=True)
-        torch.cuda.current_stream(out.device).synchronize()
+        with spans.span("tier.wait", nbytes=out.numel() * 4):
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            host.copy_(out, non_blocking=True)
+            torch.cuda.current_stream(out.device).synchronize()
     host = host.numpy()
     return compact_events(host[S:].reshape(3, E), host[:S], rows)
 

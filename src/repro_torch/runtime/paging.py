@@ -44,6 +44,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .. import spans
 from ..core.precision import FULL, MAN0, MAN2, MAN4, PrecisionView
 from ..core.tier import (
     GatherReq, KV, ReadReq, Receipt, Ticket, TierStore, WriteReq, make_device,
@@ -291,22 +292,23 @@ class KVPagePool:
         pages take the ``shared.`` key: residency and eviction are as for
         private pages, but the spill write is elided when the page is
         already stored (the pool acquires a reference instead)."""
-        self._commit_clock += 1
-        for entry in pages:
-            layer, kind, start, tokens_u16, importance = entry[:5]
-            share_hash = entry[5] if len(entry) > 5 else None
-            if self.prefix_index is None:
-                share_hash = None
-            key = self.page_key(layer, kind, start, share_hash)
-            page = _Page(key, layer, kind, start, tokens_u16.shape[0],
-                         importance=importance,
-                         commit_seq=self._commit_clock,
-                         share_hash=share_hash)
-            # admit to HBM first, then evict the least important
-            page.resident = tokens_u16.copy()
-            self._hbm_used += tokens_u16.size * 2
-            self._pages.append(page)
-        self._rebalance()
+        with spans.span("pool.append"):
+            self._commit_clock += 1
+            for entry in pages:
+                layer, kind, start, tokens_u16, importance = entry[:5]
+                share_hash = entry[5] if len(entry) > 5 else None
+                if self.prefix_index is None:
+                    share_hash = None
+                key = self.page_key(layer, kind, start, share_hash)
+                page = _Page(key, layer, kind, start, tokens_u16.shape[0],
+                             importance=importance,
+                             commit_seq=self._commit_clock,
+                             share_hash=share_hash)
+                # admit to HBM first, then evict the least important
+                page.resident = tokens_u16.copy()
+                self._hbm_used += tokens_u16.size * 2
+                self._pages.append(page)
+            self._rebalance()
 
     def page_key(self, layer: int, kind: str, start: int,
                  share_hash: Optional[str] = None) -> str:
@@ -403,7 +405,8 @@ class KVPagePool:
         """Issue spill-readback tickets without waiting; views are fixed
         at issue time, so a later :meth:`drain_reads` returns the bytes a
         sync read here would have."""
-        return self.tier.submit_async(self._page_reqs(pages))
+        with spans.span("pool.read_issue"):
+            return self.tier.submit_async(self._page_reqs(pages))
 
     # -- PNM read path: device-side top-k gather -------------------------------
     def _gather_req(self, pages: Sequence[_Page], digest: np.ndarray,
@@ -474,12 +477,13 @@ class KVPagePool:
         if any is still queued), folding receipts into pool traffic."""
         if not tickets:
             return []
-        if any(not t.done for t in tickets):
-            receipts = self.tier.drain(tickets)
-        else:
-            receipts = [t.wait() for t in tickets]
-        self._account(receipts)
-        return [r.data for r in receipts]
+        with spans.span("pool.drain"):
+            if any(not t.done for t in tickets):
+                receipts = self.tier.drain(tickets)
+            else:
+                receipts = [t.wait() for t in tickets]
+            self._account(receipts)
+            return [r.data for r in receipts]
 
     def prefetch_layer(self, layer: int, kind: str) -> int:
         """Issue async read tickets for (layer, kind)'s spilled pages, so
@@ -599,26 +603,27 @@ class KVPagePool:
         pages (through the index), delete every key it wrote (its
         namespace, or its own private keys without a prefix) and drop HBM
         pages.  Returns the number of device keys freed or released."""
-        for entry in self._prefetched.values():
-            self._settle_prefetch(entry)
-        self._prefetched.clear()
-        freed = 0
-        for p in self._pages:
-            if p.shared_ref:
-                self.prefix_index.release(p.key)
-                p.shared_ref = False
-                freed += 1
-        if self.key_prefix:
-            freed += self.tier.delete_prefix(self.key_prefix)
-        else:
-            keys = {p.key for p in self._pages if not p.share_hash}
-            for k in keys:
-                self.tier.delete(k)
-            freed += len(keys)
-        self._pages.clear()
-        self.spill_events.clear()
-        self._hbm_used = 0
-        return freed
+        with spans.span("pool.release"):
+            for entry in self._prefetched.values():
+                self._settle_prefetch(entry)
+            self._prefetched.clear()
+            freed = 0
+            for p in self._pages:
+                if p.shared_ref:
+                    self.prefix_index.release(p.key)
+                    p.shared_ref = False
+                    freed += 1
+            if self.key_prefix:
+                freed += self.tier.delete_prefix(self.key_prefix)
+            else:
+                keys = {p.key for p in self._pages if not p.share_hash}
+                for k in keys:
+                    self.tier.delete(k)
+                freed += len(keys)
+            self._pages.clear()
+            self.spill_events.clear()
+            self._hbm_used = 0
+            return freed
 
     # -- accounting ---------------------------------------------------------------
     @property

@@ -61,13 +61,12 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import time
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from .. import devices
+from .. import devices, spans
 from ..configs.base import ArchConfig
 from ..core.system_model import SystemSpec
 from ..core.tier import Ticket, TierStore, make_device
@@ -145,24 +144,26 @@ class DecodeGraph:
         self.pos = torch.full((), pos, dtype=torch.int32, device=dev)
         batch = {"tokens": self.tokens, "cache_pos": self.pos}
         stream = torch.cuda.Stream(dev)
-        t0 = time.perf_counter()
-        scratch = _clone_tree(cache)
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
-            decode_step(cfg, params, batch, scratch)
-        torch.cuda.current_stream(dev).wait_stream(stream)
-        del scratch
-        t1 = time.perf_counter()
+        t0 = spans.now()
+        with spans.span("capture.warmup"):
+            scratch = _clone_tree(cache)
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                decode_step(cfg, params, batch, scratch)
+            torch.cuda.current_stream(dev).wait_stream(stream)
+            del scratch
+        t1 = spans.now()
         before = dict(build.LAUNCHES)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, stream=stream):
-            self.logits, _ = decode_step(cfg, params, batch, cache)
+        with spans.span("capture.graph"):
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, stream=stream):
+                self.logits, _ = decode_step(cfg, params, batch, cache)
         self.launches = {k: n - before[k] for k, n in build.LAUNCHES.items()
                          if n != before[k]}
         build.LAUNCHES.update(before)
         # host seconds of the warm-up step and of the capture
-        self.warmup_s = t1 - t0
-        self.capture_s = time.perf_counter() - t1
+        self.warmup_s = (t1 - t0) / 1e9
+        self.capture_s = (spans.now() - t1) / 1e9
 
     def replay(self, tokens: torch.Tensor, pos: int) -> torch.Tensor:
         """The step's logits at ``pos`` for ``tokens``: the static inputs
@@ -240,6 +241,8 @@ class ServeEngine:
         )
         self.cache = init_cache(cfg, batch, max_seq, device=self.device)
         self.pos = 0
+        # the request id every span of this engine's calls carries
+        self._request = key_prefix.rstrip(".") or None
         # the captured decode step (a card), made at the first decode
         self.graph: Optional[DecodeGraph] = None
         # prompt-prefix chain hashes, set by the first prefill when the
@@ -253,36 +256,47 @@ class ServeEngine:
     def _commit_pages(self, lo: int, hi: int):
         """Push completed KV windows [lo, hi) into the page pool as one
         batched admission.  Only the completed windows leave the card."""
-        # tickets issued at the previous boundary were in flight across
-        # the decode steps that just ran — apply them before committing
-        self.flush_io()
-        layers = self.cache["layers"]
-        kinds = [k for k in PAGED_KINDS if k in layers]
-        batch_pages = []
-        for start in range(lo - lo % self.page_tokens, hi, self.page_tokens):
-            if start + self.page_tokens > hi:
-                break
-            # a window wholly inside the prompt carries its prefix chain
-            # hash (identical prompt prefixes give identical KV there);
-            # windows touching generated tokens stay private
-            share = None
-            if (self._share_hashes
-                    and start + self.page_tokens <= self._prompt_len):
-                share = self._share_hashes[start // self.page_tokens]
-            for kind in kinds:
-                win = layers[kind][:, :, start : start + self.page_tokens]
-                # (L, B, page, channels...) → host, as 16-bit words
-                host = win.cpu().contiguous().view(torch.int16).numpy()
-                for layer in range(host.shape[0]):
-                    tok = host[layer].reshape(self.page_tokens * self.batch, -1)
-                    batch_pages.append((layer, kind, start,
-                                        tok.view(np.uint16), float(start),
-                                        share))
-        if batch_pages:
-            if self.importance == "attention":
-                batch_pages = self._apply_attention_importance(batch_pages)
-            self.pool.append_pages(batch_pages)
-        self._issue_readback()
+        T = self.page_tokens
+        first = lo - lo % T
+        if (first + T > hi and not self._inflight
+                and not self._inflight_gathers and not self.pool.spill_events):
+            return                      # no window completes, nothing to do
+        with spans.span("engine.commit"):
+            # tickets issued at the previous boundary were in flight
+            # across the decode steps that just ran — apply them before
+            # committing
+            self.flush_io()
+            layers = self.cache["layers"]
+            kinds = [k for k in PAGED_KINDS if k in layers]
+            batch_pages = []
+            with spans.span("engine.window_to_host") as sp:
+                for start in range(first, hi, T):
+                    if start + T > hi:
+                        break
+                    # a window wholly inside the prompt carries its prefix
+                    # chain hash (identical prompt prefixes give identical
+                    # KV there); windows touching generated tokens stay
+                    # private
+                    share = None
+                    if self._share_hashes and start + T <= self._prompt_len:
+                        share = self._share_hashes[start // T]
+                    for kind in kinds:
+                        win = layers[kind][:, :, start : start + T]
+                        # (L, B, page, channels...) → host, as 16-bit words
+                        host = win.cpu().contiguous().view(torch.int16).numpy()
+                        for layer in range(host.shape[0]):
+                            tok = host[layer].reshape(T * self.batch, -1)
+                            batch_pages.append((layer, kind, start,
+                                                tok.view(np.uint16),
+                                                float(start), share))
+                if sp:
+                    sp.nbytes = sum(p[3].nbytes for p in batch_pages)
+            if batch_pages:
+                if self.importance == "attention":
+                    batch_pages = self._apply_attention_importance(
+                        batch_pages)
+                self.pool.append_pages(batch_pages)
+            self._issue_readback()
 
     def _issue_readback(self):
         """Start spill readback for this boundary's evictions: sync mode
@@ -294,12 +308,13 @@ class ServeEngine:
         if self.pnm_topk is not None:
             self._issue_gather(events)
             return
-        if self.async_io:
-            self._inflight.extend(
-                zip(events, self.pool.read_pages_async(events))
-            )
-        else:
-            self._apply_readback(events, self.pool.read_pages(events))
+        with spans.span("engine.issue_readback"):
+            if self.async_io:
+                self._inflight.extend(
+                    zip(events, self.pool.read_pages_async(events))
+                )
+            else:
+                self._apply_readback(events, self.pool.read_pages(events))
 
     def _issue_gather(self, events: Sequence[_Page]):
         """PNM read mode: one device-side top-k gather per KV kind over
@@ -324,12 +339,15 @@ class ServeEngine:
         the cache."""
         inflight, self._inflight = self._inflight, []
         gathers, self._inflight_gathers = self._inflight_gathers, []
-        if inflight:
-            pages = [p for p, _ in inflight]
-            data = self.pool.drain_reads([t for _, t in inflight])
-            self._apply_readback(pages, data)
-        for cands, ticket in gathers:
-            self._apply_readback(*self.pool.drain_gather(cands, ticket))
+        if not inflight and not gathers:
+            return
+        with spans.span("engine.flush_io"):
+            if inflight:
+                pages = [p for p, _ in inflight]
+                data = self.pool.drain_reads([t for _, t in inflight])
+                self._apply_readback(pages, data)
+            for cands, ticket in gathers:
+                self._apply_readback(*self.pool.drain_gather(cands, ticket))
 
     def _digest(self, kind: str) -> torch.Tensor:
         """f32 mean of the last committed window's rows of ``kind``, over
@@ -408,32 +426,40 @@ class ServeEngine:
         tier-served values at their policy precision, so generation
         quality reflects the device pipeline."""
         layers = self.cache["layers"]
-        for page, u16 in zip(pages, data):
-            buf = layers[page.kind]
-            target = buf[page.layer, :, page.start : page.start + self.page_tokens]
-            words = torch.from_numpy(
-                np.ascontiguousarray(u16).view(np.int16).copy())
-            target.copy_(words.view(buf.dtype).reshape(target.shape))
+        with spans.span("engine.readback_apply") as sp:
+            if sp:
+                sp.nbytes = sum(u16.nbytes for u16 in data)
+            for page, u16 in zip(pages, data):
+                buf = layers[page.kind]
+                target = buf[page.layer, :,
+                             page.start : page.start + self.page_tokens]
+                words = torch.from_numpy(
+                    np.ascontiguousarray(u16).view(np.int16).copy())
+                target.copy_(words.view(buf.dtype).reshape(target.shape))
 
     # -- API ---------------------------------------------------------------------
     def _prefill_logits(self, tokens: torch.Tensor) -> torch.Tensor:
         """The prompt's logits, eagerly, at the host position."""
-        return decode_step(self.cfg, self.params, {
-            "tokens": tokens, "cache_pos": self.pos}, self.cache)[0]
+        with spans.span("engine.forward"):
+            return decode_step(self.cfg, self.params, {
+                "tokens": tokens, "cache_pos": self.pos}, self.cache)[0]
 
     def _decode_logits(self, tokens: torch.Tensor) -> torch.Tensor:
         """One token's logits with the position on the device: on a card
         a replay of the captured step (captured at the first decode), on
         the CPU the same step run eagerly."""
         if self.device.type != "cuda":
-            return decode_step(self.cfg, self.params, {
-                "tokens": tokens, "cache_pos": torch.tensor(
-                    self.pos, dtype=torch.int32, device=self.device)},
-                self.cache)[0]
+            with spans.span("engine.forward"):
+                return decode_step(self.cfg, self.params, {
+                    "tokens": tokens, "cache_pos": torch.tensor(
+                        self.pos, dtype=torch.int32, device=self.device)},
+                    self.cache)[0]
         if self.graph is None:
-            self.graph = DecodeGraph(self.cfg, self.params, self.cache,
-                                     tokens, self.pos)
-        return self.graph.replay(tokens, self.pos)
+            with spans.span("engine.capture"):
+                self.graph = DecodeGraph(self.cfg, self.params, self.cache,
+                                         tokens, self.pos)
+        with spans.span("engine.replay"):
+            return self.graph.replay(tokens, self.pos)
 
     def _step(self, tokens: np.ndarray, run) -> np.ndarray:
         n = tokens.shape[1]
@@ -441,24 +467,34 @@ class ServeEngine:
         if cap is not None and self.pos + n > cap:
             raise ValueError(f"{n} tokens at position {self.pos} pass the "
                              f"cache's {cap} slots (max_seq)")
-        logits = run(torch.from_numpy(np.ascontiguousarray(
-            tokens, dtype=np.int64)).to(self.device))
+        with spans.span("engine.tokens_to_device"):
+            tokens = torch.from_numpy(np.ascontiguousarray(
+                tokens, dtype=np.int64)).to(self.device)
+        logits = run(tokens)
         old = self.pos
         self.pos += n
         self._commit_pages(old, self.pos)
-        return logits[:, -1].float().cpu().numpy()
+        with spans.span("engine.logits_to_host") as sp:
+            out = logits[:, -1].float().cpu().numpy()
+            if sp:
+                sp.nbytes = out.nbytes
+        return out
 
     def prefill(self, tokens: np.ndarray) -> np.ndarray:
         """tokens: (batch, prompt_len) → last-token logits (f32)."""
         assert tokens.shape[0] == self.batch
-        if self.pos == 0 and self.pool.prefix_index is not None:
-            self._share_hashes = prefix_chain_hashes(tokens, self.page_tokens)
-            self._prompt_len = tokens.shape[1]
-        return self._step(tokens, self._prefill_logits)
+        with spans.span("engine.prefill", request=self._request):
+            if self.pos == 0 and self.pool.prefix_index is not None:
+                self._share_hashes = prefix_chain_hashes(tokens,
+                                                         self.page_tokens)
+                self._prompt_len = tokens.shape[1]
+            return self._step(tokens, self._prefill_logits)
 
     def decode(self, tokens: np.ndarray) -> np.ndarray:
         """tokens: (batch, 1) current token → next-token logits (f32)."""
-        return self._step(tokens.reshape(self.batch, 1), self._decode_logits)
+        with spans.span("engine.decode", request=self._request):
+            return self._step(tokens.reshape(self.batch, 1),
+                              self._decode_logits)
 
     def generate(self, prompt: np.ndarray, n_tokens: int,
                  greedy: bool = True, seed: int = 0) -> np.ndarray:
@@ -513,9 +549,11 @@ class ServeEngine:
         """Finish this sequence: drain in-flight readback, then free every
         page and the tier namespace (and the captured step's graph).
         Returns the tier keys freed."""
-        self.flush_io()
-        self.graph = None
-        return self.pool.release()
+        with spans.span("engine.retire", request=self._request):
+            self.flush_io()
+            with spans.span("engine.release_graph"):
+                self.graph = None
+            return self.pool.release()
 
 
 class MultiStreamEngine:
