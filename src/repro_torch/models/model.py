@@ -553,14 +553,17 @@ def _cache_position(pos, cache: dict, x: torch.Tensor, S: int):
 
 
 def forward_with_aux(cfg: ArchConfig, params: dict, batch: dict,
-                     cache: Optional[dict] = None):
+                     cache: Optional[dict] = None, last_only: bool = False):
     """:func:`forward`, and the MoE balance loss summed over the stacked
     layers (an f32 zero for every other family, as the reference's):
     ``(logits, cache, aux)``, the reference's ``forward``.  Only
     :func:`lm_loss` reads ``aux``, so :func:`forward`, which every
     serving caller uses, keeps its pair.  On a mesh (rules installed by a
     step builder) ``batch`` holds this rank's rows, ``params`` and the
-    cache may be DTensors, and the logits are this rank's rows."""
+    cache may be DTensors, and the logits are this rank's rows.
+    ``last_only`` keeps the last position alone before the final norm and
+    the head, both per position: the logits are (B, 1, vocab), the last
+    row of the full ones, and the (B, S, vocab) tensor is never made."""
     if cache is not None and not cfg.causal:
         raise ValueError(f"{cfg.name} is encoder-only: it has no decode "
                          "step, so its forward takes no cache")
@@ -582,13 +585,16 @@ def forward_with_aux(cfg: ArchConfig, params: dict, batch: dict,
                                       cache_pos)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if last_only:
+        x = x[:, -1:]
     x = L.norm(x, top["final_norm"], cfg.norm)
     head = top["embed"].T if cfg.tie_embeddings else top["lm_head"]
     return logical(x @ head, "batch", "seq", "vocab"), cache, aux
 
 
 def forward(cfg: ArchConfig, params: dict, batch: dict,
-            cache: Optional[dict] = None) -> Tuple[torch.Tensor, Optional[dict]]:
+            cache: Optional[dict] = None,
+            last_only: bool = False) -> Tuple[torch.Tensor, Optional[dict]]:
     """``batch``: ``tokens`` (B, S) int, or ``embeds`` (B, S, d) for a
     frontend model; with a cache also ``cache_pos``, the position of the
     first token: an int, or a 0-d integer tensor on the model's device
@@ -596,8 +602,9 @@ def forward(cfg: ArchConfig, params: dict, batch: dict,
     Without a cache the tokens attend to each other from position 0
     (causally, or both ways for an encoder) and nothing is kept; with one
     their KV (or recurrent state) is written into it in place.  Returns
-    ``(logits (B, S, vocab) bf16, cache)``."""
-    logits, cache, _ = forward_with_aux(cfg, params, batch, cache)
+    ``(logits (B, S, vocab) bf16, cache)``; with ``last_only`` the
+    logits are the last position's alone, (B, 1, vocab)."""
+    logits, cache, _ = forward_with_aux(cfg, params, batch, cache, last_only)
     return logits, cache
 
 
@@ -631,10 +638,12 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict,
         return forward(cfg, params, batch)[0]
 
 
-def decode_step(cfg: ArchConfig, params: dict, batch: dict, cache: dict):
+def decode_step(cfg: ArchConfig, params: dict, batch: dict, cache: dict,
+                last_only: bool = False):
     """One forward over ``batch``'s tokens (or embeds) at
     ``batch["cache_pos"]`` (a prompt or a single token) with the cache →
-    ``(logits, cache)``, without autograd.  An encoder-only model has no
+    ``(logits, cache)``, without autograd; ``last_only`` as in
+    :func:`forward_with_aux`.  An encoder-only model has no
     decode step: :func:`forward` runs it without a cache, and
     :func:`lm_loss` trains it."""
     if not cfg.causal:
@@ -642,4 +651,4 @@ def decode_step(cfg: ArchConfig, params: dict, batch: dict, cache: dict):
                          "step; forward(cfg, params, batch) runs it "
                          "without a cache")
     with torch.no_grad():
-        return forward(cfg, params, batch, cache)
+        return forward(cfg, params, batch, cache, last_only)

@@ -439,21 +439,30 @@ class ServeEngine:
 
     # -- API ---------------------------------------------------------------------
     def _prefill_logits(self, tokens: torch.Tensor) -> torch.Tensor:
-        """The prompt's logits, eagerly, at the host position."""
-        with spans.span("engine.forward"):
-            return decode_step(self.cfg, self.params, {
-                "tokens": tokens, "cache_pos": self.pos}, self.cache)[0]
+        """The prompt's last position's logits (B, 1, vocab), eagerly, at
+        the host position: :meth:`_step` reads that row alone, so the
+        head runs there alone."""
+        with spans.span("engine.forward") as sp:
+            logits = decode_step(self.cfg, self.params, {
+                "tokens": tokens, "cache_pos": self.pos}, self.cache,
+                last_only=True)[0]
+            if sp:
+                sp.nbytes = logits.nbytes
+            return logits
 
     def _decode_logits(self, tokens: torch.Tensor) -> torch.Tensor:
         """One token's logits with the position on the device: on a card
         a replay of the captured step (captured at the first decode), on
         the CPU the same step run eagerly."""
         if self.device.type != "cuda":
-            with spans.span("engine.forward"):
-                return decode_step(self.cfg, self.params, {
+            with spans.span("engine.forward") as sp:
+                logits = decode_step(self.cfg, self.params, {
                     "tokens": tokens, "cache_pos": torch.tensor(
                         self.pos, dtype=torch.int32, device=self.device)},
                     self.cache)[0]
+                if sp:
+                    sp.nbytes = logits.nbytes
+                return logits
         if self.graph is None:
             with spans.span("engine.capture"):
                 self.graph = DecodeGraph(self.cfg, self.params, self.cache,

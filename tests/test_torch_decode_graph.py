@@ -250,11 +250,11 @@ def test_engine_with_tensor_positions_tracks_reference_engine(
     seen = []
     step = tserving.decode_step
 
-    def recording(cfg, params, batch, cache):
+    def recording(cfg, params, batch, cache, **kw):
         pos = batch["cache_pos"]
         seen.append((batch["tokens"].shape[1], type(pos), getattr(
-            pos, "dtype", None)))
-        return step(cfg, params, batch, cache)
+            pos, "dtype", None), kw.get("last_only", False)))
+        return step(cfg, params, batch, cache, **kw)
 
     monkeypatch.setattr(tserving, "decode_step", recording)
     teng = TServe(tcfg, tparams, policy=tpaging.PAPER_POLICY, device="cpu",
@@ -263,9 +263,10 @@ def test_engine_with_tensor_positions_tracks_reference_engine(
     toks = (np.arange(60, dtype=np.int32).reshape(1, 60) * 7) % tcfg.vocab
     got = _teacher_forced(teng, toks, 48)
     ref = _teacher_forced(reng, toks, 48)
-    # prefill at a host int; each decode step at a 0-d int32 tensor
-    assert seen[0] == (48, int, None)
-    assert seen[1:] == [(1, torch.Tensor, torch.int32)] * 12
+    # prefill at a host int, its head at the last position alone; each
+    # decode step at a 0-d int32 tensor
+    assert seen[0] == (48, int, None, True)
+    assert seen[1:] == [(1, torch.Tensor, torch.int32, False)] * 12
     ts, rs = teng.stats(), reng.stats()
     assert ts.spilled_pages == rs.spilled_pages > 0
     assert ts.kv_logical_bytes == rs.kv_logical_bytes

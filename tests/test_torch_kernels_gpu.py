@@ -8,6 +8,8 @@ a machine with PyTorch alone:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -20,11 +22,11 @@ from repro_torch.kernels import (  # noqa: E402
     bitplane, build, decode_attn, elastic_matmul, kv_delta, lz4, ops,
     pnm_score,
 )
-from repro_torch.models.model import init_params  # noqa: E402
+from repro_torch.models.model import decode_step, init_params  # noqa: E402
 import torch_kv_score_cases as kv_score_cases  # noqa: E402
 import torch_lz4_cases  # noqa: E402
 from repro_torch.runtime import (  # noqa: E402
-    DEFAULT_TIERS, LOSSLESS_POLICY, ServeEngine, WeightStore,
+    DEFAULT_TIERS, LOSSLESS_POLICY, ServeEngine, WeightStore, serving,
 )
 
 pytestmark = pytest.mark.gpu
@@ -440,8 +442,6 @@ def _clone_tree(tree):
 
 
 def _eager_logits(eng, tok, cache):
-    from repro_torch.models.model import decode_step
-
     pos = torch.tensor(eng.pos, dtype=torch.int32, device=eng.device)
     logits, _ = decode_step(eng.cfg, eng.params, {
         "tokens": torch.from_numpy(tok.astype(np.int64)).to(eng.device),
@@ -718,6 +718,66 @@ def test_engine_on_card_runs_every_kernel(card):
                if name not in ("elastic_matmul", "kv_delta_inv",
                                "decode_attn", "lz4_prep")), \
         build.LAUNCHES
+
+
+def _greedy_request(cfg, params, card, prompt, n_tokens):
+    """One request on a fresh engine: the device memory its prefill adds
+    at its peak, the logits it was handed at each of ``n_tokens`` steps
+    (B, vocab) f32, and the greedy tokens chosen from them."""
+    B, S = prompt.shape
+    eng = ServeEngine(cfg, params, max_seq=S + n_tokens, batch=B,
+                      page_tokens=64, hbm_kv_budget=1 << 30, device=card)
+    torch.cuda.synchronize(card)
+    base = torch.cuda.memory_allocated(card)
+    torch.cuda.reset_peak_memory_stats(card)
+    logits = eng.prefill(prompt)
+    torch.cuda.synchronize(card)
+    rise = torch.cuda.max_memory_allocated(card) - base
+    seen, toks = [], []
+    for step in range(n_tokens):
+        seen.append(logits)
+        toks.append(logits.argmax(-1).astype(np.int32))
+        if step + 1 < n_tokens:
+            logits = eng.decode(toks[-1].reshape(-1, 1))
+    eng.retire()
+    del eng
+    return rise, np.stack(seen, 1), np.stack(toks, 1)
+
+
+def test_prefill_head_at_the_last_position_on_card(card, monkeypatch):
+    """qwen2-0.5b at its published widths with 2 layers, B = 8, a
+    1024-token prompt: the prefill's peak device memory rises by less than
+    the whole prompt's logits would take (8 x 1024 x 151,936 bf16, 2.318
+    GiB), where the full-logits path rises by more.  Its logits are that
+    path's last row within one bf16 rounding of the row's largest (cuBLAS
+    may sum a 8-row and a 8192-row product in other orders), and a 16-step
+    greedy request serves that path's tokens wherever the two best logits
+    stand more than two such roundings apart: a sequence may part from
+    that path only at a step where they do not (after that its inputs
+    differ, so it is compared no further)."""
+    cfg = dataclasses.replace(ARCHS["qwen2-0.5b"], n_layers=2)
+    params = init_params(cfg, seed=0, device=card)
+    B, S, N = 8, 1024, 16
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab, (B, S),
+                                               dtype=np.int32)
+    logits_bytes = B * S * cfg.vocab * 2
+    rise, seen, toks = _greedy_request(cfg, params, card, prompt, N)
+    with monkeypatch.context() as m:
+        m.setattr(serving, "decode_step",
+                  lambda c, p, batch, cache, last_only=False:
+                  decode_step(c, p, batch, cache))
+        rise_full, seen_full, toks_full = _greedy_request(cfg, params, card,
+                                                          prompt, N)
+    assert rise < logits_bytes <= rise_full, (rise, rise_full)
+    ulp = 2.0 ** -8 * np.abs(seen_full).max(-1)          # (B, N)
+    assert (np.abs(seen[:, 0] - seen_full[:, 0]).max(-1) <= ulp[:, 0]).all()
+    top2 = np.sort(seen_full, -1)[..., -2:]
+    clear = top2[..., 1] - top2[..., 0] > 2 * ulp
+    for b in range(B):
+        for t in range(N):
+            if toks[b, t] != toks_full[b, t]:
+                assert not clear[b, t], (b, t)
+                break
 
 
 def _patterns(shape, seed):
