@@ -30,6 +30,14 @@ class ArchConfig:
     norm: str = "rmsnorm"        # rmsnorm | layernorm
     tie_embeddings: bool = False
     rope_theta: float = 1e4
+    # YaRN (DeepSeek's rope_scaling); a factor of 1 is the plain rotary
+    # embedding
+    rope_factor: float = 1.0
+    rope_original_max: int = 4096
+    rope_beta_fast: float = 32.0
+    rope_beta_slow: float = 1.0
+    rope_mscale: float = 1.0
+    rope_mscale_all_dim: float = 0.0
 
     # MoE
     n_experts: int = 0
@@ -38,9 +46,23 @@ class ArchConfig:
     moe_d_ff: int = 0            # per-expert FFN width (0 → use d_ff)
     moe_every: int = 1
     first_dense: int = 0         # leading dense layers (deepseek style)
+    # the expert share: the router spans ``router_experts`` (0: n_experts)
+    # and this chip holds ``n_experts`` of them, [expert_offset,
+    # expert_offset + n_experts)
+    router_experts: int = 0
+    expert_offset: int = 0
+    # softmax (top-k of the softmax) | sigmoid (DeepSeek-V3's noaux_tc:
+    # biased scores, the top ``topk_group`` of ``n_group`` groups, gates
+    # from the unbiased scores times ``routed_scale``)
+    scoring: str = "softmax"
+    n_group: int = 1
+    topk_group: int = 1
+    routed_scale: float = 1.0
 
-    # MLA (deepseek)
+    # MLA (deepseek); q_lora_rank > 0: the query through a low-rank
+    # projection and its RMSNorm
     mla: bool = False
+    q_lora_rank: int = 0
     kv_lora_rank: int = 0
     qk_rope_dim: int = 64
     v_head_dim: int = 0
@@ -70,7 +92,27 @@ class ArchConfig:
     decode_layout: str = "batch_dp"
     embed_vocab_shard: bool = True
 
+    def __post_init__(self):
+        if self.scoring not in ("softmax", "sigmoid"):
+            raise ValueError(f"unknown router scoring {self.scoring!r}")
+        if self.n_experts and (self.expert_offset < 0 or self.expert_offset
+                               + self.n_experts > self.n_router):
+            raise ValueError(
+                f"experts [{self.expert_offset}, {self.expert_offset}"
+                f" + {self.n_experts}) are not all among the router's "
+                f"{self.n_router}")
+
     # --- derived -------------------------------------------------------------
+    @property
+    def n_router(self) -> int:
+        """Experts the router scores: the published count, of which this
+        chip may hold a block."""
+        return self.router_experts or self.n_experts
+
+    @property
+    def holds_share(self) -> bool:
+        return self.n_router != self.n_experts
+
     @property
     def hd(self) -> int:
         return self.head_dim or (self.d_model // max(self.n_heads, 1))

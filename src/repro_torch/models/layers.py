@@ -13,11 +13,13 @@ bf16 rounds at other places inside a fused op.
 from __future__ import annotations
 
 import contextlib
+import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import spans
 from ..kernels.decode_attn import decode_attention
 from .sharding import (
     all_to_all, axis_sizes, coordinate, current_rules, gather_rows, gathered,
@@ -50,17 +52,66 @@ def norm(x, p, kind: str):
     return rmsnorm(x, p["scale"])
 
 
-def rope(x, positions, theta: float = 1e4):
-    """x: (B, S, H, hd); positions: (B, S) int."""
+def rope(x, positions, theta: float = 1e4, *, freqs=None, gain: float = 1.0):
+    """x: (B, S, H, hd); positions: (B, S) int.  ``freqs`` (hd / 2,) f32
+    in place of ``theta``'s and ``gain`` on cos and sin where a scaled
+    rotary embedding gives them (:func:`yarn`)."""
     hd = x.shape[-1]
     half = hd // 2
-    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                    device=x.device) / half)
+    if freqs is None:
+        freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                        device=x.device) / half)
     ang = positions[..., None].float() * freqs              # (B, S, half)
     cos, sin = ang.cos()[..., None, :], ang.sin()[..., None, :]
+    if gain != 1.0:
+        cos, sin = cos * gain, sin * gain
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def _yarn_mscale(factor: float, mscale: float) -> float:
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn(cfg, dim: int, device):
+    """YaRN's rotary frequencies (dim / 2,) f32, its gain on cos and sin
+    and its gain on the softmax scale, from ``cfg.rope_*`` as DeepSeek's
+    ``modeling_deepseek.py`` computes them (``DeepseekV3YarnRotaryEmbedding``
+    in f32, the attention's ``softmax_scale``): each frequency blends
+    ``theta``'s and that over the factor along a linear ramp between the
+    dimensions that turn ``beta_fast`` and ``beta_slow`` times over the
+    original context.  A factor of 1 or less: ``(None, 1.0, 1.0)``, the
+    plain rotary embedding."""
+    f = cfg.rope_factor
+    if f <= 1:
+        return None, 1.0, 1.0
+    base, orig = cfg.rope_theta, cfg.rope_original_max
+
+    def corr(rot):
+        return (dim * math.log(orig / (rot * 2 * math.pi))
+                / (2 * math.log(base)))
+
+    lo = max(math.floor(corr(cfg.rope_beta_fast)), 0)
+    hi = min(math.ceil(corr(cfg.rope_beta_slow)), dim - 1)
+    hi = hi + 0.001 if lo == hi else hi
+    exps = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    extra = 1.0 / base ** exps
+    inter = 1.0 / (f * base ** exps)
+    ramp = ((torch.arange(dim // 2, dtype=torch.float32, device=device) - lo)
+            / (hi - lo)).clamp(0, 1)
+    mask = 1.0 - ramp
+    freqs = inter * (1 - mask) + extra * mask
+    m_all = cfg.rope_mscale_all_dim
+    gain = _yarn_mscale(f, cfg.rope_mscale) / _yarn_mscale(f, m_all)
+    soft = _yarn_mscale(f, m_all) ** 2 if m_all else 1.0
+    return freqs, gain, soft
+
+
+def _prefill_span(name: str, S: int):
+    """A span of an eager prefill (S > 1); a decode step, which the
+    serving engine captures, opens none."""
+    return spans.span(name) if S > 1 else spans.OFF
 
 
 def _const(v: float, like):
@@ -81,7 +132,8 @@ def _scale(q) -> float:
 
 
 def attention(q, k, v, *, q_positions, causal: bool = True, window: int = 0,
-              k_positions=None, kv_valid_len=None, q_chunk: int = 0):
+              k_positions=None, kv_valid_len=None, q_chunk: int = 0,
+              scale=None):
     """GQA attention (plain PyTorch; the prefill path and every
     rolling-window or bidirectional one).
 
@@ -90,11 +142,13 @@ def attention(q, k, v, *, q_positions, causal: bool = True, window: int = 0,
     masks keys after the query, ``window`` > 0 keys at or more than
     ``window`` positions before it, ``kv_valid_len`` (an int or a 0-d
     tensor on the device) slots at or past it;
-    ``q_chunk`` > 0 processes query chunks to bound score memory.
+    ``q_chunk`` > 0 processes query chunks to bound score memory;
+    ``scale`` replaces the softmax scale ``hd**-0.5`` (:func:`_scale`).
     """
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
-    qg = (q.float() * _scale(q)).reshape(B, Sq, KV, H // KV, hd)
+    scale = _scale(q) if scale is None else scale
+    qg = (q.float() * scale).reshape(B, Sq, KV, H // KV, hd)
     if k_positions is None:
         k_positions = torch.arange(Sk, device=q.device)[None]
     k_pos = k_positions[:, None, None, None, :]
@@ -236,17 +290,28 @@ def mla_block(x, p, cfg, *, positions, cache=None, cache_pos=0):
     place at ``cache_pos``; K and V are re-expanded from the whole latent
     cache every step and attended in plain PyTorch (K is hd + rd wide, V
     ``v_head_dim``), as the reference does.  ``cache`` None: the tokens'
-    own latents, causally.
+    own latents, causally.  With ``cfg.q_lora_rank`` the query goes
+    through its low-rank projection ``wq_a``, an RMSNorm and ``wq_b``
+    (DeepSeek-V3); with ``cfg.rope_factor`` > 1 the rotary embedding and
+    the softmax scale are YaRN's (:func:`yarn`).
     """
     B, S, _ = x.shape
     H, hd, r = cfg.n_heads, cfg.hd, cfg.kv_lora_rank
     rd, vh = cfg.qk_rope_dim, cfg.v_head_dim or cfg.hd
     h = norm(x, p["norm"], cfg.norm)
-    q = (h @ p["wq"]).reshape(B, S, H, hd + rd)
-    q_rope = rope(q[..., hd:], positions, cfg.rope_theta)
+    if cfg.q_lora_rank:
+        with _prefill_span("mla.q_lora", S):
+            q = rmsnorm(h @ p["wq_a"], p["q_norm"]["scale"]) @ p["wq_b"]
+    else:
+        q = h @ p["wq"]
+    q = q.reshape(B, S, H, hd + rd)
+    freqs, gain, soft = yarn(cfg, rd, x.device)
+    q_rope = rope(q[..., hd:], positions, cfg.rope_theta, freqs=freqs,
+                  gain=gain)
     ckv_full = h @ p["w_dkv"]                              # (B, S, r + rd)
     c_kv = rmsnorm(ckv_full[..., :r], p["kv_norm"]["scale"])
-    k_rope = rope(ckv_full[..., None, r:], positions, cfg.rope_theta)
+    k_rope = rope(ckv_full[..., None, r:], positions, cfg.rope_theta,
+                  freqs=freqs, gain=gain)
     if cache is None:
         c_all, k_rope_all, k_positions, valid = c_kv, k_rope, positions, None
     else:
@@ -262,7 +327,8 @@ def mla_block(x, p, cfg, *, positions, cache=None, cache_pos=0):
     qfull = torch.cat([q[..., :hd], q_rope], dim=-1)
     out = attention(qfull, k, v, q_positions=positions,
                     k_positions=k_positions, kv_valid_len=valid,
-                    q_chunk=256 if S > 1024 else 0)
+                    q_chunk=256 if S > 1024 else 0,
+                    scale=None if soft == 1.0 else (hd + rd) ** -0.5 * soft)
     return out.reshape(B, S, H * vh) @ p["wo"]
 
 
@@ -323,6 +389,44 @@ def route(flat, router, k: int):
     return gates / gates.sum(-1, keepdim=True), experts
 
 
+def route_grouped(flat, router, bias, cfg):
+    """DeepSeek-V3's ``noaux_tc`` routing, in f32 as the published
+    ``MoEGate`` computes it: the sigmoid of the f32 router logits; the
+    scores plus the correction ``bias`` choose, the unbiased scores
+    weigh.  Each of the ``cfg.n_group`` groups of experts scores the sum
+    of its top 2 biased scores, the top ``cfg.topk_group`` groups are
+    kept, and the ``cfg.top_k`` experts of the kept groups with the
+    largest biased scores are chosen (ties to the lower index, through
+    stable descending sorts, as :func:`route`).  The gates are their
+    unbiased scores over their sum, times ``cfg.routed_scale``.  Returns
+    ``(gates (T, k) f32, experts (T, k) int64)``, experts numbered over
+    the whole router."""
+    T = flat.shape[0]
+    E, G = router.shape[-1], cfg.n_group
+    scores = torch.sigmoid(flat.float() @ router.float())
+    biased = scores + bias.float()
+    groups = biased.view(T, G, E // G).topk(2, dim=-1).values.sum(-1)
+    top = torch.sort(groups, dim=-1, descending=True,
+                     stable=True).indices[:, :cfg.topk_group]
+    kept = torch.zeros(T, G, dtype=torch.bool, device=flat.device)
+    kept.scatter_(1, top, True)
+    masked = biased.masked_fill(~kept.repeat_interleave(E // G, dim=1),
+                                float("-inf"))
+    experts = torch.sort(masked, dim=-1, descending=True,
+                         stable=True).indices[:, :cfg.top_k]
+    gates = scores.gather(1, experts)
+    gates = gates / (gates.sum(-1, keepdim=True) + 1e-20)
+    return gates * cfg.routed_scale, experts
+
+
+def _route_tokens(flat, p, cfg):
+    """:func:`route_grouped` for a sigmoid router, else the module's
+    :func:`route` (looked up at the call, so a caller may pin it)."""
+    if cfg.scoring == "sigmoid":
+        return route_grouped(flat, p["router"], p["router_bias"], cfg)
+    return route(flat, p["router"], cfg.top_k)
+
+
 def balance_loss(probs, experts):
     """The Switch-style load-balance loss ``E * sum(frac_tokens *
     frac_probs)``: ``frac_tokens`` the share of tokens whose **first**
@@ -346,9 +450,62 @@ def capacity_slots(experts, n_experts: int, cap: int):
     return pos, pos < cap
 
 
+_PAIR_COUNTERS: list = []
+
+
+@contextlib.contextmanager
+def count_pairs(counter: torch.Tensor):
+    """Every prefill's MoE layers inside the block add their (token,
+    choice) pairs to ``counter`` (3,) int64 on the model's device:
+    routed, routed to an expert this chip holds, and of those dropped by
+    capacity.  Device adds, no sync; a decode step adds nothing."""
+    _PAIR_COUNTERS.append(counter)
+    try:
+        yield
+    finally:
+        _PAIR_COUNTERS.pop()
+
+
+def _count_pairs(keep, held=None):
+    """A prompt's pairs into the counter in use, if any: ``keep`` (T, k)
+    whether each pair found a slot, ``held`` whether this chip holds its
+    expert (None: every expert is held)."""
+    if not _PAIR_COUNTERS:
+        return
+    c = _PAIR_COUNTERS[-1]
+    c[0] += keep.numel()
+    if held is None:
+        c[1] += keep.numel()
+        c[2] += (~keep).sum()
+    else:
+        c[1] += held.sum()
+        c[2] += (held & ~keep).sum()
+
+
+def _held_span(p):
+    """The ``moe.held`` span around a prompt's routed experts, carrying
+    the held experts' weight bytes."""
+    sp = spans.span("moe.held")
+    if sp:
+        sp.nbytes = sum(p[n].nbytes for n in ("w1", "w2", "w3") if n in p)
+    return sp
+
+
+def _held_experts(experts, cfg):
+    """Each (token, choice)'s index among this chip's experts (0 where
+    another chip holds its expert) and whether this chip holds it."""
+    local = experts - cfg.expert_offset
+    held = (local >= 0) & (local < cfg.n_experts)
+    return torch.where(held, local, torch.zeros_like(local)), held
+
+
 def _moe_dense_decode(flat, p, cfg, gates, experts):
     """Few tokens (S == 1): every expert on every token, combined by an
-    f32 scatter-add of the gates — exact, no capacity drops."""
+    f32 scatter-add of the gates — exact, no capacity drops.  With an
+    expert share, the held experts, the others' gates zero."""
+    if cfg.holds_share:
+        experts, held = _held_experts(experts, cfg)
+        gates = torch.where(held, gates, torch.zeros_like(gates))
     T = flat.shape[0]
     y_all = _expert_ffn(flat.expand(cfg.n_experts, T, -1), p, cfg)  # (E,T,d)
     weight = torch.zeros(T, cfg.n_experts, dtype=torch.float32,
@@ -400,6 +557,27 @@ def _ep_axes(rules, B: int, S: int, n_experts: int):
     return tuple(a for a in ("pod", "data") if a in sizes) + ("model",)
 
 
+def _moe_prefill_share(flat, p, cfg, gates, experts):
+    """A prompt's routed experts where this chip holds a block of the
+    router's: the uncut layer's capacity, ``int(max(1, capacity_factor *
+    k * T / n_router))`` rows an expert, and the uncut layer's slot of
+    each (token, choice) in its expert's buffer (the cumulative count
+    over the pairs of that expert, row-major, which the other experts do
+    not touch), so the held experts drop exactly what they drop in the
+    uncut layer; pairs routed elsewhere add nothing here."""
+    T, k = experts.shape
+    E = cfg.n_experts
+    cap = int(max(1, cfg.capacity_factor * k * T / cfg.n_router))
+    local, held = _held_experts(experts, cfg)
+    pos, keep = capacity_slots(torch.where(held, local, E), E + 1, cap)
+    keep = keep & held
+    _count_pairs(keep, held)
+    with _held_span(p):
+        buf = logical(_dispatch(flat, local, pos, keep, E, cap),
+                      "experts", "capacity", "embed")
+        return _combine(_expert_ffn(buf, p, cfg), local, pos, keep, gates)
+
+
 def moe_block_ep(x, p, cfg, mesh, token_axes):
     """Expert-parallel MoE: the reference's ``moe_block_ep`` (shard_map +
     ``all_to_all``), on this rank's local tensors.
@@ -418,6 +596,12 @@ def moe_block_ep(x, p, cfg, mesh, token_axes):
     ``model`` again.  ``aux`` is ``E * sum(mean(frac_tokens) *
     mean(frac_probs))``, both means over every token axis.  Returns
     ``(out (B, S, d), aux)``."""
+    if cfg.holds_share or cfg.scoring != "softmax":
+        raise ValueError(
+            f"{cfg.name}: the expert-parallel mesh path routes a softmax "
+            "router over the experts the mesh holds; an expert share "
+            f"({cfg.n_experts} of {cfg.n_router}) or a {cfg.scoring} router "
+            "runs on one chip")
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     M = axis_sizes(mesh)["model"]
@@ -465,8 +649,16 @@ def moe_block(x, p, cfg):
     :func:`balance_loss` over the experts :func:`route` chose, read from
     the probabilities of the bf16 router logits (the source's dtype;
     ROADMAP.md Queue 3); None for a single token, where the reference's
-    is a zero (a decode step launches nothing for it).  Routing goes
-    through the module's ``route``, so a caller may pin it.
+    is a zero (a decode step launches nothing for it), and for a sigmoid
+    router, whose ``noaux_tc`` balancing is its correction bias.  Routing
+    goes through the module's ``route`` (a sigmoid router's through
+    :func:`route_grouped`), so a caller may pin it.
+
+    With an expert share (``cfg.holds_share``) the router spans all
+    ``cfg.n_router`` experts and this chip computes the part of the
+    result its own ``cfg.n_experts`` give (:func:`_moe_prefill_share`,
+    and the decode's dense path over the held experts); the shared
+    experts are counted on every chip.
 
     On a mesh (rules installed) a prompt takes :func:`moe_block_ep`
     where the reference does; otherwise the block gathers the batch's
@@ -487,21 +679,29 @@ def moe_block(x, p, cfg):
     if batch:
         flat = gather_rows(flat, rules.mesh, batch, partial_grad=True)
     T = flat.shape[0]
-    gates, experts = route(flat, p["router"], k)
+    with _prefill_span("moe.route", S):
+        gates, experts = _route_tokens(flat, p, cfg)
+    aux = None
     if S == 1:
         out = _moe_dense_decode(flat, p, cfg, gates, experts)
-        aux = None
+    elif cfg.holds_share:
+        out = _moe_prefill_share(flat, p, cfg, gates, experts)
     else:
         cap = int(max(1, cfg.capacity_factor * k * T / E))
         pos, keep = capacity_slots(experts, E, cap)
-        buf = logical(_dispatch(flat, experts, pos, keep, E, cap),
-                      "experts", "capacity", "embed")
-        out = _combine(_expert_ffn(buf, p, cfg), experts, pos, keep, gates)
-        aux = balance_loss(router_probs(flat, p["router"]), experts)
+        _count_pairs(keep)
+        with _held_span(p):
+            buf = logical(_dispatch(flat, experts, pos, keep, E, cap),
+                          "experts", "capacity", "embed")
+            out = _combine(_expert_ffn(buf, p, cfg), experts, pos, keep,
+                           gates)
+        if cfg.scoring == "softmax":
+            aux = balance_loss(router_probs(flat, p["router"]), experts)
     if batch:
         index, n = coordinate(rules.mesh, batch)
         out = out[index * B * S : (index + 1) * B * S]
-        aux = aux.detach() + (aux - aux.detach()) / n
+        if aux is not None:
+            aux = aux.detach() + (aux - aux.detach()) / n
     out = out.reshape(B, S, d)
     if cfg.n_shared_experts:
         out = out + mlp_apply(h, p["shared"], cfg.mlp)

@@ -86,13 +86,24 @@ def _attn_specs(cfg, n):
 
 
 def _mla_specs(cfg, n):
-    """As the reference's: the attention norm has no layernorm bias."""
+    """As the reference's: the attention norm has no layernorm bias.  With
+    a query LoRA (DeepSeek-V3) ``wq_a``, its RMSNorm ``q_norm`` and
+    ``wq_b`` take ``wq``'s place."""
     d, H, hd = cfg.d_model, cfg.n_heads, cfg.hd
     r, rd, vh = cfg.kv_lora_rank, cfg.qk_rope_dim, cfg.v_head_dim or cfg.hd
+    qr = cfg.q_lora_rank
     A = ("layers",)
+    if qr:
+        q = {"wq_a": _spec((n, d, qr), "normal", A + ("embed", None)),
+             "q_norm": {"scale": _spec((n, qr), "zeros", A + (None,))},
+             "wq_b": _spec((n, qr, H * (hd + rd)), "normal",
+                           A + (None, "heads"))}
+    else:
+        q = {"wq": _spec((n, d, H * (hd + rd)), "normal",
+                         A + ("embed", "heads"))}
     return {
         "norm": {"scale": _spec((n, d), "zeros", A + (None,))},
-        "wq": _spec((n, d, H * (hd + rd)), "normal", A + ("embed", "heads")),
+        **q,
         "w_dkv": _spec((n, d, r + rd), "normal", A + ("embed", None)),
         "kv_norm": {"scale": _spec((n, r), "zeros", A + (None,))},
         "w_uk": _spec((n, r, H * hd), "normal", A + (None, "heads")),
@@ -117,12 +128,17 @@ def _mlp_specs(cfg, n):
 
 
 def _moe_specs(cfg, n):
+    """The router spans ``cfg.n_router`` experts (with a sigmoid router's
+    correction bias beside it); the expert weights are the ``n_experts``
+    this chip holds."""
     d, E = cfg.d_model, cfg.n_experts
     fe = cfg.moe_d_ff or cfg.d_ff
     A = ("layers",)
     s = {"norm": _norm_spec(cfg, (n,), A),
-         "router": _spec((n, d, E), "normal", A + ("embed", None)),
-         **_ffn_specs(cfg, (n, E), A + ("experts",), fe, "moe_mlp")}
+         "router": _spec((n, d, cfg.n_router), "normal", A + ("embed", None))}
+    if cfg.scoring == "sigmoid":
+        s["router_bias"] = _spec((n, cfg.n_router), "zeros", A + (None,))
+    s.update(_ffn_specs(cfg, (n, E), A + ("experts",), fe, "moe_mlp"))
     if cfg.n_shared_experts:
         s["shared"] = _ffn_specs(cfg, (n,), A, fe * cfg.n_shared_experts)
     return s

@@ -59,6 +59,7 @@ Each request's tokens equal a solo :meth:`ServeEngine.generate` of it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Dict, List, Optional, Sequence, Tuple, Union
@@ -71,6 +72,7 @@ from ..configs.base import ArchConfig
 from ..core.system_model import SystemSpec
 from ..core.tier import Ticket, TierStore, make_device
 from ..kernels import build
+from ..models.layers import count_pairs
 from ..models.model import cache_capacity, cache_spec, decode_step, init_cache
 from .paging import (
     KVPagePool, PagePolicy, PAPER_POLICY, PrefixShareIndex, _Page,
@@ -109,6 +111,12 @@ class ServeStats:
     tier_io_service_s: float = 0.0      # serialized service time of all I/O
     tier_io_queue_delay_s: float = 0.0  # queueing on the shared DDR/link pipes
     tier_device_compute_s: float = 0.0  # PNM scoring time on the device
+    # the prefill's MoE (token, choice) pairs, counted while spans record:
+    # routed, routed to an expert this chip holds, of those dropped by
+    # capacity
+    moe_routed_pairs: int = 0
+    moe_held_pairs: int = 0
+    moe_dropped_pairs: int = 0
 
     @property
     def kv_compression_ratio(self) -> float:
@@ -251,6 +259,10 @@ class ServeEngine:
         self._prompt_len = 0
         self._inflight: List[Tuple[_Page, Ticket]] = []
         self._inflight_gathers: List[Tuple[List[_Page], Ticket]] = []
+        # the prefill's MoE pair counters on the device while spans record
+        # (routed, held, dropped), read once at retire
+        self._pairs: Optional[torch.Tensor] = None
+        self._pair_counts = (0, 0, 0)
 
     # -- helpers ---------------------------------------------------------------
     def _commit_pages(self, lo: int, hi: int):
@@ -437,12 +449,23 @@ class ServeEngine:
                     np.ascontiguousarray(u16).view(np.int16).copy())
                 target.copy_(words.view(buf.dtype).reshape(target.shape))
 
+    def _pair_counter(self):
+        """:func:`count_pairs` into this engine's device counters while
+        spans record and the model has experts; else a context that does
+        nothing."""
+        if not (self.cfg.n_experts and spans.recording()):
+            return contextlib.nullcontext()
+        if self._pairs is None:
+            self._pairs = torch.zeros(3, dtype=torch.int64,
+                                      device=self.device)
+        return count_pairs(self._pairs)
+
     # -- API ---------------------------------------------------------------------
     def _prefill_logits(self, tokens: torch.Tensor) -> torch.Tensor:
         """The prompt's last position's logits (B, 1, vocab), eagerly, at
         the host position: :meth:`_step` reads that row alone, so the
         head runs there alone."""
-        with spans.span("engine.forward") as sp:
+        with spans.span("engine.forward") as sp, self._pair_counter():
             logits = decode_step(self.cfg, self.params, {
                 "tokens": tokens, "cache_pos": self.pos}, self.cache,
                 last_only=True)[0]
@@ -542,6 +565,9 @@ class ServeEngine:
             tier_io_service_s=self.pool.io_service_s,
             tier_io_queue_delay_s=self.pool.io_queue_delay_s,
             tier_device_compute_s=d.device_compute_s,
+            moe_routed_pairs=self._pair_counts[0],
+            moe_held_pairs=self._pair_counts[1],
+            moe_dropped_pairs=self._pair_counts[2],
         )
 
     def throughput_ceiling(self, sys: SystemSpec = SystemSpec()) -> float:
@@ -562,6 +588,12 @@ class ServeEngine:
             self.flush_io()
             with spans.span("engine.release_graph"):
                 self.graph = None
+            if self._pairs is not None:
+                self._pair_counts = tuple(self._pairs.tolist())
+                self._pairs = None
+                for name, n in zip(("moe.routed_pairs", "moe.held_pairs",
+                                    "moe.dropped_pairs"), self._pair_counts):
+                    spans.count(name, n)
             return self.pool.release()
 
 

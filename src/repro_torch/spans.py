@@ -27,6 +27,10 @@ span opened inside it.  While recording, each pass of the interpreter's
 cyclic garbage collector is a span too, ``gc``, wherever it falls: the
 host stalls there as in any phase.
 
+Counters ride along: :func:`count` adds a whole number to the
+recorder's ``counters`` by name while recording (the serving engine's
+MoE pair counts, read once a request at its retire).
+
 The recorder in use is module state rather than an argument: the spans
 sit deep in the tier and the codec, on call paths that carry no context.
 """
@@ -36,7 +40,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import time
-from typing import Iterator, List, Optional, Set
+from typing import Dict, Iterator, List, Optional, Set
 
 now = time.perf_counter_ns
 
@@ -121,6 +125,7 @@ class Recorder:
 
     def __init__(self):
         self.spans: List[Span] = []
+        self.counters: Dict[str, int] = {}
         self.request: Optional[str] = None
         self._stack: List[int] = []
         self._open: Set[str] = set()
@@ -147,6 +152,18 @@ def span(name: str, nbytes: Optional[int] = None,
     if rec is None or name in rec._open:
         return OFF
     return Span(rec, name, nbytes, request)
+
+
+def recording() -> bool:
+    """Whether :func:`record` is open."""
+    return _active is not None
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the recorder's counter ``name``; nothing while off."""
+    rec = _active
+    if rec is not None:
+        rec.counters[name] = rec.counters.get(name, 0) + int(n)
 
 
 @contextlib.contextmanager

@@ -149,7 +149,21 @@ PARENTS = {
     "tier.unpack": ("tier.read",),
     "tier.wait": ("tier.kv_transform", "tier.encode", "tier.match",
                   "tier.read"),
+    "mla.q_lora": ("engine.forward",),
+    "moe.route": ("engine.forward",),
+    "moe.held": ("engine.forward",),
 }
+
+
+def _expected(cfg) -> set:
+    """The span names a request of ``cfg`` opens: the model's own only
+    where it has a query LoRA or experts."""
+    names = set(PARENTS) | set(TOP)
+    if not cfg.q_lora_rank:
+        names.discard("mla.q_lora")
+    if not cfg.n_experts:
+        names -= {"moe.route", "moe.held"}
+    return names
 
 
 @pytest.fixture(scope="module", params=["qwen2-0.5b", "deepseek-v2-lite-16b"])
@@ -202,7 +216,7 @@ def test_engine_span_tree(model):
     for i, c in enumerate(counted):
         r = f"r{i}"
         mine = [s for s in rec.spans if s.request == r and s.name != "gc"]
-        assert {s.name for s in mine} == set(PARENTS) | set(TOP)
+        assert {s.name for s in mine} == _expected(cfg)
         assert [s.name for s in mine if s.parent < 0] == (
             ["engine.prefill"] + ["engine.decode"] * NEW + ["engine.retire"])
         # the tier's bytes are its receipts'
