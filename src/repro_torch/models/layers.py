@@ -142,7 +142,9 @@ def attention(q, k, v, *, q_positions, causal: bool = True, window: int = 0,
     masks keys after the query, ``window`` > 0 keys at or more than
     ``window`` positions before it, ``kv_valid_len`` (an int or a 0-d
     tensor on the device) slots at or past it;
-    ``q_chunk`` > 0 processes query chunks to bound score memory;
+    ``q_chunk`` > 0 processes query chunks to bound score memory (the
+    last one shorter where it does not divide Sq; the reference then
+    takes all the queries at once);
     ``scale`` replaces the softmax scale ``hd**-0.5`` (:func:`_scale`).
     """
     B, Sq, H, hd = q.shape
@@ -170,7 +172,7 @@ def attention(q, k, v, *, q_positions, causal: bool = True, window: int = 0,
         return o.to(q.dtype)
 
     qpos = q_positions.expand(B, Sq)
-    if q_chunk and Sq > q_chunk and Sq % q_chunk == 0:
+    if q_chunk and Sq > q_chunk:
         out = torch.cat([block(qg[:, i : i + q_chunk], qpos[:, i : i + q_chunk])
                          for i in range(0, Sq, q_chunk)], dim=1)
     else:
@@ -282,18 +284,95 @@ def _rolling_attention(q, k, v, cache, positions, window: int, chunk: int):
     return out
 
 
+# MLA layer passes since import by path: [absorbed, re-expanded].  A
+# decode step's caller reads them around the step, as ``build.LAUNCHES``.
+MLA_PATHS = [0, 0]
+
+
+def _expanded_attention(q_nope, q_rope, c_all, k_rope_all, p, scale, *,
+                        positions, k_positions, valid):
+    """MLA attention with K and V re-expanded from the latents ``c_all``
+    (B, Sk, r) at every head: K (hd + rd wide) is ``c_all @ w_uk`` beside
+    the shared rope key ``k_rope_all`` (B, Sk, 1, rd), V ``c_all @ w_uv``;
+    :func:`attention` over them.  q_nope (B, S, H, hd), q_rope (B, S, H,
+    rd) → (B, S, H, vh)."""
+    B, Sk, S, H = *c_all.shape[:2], *q_nope.shape[1:3]
+    k_nope = (c_all @ p["w_uk"]).reshape(B, Sk, H, -1)
+    v = (c_all @ p["w_uv"]).reshape(B, Sk, H, -1)
+    rd = k_rope_all.shape[-1]
+    k = torch.cat([k_nope, k_rope_all.expand(B, Sk, H, rd)], dim=-1)
+    qfull = torch.cat([q_nope, q_rope], dim=-1)
+    return attention(qfull, k, v, q_positions=positions,
+                     k_positions=k_positions, kv_valid_len=valid,
+                     q_chunk=256 if S > 1024 else 0, scale=scale)
+
+
+def _bmm_f32(a, b):
+    """``torch.bmm`` of bf16 operands, summed and returned in f32: the
+    card's cuBLAS takes the f32 output itself; the CPU, which has no such
+    kernel, takes the same products from operands widened to f32
+    (exactly)."""
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def _absorbed_attention(q_nope, q_rope, c_kv, k_rope, p, scale, valid):
+    """One query position's MLA attention over the latent cache with the
+    up-projections absorbed (DeepSeek-V2 §2.1.2): ``w_uk`` maps the query
+    into the latent, q_lat (B, H, r); every head scores q_lat · c_kv +
+    q_rope · k_rope against the one shared latent (MQA with a key r + rd
+    wide and a value r wide); ``w_uv`` maps each head's attended latent
+    (B, H, r) to its output.  The same mathematics as
+    :func:`_expanded_attention`, in another order.
+
+    q_nope (B, H, hd), q_rope (B, H, rd); the cache's ``c_kv`` (B, Smax,
+    r) and ``k_rope`` (B, Smax, 1, rd), bf16 or float8, whose slots at or
+    past ``valid`` (an int or a 0-d tensor on the device) are masked.
+    q_lat stays f32 (:func:`_bmm_f32`), the scale multiplies it in f32,
+    and scores, softmax and P · c_kv are f32.  The attended latent goes
+    into ``w_uv``'s bf16 product as two bf16 parts, its rounding and the
+    rest, in one batch, so that only the heads' output rounds to bf16:
+    rounded once, the latent would carry an error the expanded path's V
+    spreads over every attended position.  ``w_uk`` and ``w_uv`` are
+    read through strided batch views, (H, hd, r) and (H, r, vh): never
+    copied.  → (B, H, vh) in q's dtype.
+    """
+    B, H, hd = q_nope.shape
+    r, Sk = c_kv.shape[-1], c_kv.shape[1]
+    uk = p["w_uk"].view(r, H, hd).permute(1, 2, 0)
+    uv = p["w_uv"].view(r, H, -1).transpose(0, 1)
+    q_lat = _bmm_f32(q_nope.transpose(0, 1), uk).transpose(0, 1)
+    c = c_kv.float()
+    s = (torch.bmm(q_lat * scale, c.transpose(1, 2))
+         + torch.bmm(q_rope.float() * scale,
+                     k_rope[:, :, 0].float().transpose(1, 2)))
+    s = torch.where(torch.arange(Sk, device=s.device) < valid, s, _MASKED)
+    o_lat = torch.bmm(torch.softmax(s, dim=-1), c)
+    hi = o_lat.to(q_nope.dtype)
+    parts = torch.cat([hi, (o_lat - hi.float()).to(hi.dtype)])
+    o = _bmm_f32(parts.transpose(0, 1), uv)                  # (H, 2B, vh)
+    return (o[:, :B] + o[:, B:]).transpose(0, 1).to(q_nope.dtype)
+
+
 def mla_block(x, p, cfg, *, positions, cache=None, cache_pos=0):
     """DeepSeek-V2 multi-head latent attention over a latent cache.
 
     The cache holds this layer's ``c_kv`` (B, Smax, kv_lora_rank) latent
     and shared rope key ``k_rope`` (B, Smax, 1, qk_rope_dim), written in
-    place at ``cache_pos``; K and V are re-expanded from the whole latent
-    cache every step and attended in plain PyTorch (K is hd + rd wide, V
-    ``v_head_dim``), as the reference does.  ``cache`` None: the tokens'
-    own latents, causally.  With ``cfg.q_lora_rank`` the query goes
-    through its low-rank projection ``wq_a``, an RMSNorm and ``wq_b``
-    (DeepSeek-V3); with ``cfg.rope_factor`` > 1 the rotary embedding and
-    the softmax scale are YaRN's (:func:`yarn`).
+    place at ``cache_pos``.  The query's length picks the attention: one
+    position against a cache (a decode step) attends over the cached
+    latent with the up-projections absorbed (:func:`_absorbed_attention`:
+    it reads the latent once, and K and V are never made); a prompt, or
+    tokens without a cache, re-expand K and V from the latents and attend
+    in plain PyTorch, as the reference does (:func:`_expanded_attention`:
+    the expansion is shared by the S queries, where absorbing ``w_uv``
+    would cost each of them an (r, vh) product a head).  ``cache`` None:
+    the tokens' own latents, causally.  :data:`MLA_PATHS` counts the
+    passes by path.  With ``cfg.q_lora_rank`` the query goes through its
+    low-rank projection ``wq_a``, an RMSNorm and ``wq_b`` (DeepSeek-V3);
+    with ``cfg.rope_factor`` > 1 the rotary embedding and the softmax
+    scale are YaRN's (:func:`yarn`).
     """
     B, S, _ = x.shape
     H, hd, r = cfg.n_heads, cfg.hd, cfg.kv_lora_rank
@@ -312,23 +391,26 @@ def mla_block(x, p, cfg, *, positions, cache=None, cache_pos=0):
     c_kv = rmsnorm(ckv_full[..., :r], p["kv_norm"]["scale"])
     k_rope = rope(ckv_full[..., None, r:], positions, cfg.rope_theta,
                   freqs=freqs, gain=gain)
+    scale = _scale(q) if soft == 1.0 else (hd + rd) ** -0.5 * soft
     if cache is None:
-        c_all, k_rope_all, k_positions, valid = c_kv, k_rope, positions, None
+        MLA_PATHS[1] += 1
+        out = _expanded_attention(q[..., :hd], q_rope, c_kv, k_rope, p, scale,
+                                  positions=positions, k_positions=positions,
+                                  valid=None)
     else:
         cc, kc = cache["c_kv"], cache["k_rope"]
         _write_at(cc, cache_pos, c_kv)
         _write_at(kc, cache_pos, k_rope)
-        c_all, k_rope_all = cc.to(h.dtype), kc.to(h.dtype)
-        k_positions, valid = None, cache_pos + S
-    Sk = c_all.shape[1]
-    k_nope = (c_all @ p["w_uk"]).reshape(B, Sk, H, hd)
-    v = (c_all @ p["w_uv"]).reshape(B, Sk, H, vh)
-    k = torch.cat([k_nope, k_rope_all.expand(B, Sk, H, rd)], dim=-1)
-    qfull = torch.cat([q[..., :hd], q_rope], dim=-1)
-    out = attention(qfull, k, v, q_positions=positions,
-                    k_positions=k_positions, kv_valid_len=valid,
-                    q_chunk=256 if S > 1024 else 0,
-                    scale=None if soft == 1.0 else (hd + rd) ** -0.5 * soft)
+        if S == 1:
+            MLA_PATHS[0] += 1
+            out = _absorbed_attention(q[:, 0, :, :hd], q_rope[:, 0], cc, kc,
+                                      p, scale, cache_pos + 1)
+        else:
+            MLA_PATHS[1] += 1
+            out = _expanded_attention(
+                q[..., :hd], q_rope, cc.to(h.dtype), kc.to(h.dtype), p,
+                scale, positions=positions, k_positions=None,
+                valid=cache_pos + S)
     return out.reshape(B, S, H * vh) @ p["wo"]
 
 

@@ -72,7 +72,7 @@ from ..configs.base import ArchConfig
 from ..core.system_model import SystemSpec
 from ..core.tier import Ticket, TierStore, make_device
 from ..kernels import build
-from ..models.layers import count_pairs
+from ..models.layers import MLA_PATHS, count_pairs
 from ..models.model import cache_capacity, cache_spec, decode_step, init_cache
 from .paging import (
     KVPagePool, PagePolicy, PAPER_POLICY, PrefixShareIndex, _Page,
@@ -142,8 +142,9 @@ class DecodeGraph:
     kernel
     launches its wrappers counted while it was captured did not run:
     they are taken back, and :meth:`replay` adds them to
-    ``build.LAUNCHES`` each time it launches them.  A failed capture or
-    replay raises; nothing falls back to the eager step."""
+    ``build.LAUNCHES`` each time it launches them; so with the MLA layer
+    passes the capture counted into ``layers.MLA_PATHS``.  A failed
+    capture or replay raises; nothing falls back to the eager step."""
 
     def __init__(self, cfg: ArchConfig, params, cache: dict,
                  tokens: torch.Tensor, pos: int):
@@ -161,7 +162,7 @@ class DecodeGraph:
             torch.cuda.current_stream(dev).wait_stream(stream)
             del scratch
         t1 = spans.now()
-        before = dict(build.LAUNCHES)
+        before, mla = dict(build.LAUNCHES), list(MLA_PATHS)
         with spans.span("capture.graph"):
             self.graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(self.graph, stream=stream):
@@ -169,6 +170,8 @@ class DecodeGraph:
         self.launches = {k: n - before[k] for k, n in build.LAUNCHES.items()
                          if n != before[k]}
         build.LAUNCHES.update(before)
+        self.mla_paths = [n - m for n, m in zip(MLA_PATHS, mla)]
+        MLA_PATHS[:] = mla
         # host seconds of the warm-up step and of the capture
         self.warmup_s = (t1 - t0) / 1e9
         self.capture_s = (spans.now() - t1) / 1e9
@@ -181,6 +184,8 @@ class DecodeGraph:
         self.graph.replay()
         for name, n in self.launches.items():
             build.LAUNCHES[name] += n
+        for i, n in enumerate(self.mla_paths):
+            MLA_PATHS[i] += n
         return self.logits
 
 
@@ -263,6 +268,9 @@ class ServeEngine:
         # (routed, held, dropped), read once at retire
         self._pairs: Optional[torch.Tensor] = None
         self._pair_counts = (0, 0, 0)
+        # the decode steps' MLA layer passes (absorbed, re-expanded),
+        # reported at retire
+        self._mla_steps = [0, 0]
 
     # -- helpers ---------------------------------------------------------------
     def _commit_pages(self, lo: int, hi: int):
@@ -460,6 +468,15 @@ class ServeEngine:
                                       device=self.device)
         return count_pairs(self._pairs)
 
+    @contextlib.contextmanager
+    def _mla_tally(self):
+        """Add the MLA layer passes the block runs, by path, to this
+        engine's decode tally."""
+        before = list(MLA_PATHS)
+        yield
+        for i, n in enumerate(MLA_PATHS):
+            self._mla_steps[i] += n - before[i]
+
     # -- API ---------------------------------------------------------------------
     def _prefill_logits(self, tokens: torch.Tensor) -> torch.Tensor:
         """The prompt's last position's logits (B, 1, vocab), eagerly, at
@@ -478,7 +495,7 @@ class ServeEngine:
         a replay of the captured step (captured at the first decode), on
         the CPU the same step run eagerly."""
         if self.device.type != "cuda":
-            with spans.span("engine.forward") as sp:
+            with spans.span("engine.forward") as sp, self._mla_tally():
                 logits = decode_step(self.cfg, self.params, {
                     "tokens": tokens, "cache_pos": torch.tensor(
                         self.pos, dtype=torch.int32, device=self.device)},
@@ -490,7 +507,7 @@ class ServeEngine:
             with spans.span("engine.capture"):
                 self.graph = DecodeGraph(self.cfg, self.params, self.cache,
                                          tokens, self.pos)
-        with spans.span("engine.replay"):
+        with spans.span("engine.replay"), self._mla_tally():
             return self.graph.replay(tokens, self.pos)
 
     def _step(self, tokens: np.ndarray, run) -> np.ndarray:
@@ -593,6 +610,11 @@ class ServeEngine:
                 self._pairs = None
                 for name, n in zip(("moe.routed_pairs", "moe.held_pairs",
                                     "moe.dropped_pairs"), self._pair_counts):
+                    spans.count(name, n)
+            if self.cfg.mla:
+                for name, n in zip(("mla.absorbed_layer_steps",
+                                    "mla.expanded_layer_steps"),
+                                   self._mla_steps):
                     spans.count(name, n)
             return self.pool.release()
 

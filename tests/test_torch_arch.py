@@ -15,6 +15,12 @@ Tolerances:
   bound of ``tests/test_kv_dtype.py``;
 * decode == forward within the port: the reference's own bound for it
   (``tests/test_arch_smoke.py``, rtol = atol = 0.15);
+* deepseek's decode step attends with absorbed weights and rounds in
+  other places than the reference (``tests/mla_cases.py`` gives the
+  readings): its logits within atol 0.09375 and RMS 0.0125 of the
+  reference's at every position whose router has no near-tie, no
+  further from an f32 evaluation than the reference's, and its router
+  logits within 10 bf16 ulps of the forward's (4 for the other models);
 * the fp8 cache of deepseek against its bf16 cache and against the
   reference's fp8 cache: the margin-aware bound of
   ``tests/test_kv_dtype.py::test_fp8_cache_decode_tracks_bf16`` (a bf16
@@ -55,6 +61,7 @@ from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models import model as tm  # noqa: E402
 from repro_torch.runtime import ServeEngine  # noqa: E402
 from repro_torch.runtime import serving as tserving  # noqa: E402
+import mla_cases  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -75,6 +82,7 @@ PORTED = sorted(ARCHS)
 DECODERS = ["deepseek-v2-lite-16b", "stablelm-12b", "qwen1.5-32b",
             "grok-1-314b", "nemotron-4-340b"]
 FRONTENDS = ["hubert-xlarge", "llava-next-34b"]
+_SPANS = [(0, PROMPT)] + [(PROMPT + t, PROMPT + t + 1) for t in range(STEPS)]
 
 
 @pytest.fixture(scope="module")
@@ -107,18 +115,24 @@ def _trajectories(pair, kv_dtype="bfloat16"):
     toks = _tokens(tcfg, PROMPT + STEPS)
     step = jax.jit(jdecode, static_argnums=0)
     jc = jinit_cache(rcfg, B, MAX_SEQ)
-    tc = tm.init_cache(tcfg, B, MAX_SEQ, device="cpu")
-    js, ts = [], []
-    spans = [(0, PROMPT)] + [(PROMPT + t, PROMPT + t + 1)
-                             for t in range(STEPS)]
-    for lo, hi in spans:
+    js = []
+    for lo, hi in _SPANS:
         lj, jc = step(rcfg, rparams, {"tokens": jnp.asarray(toks[:, lo:hi]),
                                       "cache_pos": jnp.int32(lo)}, jc)
+        js.append(np.asarray(lj[:, -1], np.float32))
+    return np.stack(js, 1), _port_trajectory(tcfg, tparams)
+
+
+def _port_trajectory(tcfg, tparams):
+    """The port's half of :func:`_trajectories`."""
+    toks = _tokens(tcfg, PROMPT + STEPS)
+    tc = tm.init_cache(tcfg, B, MAX_SEQ, device="cpu")
+    ts = []
+    for lo, hi in _SPANS:
         lt, tc = tm.decode_step(tcfg, tparams, {
             "tokens": torch.from_numpy(toks[:, lo:hi]), "cache_pos": lo}, tc)
-        js.append(np.asarray(lj[:, -1], np.float32))
         ts.append(lt[:, -1].float().numpy())
-    return np.stack(js, 1), np.stack(ts, 1)
+    return np.stack(ts, 1)
 
 
 def _margin_bound(ref, got):
@@ -133,14 +147,50 @@ def _margin_bound(ref, got):
     assert np.corrcoef(ref.ravel(), got.ravel())[0, 1] > 0.99
 
 
+def _router_margins(calls, steps):
+    """Per trajectory position (B, steps), the smallest top-k margin of
+    the recorded router logits over the MoE layers, in bf16 ulps of their
+    magnitude: at each step the row of its last token."""
+    per = len(calls) // steps
+    out = np.full((B, steps), np.inf)
+    for i, (experts, logits) in enumerate(calls):
+        k = experts.shape[1]
+        srt = logits.sort(-1, descending=True).values
+        ulp = 2.0 ** (torch.floor(torch.log2(logits.abs().amax(-1))) - 7)
+        m = ((srt[:, k - 1] - srt[:, k]) / ulp).reshape(B, -1)[:, -1]
+        out[:, i // per] = np.minimum(out[:, i // per], m.numpy())
+    return out
+
+
 @pytest.mark.parametrize("name", DECODERS)
-def test_prefill_and_decode_logits_match_reference(pairs, name):
-    ref, got = _trajectories(pairs(name))
+def test_prefill_and_decode_logits_match_reference(pairs, name, monkeypatch):
+    """deepseek's decode step attends with absorbed weights, which round
+    in other places than the reference's re-expanded K and V
+    (``tests/mla_cases.py``): its logits are held to the MLA bounds at
+    every position whose router logits lie further than twice
+    ``MLA_ROUTER_ULPS`` from a tie in every MoE layer (a near-tie may
+    settle on another expert: at most a tenth of the positions, within
+    the margin-aware bound), and to an f32 evaluation no less closely
+    than the reference's."""
+    pair = pairs(name)
+    mla = pair[2].mla
+    calls = _recording_routes(monkeypatch) if mla else []
+    ref, got = _trajectories(pair)
     assert np.isfinite(got).all()
     diff = np.abs(ref - got)
-    assert diff.max() <= ATOL, diff.max()
-    assert np.sqrt(np.mean(diff ** 2)) <= RMS
     _margin_bound(ref, got)
+    if not mla:
+        assert diff.max() <= ATOL, diff.max()
+        assert np.sqrt(np.mean(diff ** 2)) <= RMS
+        return
+    tie = _router_margins(calls, 1 + STEPS) <= 2 * mla_cases.MLA_ROUTER_ULPS
+    assert tie.mean() <= 0.1, tie
+    held = diff[~tie]
+    assert held.max() <= mla_cases.MLA_ATOL, held.max()
+    assert np.sqrt(np.mean(held ** 2)) <= mla_cases.MLA_RMS
+    monkeypatch.undo()
+    truth = _port_trajectory(pair[2], mla_cases.f32_params(pair[3]))
+    mla_cases.no_less_precise(ref, got, truth)
 
 
 @pytest.mark.parametrize("name", DECODERS)
@@ -183,7 +233,10 @@ def test_decode_matches_forward(pairs, name, monkeypatch):
     flip is allowed only where the forward's k-th and (k+1)-th logits lie
     closer than twice that difference, at most at 1 % of the token-layer
     choices; every position whose routing agrees in every layer meets
-    the bound."""
+    the bound.  deepseek's decode step attends with absorbed weights,
+    which round in other places than the forward's re-expanded K and V:
+    its router logits agree within ``MLA_ROUTER_ULPS``
+    (``tests/mla_cases.py``)."""
     _, _, cfg, params = pairs(name)
     S = 32
     toks = torch.from_numpy(_tokens(cfg, S, seed=3))
@@ -191,6 +244,7 @@ def test_decode_matches_forward(pairs, name, monkeypatch):
     full, _ = tm.decode_step(cfg, params, {"tokens": toks, "cache_pos": 0},
                              tm.init_cache(cfg, B, S, device="cpu"))
     fwd, calls[:] = list(calls), []
+    ulps = mla_cases.MLA_ROUTER_ULPS if cfg.mla else 4
     cache = tm.init_cache(cfg, B, S, device="cpu")
     steps = []
     for t in range(S):
@@ -209,7 +263,7 @@ def test_decode_matches_forward(pairs, name, monkeypatch):
         gap = srt[:, k - 1] - srt[:, k]
         noise = (logits - dec_logits).abs().amax(-1)
         ulp = 2.0 ** (torch.floor(torch.log2(logits.abs().amax(-1))) - 7)
-        assert (noise <= 4 * ulp).all(), (layer, noise.max())
+        assert (noise <= ulps * ulp).all(), (layer, noise.max())
         assert (gap[flip] <= 2 * noise[flip]).all(), (layer, gap[flip])
         assert int(flip.sum()) <= 0.01 * flip.numel() + 1
         agree &= ~flip.reshape(B, S).numpy()

@@ -14,7 +14,10 @@ smoke width:
   0.01 (the bound ``tests/test_torch_arch.py`` holds the jitted step
   to), but zamba2-7b at atol 0.15 and RMS 0.03, the bound
   ``tests/test_torch_hybrid.py`` holds it to (the smoke hybrid amplifies
-  a bf16 ulp past the token decoders' bound; see that file);
+  a bf16 ulp past the token decoders' bound; see that file), and
+  deepseek-v2-lite-16b, whose decode step attends with absorbed weights,
+  at atol 0.09375 and RMS 0.0125 and no further from an f32 evaluation
+  than the reference (``tests/mla_cases.py`` gives the readings);
 * the tensor-position step == the int-position step bit for bit, logits
   and every cache leaf, at every position (0, the 16-token page boundary
   and the last slot among them), a prompt written at a tensor position
@@ -40,6 +43,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 from test_torch_serving import ENGINE, _teacher_forced  # noqa: E402
 from test_torch_ssm import _margin_bound, pairs  # noqa: E402
+import mla_cases  # noqa: E402
 
 from repro.models import init_cache as jinit_cache  # noqa: E402
 from repro.runtime import ServeEngine as RServe  # noqa: E402
@@ -130,14 +134,20 @@ def runs(pairs):
 
 
 @pytest.mark.parametrize("name", SERVED)
-def test_tensor_position_step_matches_reference_jit(runs, name):
+def test_tensor_position_step_matches_reference_jit(runs, pairs, name):
     ref, (got, _), _ = runs(name)
+    cfg, params = pairs(name)[2:]
     atol, rms = ((HYBRID_ATOL, HYBRID_RMS) if name == "zamba2-7b"
+                 else (mla_cases.MLA_ATOL, mla_cases.MLA_RMS) if cfg.mla
                  else (ATOL, RMS))
     assert np.isfinite(got).all()
     diff = np.abs(ref - got)
     assert diff.max() <= atol, diff.max()
     assert np.sqrt(np.mean(diff ** 2)) <= rms
+    if cfg.mla:
+        truth, _ = _port_run(cfg, mla_cases.f32_params(params),
+                             _tokens(cfg, CAP), True)
+        mla_cases.no_less_precise(ref, got, truth)
 
 
 def _leaves(tree):

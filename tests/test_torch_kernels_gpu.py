@@ -22,9 +22,12 @@ from repro_torch.kernels import (  # noqa: E402
     bitplane, build, decode_attn, elastic_matmul, kv_delta, lz4, ops,
     pnm_score,
 )
+from repro_torch.models import layers  # noqa: E402
+from repro_torch.models import model as tm  # noqa: E402
 from repro_torch.models.model import decode_step, init_params  # noqa: E402
 import torch_kv_score_cases as kv_score_cases  # noqa: E402
 import torch_lz4_cases  # noqa: E402
+import mla_cases  # noqa: E402
 from repro_torch.runtime import (  # noqa: E402
     DEFAULT_TIERS, LOSSLESS_POLICY, ServeEngine, WeightStore, serving,
 )
@@ -477,6 +480,8 @@ def test_engine_graph_replay_equals_eager_step(card, name):
     assert build.LAUNCHES["decode_attn"] == 0
     # 10 replays and the warm-up step before the capture
     assert build.LAUNCHES["decode_attn_devlen"] == 11 * attn
+    # the replays' MLA layers, every one absorbed
+    assert eng._mla_steps == [10 * cfg.n_layers if cfg.mla else 0, 0]
     eng.retire()
     assert eng.graph is None
 
@@ -1812,3 +1817,119 @@ def test_mesh_train_graph_across_cards(card, tmp_path):
             assert all(a["faults"] == [] for a in r["audits"]), (rank, key)
             assert r["audits"][0]["collectives"] == \
                 res[0][key]["audits"][0]["collectives"], (rank, key)
+
+
+MIB = 1 << 20
+
+
+def _mla_graph(card, step):
+    """``step`` captured as the engine captures its decode step (a warm-up
+    on the capture's side stream first): the graph, its output and the
+    memory its pool took (reserved bytes over the capture)."""
+    stream = torch.cuda.Stream(card)
+    stream.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(stream):
+        step()
+    torch.cuda.current_stream(card).wait_stream(stream)
+    torch.cuda.synchronize(card)
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved(card)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = step()
+    torch.cuda.synchronize(card)
+    return graph, out, torch.cuda.memory_reserved(card) - before
+
+
+def _replay_ms(card, graph, n=20):
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    graph.replay()
+    start.record()
+    for _ in range(n):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize(card)
+    return start.elapsed_time(end) / n
+
+
+def test_mla_absorbed_decode_step_at_v3_widths(card, monkeypatch):
+    """DeepSeek-V3's attention (128 heads, r 512, hd 128, rd 64, the query
+    LoRA, YaRN), one layer, B 4, a cache of 4288 slots attended to its
+    last: the absorbed decode step captured in a CUDA graph errs against
+    an f64 evaluation of the re-expanded mathematics no more than 1.1
+    times the re-expanded step does (the CPU test's bound); its graph
+    pool takes under 128 MiB; neither ``w_uk`` nor ``w_uv`` is copied.
+    Prints both steps' pool and replay time (the re-expanded one is the
+    step before the absorbed path)."""
+    cfg, B, cap = mla_cases.V3_ATTN, 4, 4288
+    H, hd, r, rd, vh = cfg.n_heads, cfg.hd, 512, 64, 128
+    gen = torch.Generator(device=card).manual_seed(36)
+    p = tm._layer(tm._map(tm._mla_specs(cfg, 1), lambda path, spec:
+                          tm._init_leaf(spec.shape, spec.init, gen, card)), 0)
+    x = torch.randn(B, 1, cfg.d_model, generator=gen, device=card).to(
+        torch.bfloat16)
+    cache = {"c_kv": torch.randn(B, cap, r, generator=gen, device=card).to(
+                 torch.bfloat16),
+             "k_rope": (torch.randn(B, cap, 1, rd, generator=gen, device=card)
+                        * 0.5).to(torch.bfloat16)}
+    pos = torch.full((), cap - 1, dtype=torch.int32, device=card)
+    positions = pos.expand(B, 1)
+
+    def step():
+        return layers.mla_block(x, p, cfg, positions=positions, cache=cache,
+                                cache_pos=pos)
+
+    # the absorbed attention's arguments, eagerly, and no weight copied
+    seen, absorbed = [], layers._absorbed_attention
+
+    def spy(*args):
+        seen.append(args)
+        return absorbed(*args)
+    monkeypatch.setattr(layers, "_absorbed_attention", spy)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU], record_shapes=True) as prof:
+        step()
+    monkeypatch.setattr(layers, "_absorbed_attention", absorbed)
+    copies = ("aten::copy_", "aten::clone", "aten::contiguous",
+              "aten::_to_copy")
+    for ev in prof.events():
+        if ev.name in copies:
+            for shape in ev.input_shapes:
+                assert int(np.prod(shape or [0])) != r * H * hd, (
+                    ev.name, shape)
+    q_nope, q_rope, c_kv, k_rope, _, scale, valid = seen[0]
+    c = c_kv.double()
+    k = (c @ p["w_uk"].double()).reshape(B, cap, H, hd)
+    s = (torch.einsum("bhd,bshd->bhs", q_nope.double() * scale, k)
+         + torch.einsum("bhd,bsd->bhs", q_rope.double() * scale,
+                        k_rope[:, :, 0].double()))
+    del k
+    v = (c @ p["w_uv"].double()).reshape(B, cap, H, vh)
+    want = torch.einsum("bhs,bshd->bhd", torch.softmax(s, -1), v)
+    want = want.reshape(B, 1, H * vh) @ p["wo"].double()
+    del c, v, s
+
+    g_abs, out_abs, pool_abs = _mla_graph(card, step)
+    monkeypatch.setattr(layers, "_absorbed_attention", mla_cases.reexpanded)
+    g_exp, out_exp, pool_exp = _mla_graph(card, step)
+    monkeypatch.setattr(layers, "_absorbed_attention", absorbed)
+    g_abs.replay()
+    g_exp.replay()
+    torch.cuda.synchronize(card)
+    err_abs = (out_abs.double() - want).abs().max().item()
+    err_exp = (out_exp.double() - want).abs().max().item()
+    times = {"absorbed": [], "expanded": []}
+    for name in ("absorbed", "expanded", "expanded", "absorbed"):
+        times[name].append(_replay_ms(
+            card, g_abs if name == "absorbed" else g_exp))
+    # K and V re-expanded (bf16 k_nope, v and K) and their f32 copies
+    reckoned = B * cap * H * (2 * hd + 2 * vh + 2 * (hd + rd)
+                              + 4 * (hd + rd) + 4 * vh)
+    print(f"{torch.cuda.get_device_name(card)}: error against f64 absorbed "
+          f"{err_abs:.3e}, re-expanded {err_exp:.3e}; graph pool absorbed "
+          f"{pool_abs / MIB:.1f} MiB, re-expanded {pool_exp / MIB:.1f} MiB "
+          f"(its K, V and f32 copies reckoned {reckoned / MIB:.1f} MiB); "
+          f"replay absorbed {times['absorbed']} ms, re-expanded "
+          f"{times['expanded']} ms")
+    assert err_abs <= 1.1 * err_exp, (err_abs, err_exp)
+    assert pool_abs < 128 * MIB, pool_abs

@@ -240,3 +240,18 @@ def test_recording_changes_no_token(model):
         on = _serve(cfg, params, make_device("trace", device="cpu"), 0, 5)[0]
     assert rec.spans
     np.testing.assert_array_equal(off, on)
+
+
+def test_decode_counts_mla_layer_steps_by_path(model):
+    """A request's decode steps count their MLA layers by path at retire:
+    every one absorbed (one query position against the cache), none
+    re-expanded, and the prefill's under neither; a model without MLA
+    records neither counter."""
+    cfg, params = model
+    with spans.record() as rec:
+        _serve(cfg, params, make_device("trace", device="cpu"), 0, 7)
+    if not cfg.mla:
+        assert not any(k.startswith("mla.") for k in rec.counters)
+        return
+    assert rec.counters["mla.absorbed_layer_steps"] == NEW * cfg.n_layers
+    assert rec.counters["mla.expanded_layer_steps"] == 0
